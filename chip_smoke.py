@@ -1,0 +1,562 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of the wait-free graph on one NVIDIA card.
+
+Run from the root of a checkout, with one card visible:
+
+    python3 chip_smoke.py [--seed 0]
+
+Phases (any failure exits non-zero; nothing is caught and carried on):
+
+1. The card: its name and power limit, and the build of the CUDA kernels
+   from ``src/repro_torch/csrc`` (timed).
+2. The key hashes on the card against their numpy twins, and each kernel
+   against its plain PyTorch version on small adversarial inputs
+   (duplicates, contention, an all-false mask, sizes off every block size,
+   the placement overflow), exact equality.
+3. The main path at the scale of the SNAP com-Youtube graph (1,134,890
+   vertices, 2,987,624 edges; snap.stanford.edu/data/com-Youtube.html) with
+   synthetic uniform keys from ``--seed``: ``WaitFreeGraph(device="cuda")``
+   at its default capacities grows through the kernels while it takes every
+   vertex and 80 batches of 65,536 ops of the ``traversal`` mix, each batch
+   checked against the sequential oracle.  Then ``apply`` is timed for the
+   paper's Fig. 4 mixes, and one growth rehash, ``build_csr``, ``reachable``,
+   ``bfs_batch`` and ``get_path_batch`` are timed and checked against the
+   oracle on a subset.  Every kernel's launch count is read around this
+   phase and must be above 0.
+4. Each kernel against its plain version at the main path's shapes, on the
+   main path's own tables, with CUDA-event times taken with the L2 cache
+   flushed before each run, the kernel's bound at the device-memory rate
+   (the bytes and operations this run's data needs) and the time of one
+   PyTorch call computing the same function where there is one.
+
+The last line is ``{"ok": true, "device": {...}}``; the line before it the
+``kernels`` record.  Without a card, or outside a checkout of the repository,
+it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+    sys.exit(f"chip_smoke: {ROOT} is not a checkout of the repository")
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.core import (  # noqa: E402
+    OP_ADD_VERTEX, GraphState, SequentialGraph, WaitFreeGraph, hashing, maintenance,
+    run_sequential,
+)
+from repro_torch.core.hashing import hash_vertex, probe_slot  # noqa: E402
+from repro_torch.core.locate import claim_vertex_slots  # noqa: E402
+from repro_torch.core.traversal import _edge_validity, bfs_levels  # noqa: E402
+from repro_torch.core.types import MAX_PROBES  # noqa: E402
+from repro_torch.core.workloads import sample_batch  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.compact import kernel as ck  # noqa: E402
+from repro_torch.kernels.compact import masked_compact, probe_place  # noqa: E402
+from repro_torch.kernels.frontier import frontier_expand  # noqa: E402
+from repro_torch.kernels.frontier import kernel as fk  # noqa: E402
+from repro_torch.kernels.hash_probe import hash_probe  # noqa: E402
+from repro_torch.kernels.hash_probe import kernel as hk  # noqa: E402
+
+# the kernel wrappers, whose launch counts the main path is read by
+WRAPPERS = {
+    "hash_probe": hk.hash_probe, "masked_compact": ck.masked_compact,
+    "probe_place": ck.probe_place, "frontier_expand": fk.frontier_expand,
+}
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
+ALU_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores, the
+                            # integer lanes' stand-in (the sheet has no int32 row)
+
+COM_YOUTUBE_VERTICES = 1_134_890
+BATCH = 65_536
+TRAVERSAL_BATCHES = 80
+TIMED_BATCHES = 10
+FIG4_MIXES = ("lookup", "balanced", "update")
+PLACE_M, PLACE_CAP = 1 << 21, 1 << 22  # the vertex rehash from 2^21 to 2^22 slots
+L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
+SECTOR_BYTES = 32           # the unit a gather moves from device memory
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def sync() -> None:
+    torch.cuda.synchronize()
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1, setup=None) -> float:
+    """Median CUDA-event time of one ``fn(*setup())`` in milliseconds, with
+    the L2 cache flushed before each run, so every input comes from device
+    memory as the bounds assume.  The flush is still running on the card
+    while the host enters ``fn``, so the window holds the device's work, not
+    the wrapper's host time."""
+    scrub = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn(*(setup() if setup else ()))
+    times = []
+    for _ in range(reps):
+        args = setup() if setup else ()
+        scrub.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def wall_s(fn):
+    """(result, seconds) of ``fn()`` on the host clock, ended by a sync."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def max_abs_err(got, want) -> int:
+    """Largest absolute difference over a tuple of integer outputs."""
+    err = 0
+    for g, w in zip(got, want):
+        d = (g.to(torch.int64) - w.to(torch.int64)).abs()
+        err = max(err, int(d.max()) if d.numel() else 0)
+    return err
+
+
+def require_equal(name: str, got, want) -> int:
+    err = max_abs_err(got, want)
+    if err != 0:
+        raise SystemExit(f"{name}: kernel disagrees with its plain version (max abs err {err})")
+    return err
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against plain versions, adversarial small inputs
+# ---------------------------------------------------------------------------
+
+
+def hash_checks(dev) -> None:
+    """The int64 tensor hashing on the card against its numpy twins, at the
+    edge values of int32 and on random keys."""
+    rng = np.random.default_rng(0)
+    i32 = np.iinfo(np.int32)
+    special = np.array([0, -1, i32.min, i32.max, 1, -2], np.int32)
+    us = np.concatenate([special, rng.integers(i32.min, i32.max, 1 << 16, np.int32)])
+    vs = np.concatenate([special[::-1], rng.integers(i32.min, i32.max, 1 << 16, np.int32)])
+    tu, tv = torch.as_tensor(us, device=dev), torch.as_tensor(vs, device=dev)
+    if not np.array_equal(hashing._mix32(tu).cpu().numpy(), hashing._mix32_np(us)):
+        raise SystemExit("mix32 on the card differs from its numpy twin")
+    if not np.array_equal(hashing.edge_hash32(tu, tv).cpu().numpy(),
+                          hashing.edge_hash32_np(us, vs)):
+        raise SystemExit("edge_hash32 on the card differs from its numpy twin")
+
+
+def small_kernel_checks(dev) -> None:
+    hash_checks(dev)
+    rng = np.random.default_rng(1)
+    # hash_probe: a table built by the engine's claim path, duplicate and
+    # absent queries, a full table with no empty slot, n off the block size
+    for cap, n in ((1024, 257), (64, 64)):
+        table = torch.full((cap,), -1, dtype=torch.int32, device=dev)
+        keys = torch.as_tensor(rng.choice(10_000, cap // 4, replace=False).astype(np.int32),
+                               device=dev)
+        table, _, over, _ = claim_vertex_slots(
+            table, keys, torch.ones(cap // 4, dtype=torch.bool, device=dev))
+        if bool(over):
+            raise SystemExit("hash_probe check: the test table overflowed")
+        q = torch.cat([keys[: n // 2], keys[: n // 4],
+                       torch.as_tensor(rng.integers(10_000, 20_000, n - n // 2 - n // 4)
+                                       .astype(np.int32), device=dev)])
+        require_equal("hash_probe", hk.hash_probe(table, q),
+                      hash_probe(table, q, impl="reference"))
+    full = torch.arange(64, dtype=torch.int32, device=dev)
+    q = torch.tensor([5, 100, -1], dtype=torch.int32, device=dev)
+    require_equal("hash_probe", hk.hash_probe(full, q), hash_probe(full, q, impl="reference"))
+
+    # masked_compact: densities 0, 0.3, 1; N off the 1024-lane block
+    for rows, n, density in ((2, 1000, 0.0), (4, 100_003, 0.3), (1, 1025, 1.0), (6, 4096, 0.8)):
+        vals = torch.as_tensor(rng.integers(-5, 1000, (rows, n)).astype(np.int32), device=dev)
+        mask = torch.as_tensor(rng.random(n) < density, device=dev)
+        require_equal("masked_compact", ck.masked_compact(vals, mask, fill=-1),
+                      masked_compact(vals, mask, fill=-1, impl="reference"))
+
+    # probe_place: contended homes, partial activity, the overflow case
+    for cap, m, contended, probes in ((1024, 500, False, 32), (256, 60, True, 32),
+                                      (32, 40, False, 2)):
+        keys = torch.as_tensor(rng.choice(100_000, m, replace=False).astype(np.int32), device=dev)
+        home = hash_vertex(keys, cap)
+        if contended:
+            home = home % 4
+        active = torch.as_tensor(rng.random(m) < (1.0 if probes == 2 else 0.9), device=dev)
+        got = ck.probe_place(home, active, capacity=cap, max_probes=probes)
+        want = probe_place(home, active, capacity=cap, max_probes=probes, impl="reference")
+        require_equal("probe_place", (got[0], got[1]), (want[0], want[1]))
+        if probes == 2 and not bool(got[1]):
+            raise SystemExit("probe_place: overflow not flagged")
+
+    # frontier_expand: one edge, a 65-column frontier, random sweeps
+    for s, c, ce in ((3, 65, 1), (16, 512, 4096), (8, 130, 1024)):
+        fr = torch.as_tensor(rng.random((s, c)) < 0.2, device=dev)
+        src = torch.as_tensor(rng.integers(0, c, ce).astype(np.int32), device=dev)
+        dst = torch.as_tensor(rng.integers(0, c, ce).astype(np.int32), device=dev)
+        require_equal("frontier_expand", (fk.frontier_expand(fr, src, dst),),
+                      (frontier_expand(fr, src, dst, impl="reference"),))
+    sync()
+    log("phase 2: the hashes on the card equal their numpy twins; every kernel equals "
+        "its plain version on the adversarial inputs")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the main path at com-Youtube scale
+# ---------------------------------------------------------------------------
+
+
+def _oracle_apply(oracle, ops, us, vs):
+    exp, _ = run_sequential(ops, us, vs, graph=oracle)
+    return np.asarray(exp, bool)
+
+
+def _check_bits(got, exp, what):
+    if not np.array_equal(got, exp):
+        bad = int(np.flatnonzero(got != exp)[0])
+        raise SystemExit(f"{what}: success bits diverge from the oracle at lane {bad}")
+
+
+def profile_apply(g, oracle, rng, n_keys, n_batches: int = 3) -> dict:
+    """Where ``apply``'s time goes: a profiler window over a few balanced
+    batches (run after the timed ones, so the timing carries no profiler
+    cost).  Reports the device's busy share of the wall time, kernel
+    launches per batch and the device time of the heaviest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = [sample_batch(rng, BATCH, "balanced", key_space=n_keys) for _ in range(n_batches)]
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        results = [g.apply(*b) for b in batches]
+        sync()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    for j, (b, got) in enumerate(zip(batches, results)):
+        _check_bits(got, _oracle_apply(oracle, *b), f"profiled batch {j}")
+    # device-side events only: the host-side aten ops carry their kernels'
+    # time too, and counting both would count it twice
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    res = {
+        "batches": n_batches,
+        "wall_us_per_batch": wall_us / n_batches,
+        "device_busy_share": device_us / wall_us if wall_us else None,
+        "kernel_launches_per_batch": sum(e.count for e in kernels) / n_batches,
+        "top_kernels_us_per_batch": {e.key[:80]: e.self_device_time_total / n_batches
+                                     for e in top},
+    }
+    log("phase 3: apply profile (balanced): " + json.dumps(res))
+    return res
+
+
+def main_path(seed: int):
+    rng = np.random.default_rng(seed)
+    n_keys = COM_YOUTUBE_VERTICES
+    g = WaitFreeGraph(device="cuda")
+    oracle = SequentialGraph()
+    out = {"v_capacity_start": g.state.v_capacity, "e_capacity_start": g.state.e_capacity}
+    caps = {(g.state.v_capacity, g.state.e_capacity)}
+
+    t0 = time.perf_counter()
+    n_ops = 0
+    for lo in range(0, n_keys, BATCH):
+        us = np.arange(lo, min(lo + BATCH, n_keys), dtype=np.int32)
+        ops = np.full(us.shape, OP_ADD_VERTEX, np.int32)
+        got = g.apply(ops, us)
+        _check_bits(got, _oracle_apply(oracle, ops, us, np.zeros_like(us)), "vertex load")
+        n_ops += us.size
+        caps.add((g.state.v_capacity, g.state.e_capacity))
+    for i in range(TRAVERSAL_BATCHES):
+        ops, us, vs = sample_batch(rng, BATCH, "traversal", key_space=n_keys)
+        got = g.apply(ops, us, vs)
+        _check_bits(got, _oracle_apply(oracle, ops, us, vs), f"traversal batch {i}")
+        n_ops += BATCH
+        caps.add((g.state.v_capacity, g.state.e_capacity))
+    out["build_ops"] = n_ops
+    out["build_s_with_oracle"] = time.perf_counter() - t0
+    out["capacities_seen"] = sorted(caps)
+    live_v, live_e = len(oracle.vertices), len(oracle.edges)
+    log(f"phase 3: built {n_ops} ops, every batch equal to the oracle; live vertices "
+        f"{live_v}, live edges {live_e}; tables Cv={g.state.v_capacity} Ce={g.state.e_capacity}; "
+        f"capacities seen {sorted(caps)}")
+    out.update(live_vertices=live_v, live_edges=live_e,
+               v_capacity=g.state.v_capacity, e_capacity=g.state.e_capacity)
+
+    # Fig. 4 mixes: time apply, then check the bits against the oracle
+    out["apply_ops_per_s"] = {}
+    for mix in FIG4_MIXES:
+        batches = [sample_batch(rng, BATCH, mix, key_space=n_keys) for _ in range(TIMED_BATCHES)]
+        warm = g.apply(*batches[0])
+        _check_bits(warm, _oracle_apply(oracle, *batches[0]), f"{mix} warm-up batch")
+        results = []
+        sync()
+        t0 = time.perf_counter()
+        for b in batches[1:]:
+            results.append(g.apply(*b))
+        sync()
+        dt = time.perf_counter() - t0
+        rate = (TIMED_BATCHES - 1) * BATCH / dt
+        for j, (b, got) in enumerate(zip(batches[1:], results)):
+            _check_bits(got, _oracle_apply(oracle, *b), f"{mix} batch {j}")
+        out["apply_ops_per_s"][mix] = rate
+        log(f"phase 3: apply {mix}: {rate:.0f} ops/s over {TIMED_BATCHES - 1} batches of "
+            f"{BATCH} (host clock, ended by a sync); bits equal to the oracle")
+
+    out["apply_profile"] = profile_apply(g, oracle, rng, n_keys)
+
+    # one growth rehash at the final size, held against the host reference
+    state = g.state
+    (grown, ok), dt = wall_s(lambda: maintenance.rehash(
+        state, 2 * state.v_capacity, 2 * state.e_capacity, impl="device"))
+    host, host_ok = maintenance.rehash(state, 2 * state.v_capacity, 2 * state.e_capacity,
+                                          impl="host")
+    if not (ok and host_ok):
+        raise SystemExit("rehash at the final size overflowed")
+    for f in GraphState._fields:
+        if not torch.equal(getattr(grown, f), getattr(host, f)):
+            raise SystemExit(f"device rehash differs from the host reference in {f}")
+    del grown, host
+    out["rehash_ms"] = dt * 1e3
+    log(f"phase 3: growth rehash to Cv={2 * state.v_capacity} Ce={2 * state.e_capacity}: "
+        f"{dt * 1e3:.3f} ms, equal to the host reference; snapshot equal to the oracle")
+
+    if g.snapshot() != (oracle.vertices, oracle.edges):
+        raise SystemExit("the graph's snapshot differs from the oracle")
+    csr, dt = wall_s(g.traversal_csr)  # the last batch mutated: a full build_csr
+    out["build_csr_ms"] = dt * 1e3
+    if int(csr.n_edges) != len(oracle.edges):
+        raise SystemExit("CSR edge count differs from the oracle")
+
+    # queries: 16 BFS sources; the first 4 are checked against the oracle,
+    # and so are the 32 reachability pairs and 16 paths drawn from them
+    live_keys = np.fromiter(oracle.vertices, np.int64, len(oracle.vertices)).astype(np.int32)
+    sources = rng.choice(live_keys, 16, replace=False)
+    checked = sources[:4]
+    r_us = np.concatenate([np.repeat(checked, 8), rng.integers(0, n_keys, 224)]).astype(np.int32)
+    r_vs = rng.integers(0, n_keys, 256).astype(np.int32)
+    p_us = np.repeat(checked, 4).astype(np.int32)
+    p_vs = rng.choice(live_keys, 16).astype(np.int32)
+
+    reach, dt = wall_s(lambda: g.reachable(r_us, r_vs))
+    out["reachable_256_ms"] = dt * 1e3
+    levels, dt = wall_s(lambda: g.bfs_batch(sources.tolist()))
+    out["bfs_batch_16_ms"] = dt * 1e3
+    paths, dt = wall_s(lambda: g.get_path_batch(p_us, p_vs))
+    out["get_path_batch_16_ms"] = dt * 1e3
+
+    ref = {int(u): oracle.bfs(int(u)) for u in checked}
+    for i, u in enumerate(checked):
+        if levels[i] != ref[int(u)]:
+            raise SystemExit(f"bfs from {u} differs from the oracle")
+    for u, v, r in zip(r_us[:32], r_vs[:32], reach[:32]):
+        if bool(r) != (int(v) in ref[int(u)]):
+            raise SystemExit(f"reachable({u}, {v}) differs from the oracle")
+    for u, v, p in zip(p_us, p_vs, paths):
+        want = ref[int(u)].get(int(v))
+        if (p is None) != (want is None):
+            raise SystemExit(f"get_path({u}, {v}) differs from the oracle")
+        if p is not None and (len(p) != want + 1 or p[0] != u or p[-1] != v or
+                              any(e not in oracle.edges for e in zip(p, p[1:]))):
+            raise SystemExit(f"get_path({u}, {v}) is not a shortest path")
+    out["bfs_reached_mean"] = float(np.mean([len(x) for x in levels]))
+    log(f"phase 3: build_csr {out['build_csr_ms']:.3f} ms; reachable on 256 pairs "
+        f"{out['reachable_256_ms']:.3f} ms; bfs_batch on 16 sources {out['bfs_batch_16_ms']:.3f} ms "
+        f"(mean {out['bfs_reached_mean']:.0f} vertices reached); get_path_batch on 16 pairs "
+        f"{out['get_path_batch_16_ms']:.3f} ms; 4 BFS maps, 32 pairs and 16 paths equal to the oracle")
+    return out, g, sources
+
+
+# ---------------------------------------------------------------------------
+# phase 4: kernels at the main path's shapes
+# ---------------------------------------------------------------------------
+
+
+def _bound(bytes_moved: float, ops: float):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ALU_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _probe_steps(home, slot, cap):
+    """Probe steps each lane walked to reach ``slot`` (data-dependent work)."""
+    steps = torch.full_like(home, MAX_PROBES)
+    for s in range(MAX_PROBES - 1, -1, -1):
+        steps = torch.where(probe_slot(home, s, cap) == slot, s + 1, steps)
+    return steps
+
+
+def _probe_sectors(home, steps, cap) -> int:
+    """Distinct 32-byte sectors of the table that walks of ``steps`` steps
+    from ``home`` touch: the table bytes the probes need."""
+    per_slot = SECTOR_BYTES // 4
+    touched = [probe_slot(home[steps > s], s, cap) // per_slot for s in range(MAX_PROBES)]
+    return torch.unique(torch.cat(touched)).numel()
+
+
+def full_shape_kernels(g, sources, launches, dev) -> list:
+    rng = np.random.default_rng(2)
+    state = g.state
+    csr = g.traversal_csr()
+    rows = []
+
+    def record(name, source, replaces, got, want, ms, plain_ms, bound, library_ms):
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": require_equal(name, got, want),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": library_ms,
+        })
+
+    # hash_probe: the final vertex table, 2^17 queries, half present
+    table = state.v_key
+    cap = table.shape[0]
+    live = state.v_key[state.v_live]
+    q = torch.cat([live[torch.randperm(live.numel(), device=dev)[: 1 << 16]],
+                   torch.randint(COM_YOUTUBE_VERTICES, 2**31 - 1, (1 << 16,), device=dev,
+                                 dtype=torch.int32)])
+    got = hk.hash_probe(table, q)
+    want = hash_probe(table, q, impl="reference")
+    home = hash_vertex(q, cap)
+    steps = _probe_steps(home, torch.where(got[0] >= 0, got[0], got[1]), cap)
+    sectors, probe_steps = _probe_sectors(home, steps, cap), int(steps.sum())
+    record("hash_probe", "src/repro_torch/csrc/hash_probe.cu",
+           "src/repro/kernels/hash_probe/kernel.py:62", got, want,
+           cuda_ms(lambda: hk.hash_probe(table, q), 20),
+           cuda_ms(lambda: hash_probe(table, q, impl="reference"), 5),
+           _bound(SECTOR_BYTES * sectors + 12 * q.numel(),
+                  16 * q.numel() + 10 * probe_steps),
+           None)
+
+    # masked_compact: the edge rehash's compaction of the final edge table
+    _, _, valid = _edge_validity(state)
+    vals = torch.stack([state.e_key_u, state.e_key_v, state.e_inc_u, state.e_inc_v])
+    r, n = vals.shape
+    got = ck.masked_compact(vals, valid, fill=-1)
+    want = masked_compact(vals, valid, fill=-1, impl="reference")
+    record("masked_compact", "src/repro_torch/csrc/compact.cu",
+           "src/repro/kernels/compact/kernel.py:61", got, want,
+           cuda_ms(lambda: ck.masked_compact(vals, valid, fill=-1), 20),
+           cuda_ms(lambda: masked_compact(vals, valid, fill=-1, impl="reference"), 5),
+           _bound(2 * 4 * r * n + n + 4, (r + 4) * n),
+           cuda_ms(lambda: vals[:, valid], 20))
+
+    # probe_place: the vertex rehash from 2^21 to 2^22 slots, on the live keys
+    m, pcap = PLACE_M, PLACE_CAP
+    keys = torch.full((m,), -1, dtype=torch.int32, device=dev)
+    keys[: live.numel()] = live[:m]
+    active = torch.arange(m, device=dev) < min(live.numel(), m)
+    home = torch.where(active, hash_vertex(keys, pcap), 0)
+    got = ck.probe_place(home, active, capacity=pcap, max_probes=MAX_PROBES)
+    want = probe_place(home, active, capacity=pcap, max_probes=MAX_PROBES, impl="reference")
+    placed = got[0] >= 0
+    place_steps = int(_probe_steps(home[placed], got[0][placed], pcap).sum())
+    record("probe_place", "src/repro_torch/csrc/compact.cu",
+           "src/repro/kernels/compact/kernel.py:106", got, want,
+           cuda_ms(lambda: ck.probe_place(home, active, capacity=pcap,
+                                                max_probes=MAX_PROBES), 5),
+           cuda_ms(lambda: probe_place(home, active, capacity=pcap, max_probes=MAX_PROBES,
+                                         impl="reference"), 2),
+           _bound(9 * m + 1, 12 * place_steps + 8 * int(placed.sum())),
+           None)
+
+    # frontier_expand: 16 BFS frontiers one level deep in the final snapshot
+    src_keys = torch.as_tensor(sources.astype(np.int32), device=dev)
+    lv = bfs_levels(csr, src_keys)
+    depth = 3
+    frontier = torch.zeros((16, csr.v_capacity + 1), dtype=torch.bool, device=dev)
+    frontier[:, : csr.v_capacity] = lv == depth
+    s_n, c = frontier.shape
+    ce = csr.src.numel()
+    got = (fk.frontier_expand(frontier, csr.src, csr.dst),)
+    want = (frontier_expand(frontier, csr.src, csr.dst, impl="reference"),)
+    idx = csr.dst.long()[None, :].expand(s_n, -1)
+    cand = torch.where(frontier[:, csr.src.long()], csr.src[None, :], 2**31 - 1)
+    base = torch.full((s_n, c), 2**31 - 1, dtype=torch.int32, device=dev)
+    lib_ms = cuda_ms(lambda out: out.scatter_reduce_(1, idx, cand, "amin"), 10,
+                     setup=lambda: (base.clone(),))
+    record("frontier_expand", "src/repro_torch/csrc/frontier.cu",
+           "src/repro/kernels/frontier/kernel.py:61", got, want,
+           cuda_ms(lambda: fk.frontier_expand(frontier, csr.src, csr.dst), 20),
+           cuda_ms(lambda: frontier_expand(frontier, csr.src, csr.dst, impl="reference"), 5),
+           _bound(s_n * c + 8 * ce + 4 * s_n * c, 3 * s_n * ce),
+           lib_ms)
+    log(f"phase 4: every kernel equals its plain version at the main path's shapes "
+        f"(hash_probe table {cap} / queries {q.numel()}, {sectors} table sectors "
+        f"touched, {probe_steps} probe steps; masked_compact {r} x {n}; "
+        f"probe_place {m} into {pcap}, {int(placed.sum())} keys in {place_steps} steps; "
+        f"frontier_expand S={s_n} C={c} Ce={ce}, depth {depth})")
+    return rows
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels run only on the card",
+              file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t_start = time.perf_counter()
+
+    # phase 1: the card and the kernel build
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"phase 1: card {torch.cuda.get_device_name(0)} ({smi}); kernels built from "
+        f"src/repro_torch/csrc in {time.perf_counter() - t0:.1f} s; torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+
+    small_kernel_checks(dev)
+
+    # phase 3: the main path, with every launch count read around it
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    summary, g, sources = main_path(args.seed)
+    launches = {name: fn.launches for name, fn in WRAPPERS.items()}
+    log(f"phase 3: kernel launches on the main path: {json.dumps(launches)}")
+    missing = [name for name, n in launches.items() if n == 0]
+    if missing:
+        raise SystemExit(f"the main path never launched: {missing}")
+
+    rows = full_shape_kernels(g, sources, launches, dev)
+    summary["card"] = smi
+    summary["seconds"] = time.perf_counter() - t_start
+    log("main path: " + json.dumps(summary))
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,68 @@
+"""repro_torch.core — the paper's wait-free concurrent unbounded graph, in
+PyTorch.  Module for module the counterpart of ``repro.core``:
+
+  * :class:`repro_torch.core.graph.WaitFreeGraph` — unbounded graph, six ops,
+    batched apply, growth, snapshot queries (one shard, wait-free engine).
+  * :func:`repro_torch.core.engine.apply_batch` — the wait-free combine pass.
+  * :mod:`repro_torch.core.oracle` — sequential specification (ground truth).
+  * :mod:`repro_torch.core.traversal` — batched reachability/BFS/k-hop over
+    CSR snapshots.
+  * :mod:`repro_torch.core.maintenance` — the growth rehash.
+"""
+
+from . import maintenance
+from .graph import WaitFreeGraph
+from .oracle import SequentialGraph, run_sequential
+from .traversal import (
+    TraversalCSR,
+    bfs_levels,
+    bfs_parents,
+    build_csr,
+    khop_mask,
+    path_probe,
+    reachable,
+)
+from .types import (
+    OP_ADD_EDGE,
+    OP_ADD_VERTEX,
+    OP_CONTAINS_EDGE,
+    OP_CONTAINS_VERTEX,
+    OP_NOP,
+    OP_REMOVE_EDGE,
+    OP_REMOVE_VERTEX,
+    ApplyResult,
+    GraphState,
+    OpBatch,
+    make_batch,
+    make_state,
+    state_from_numpy,
+    state_to_numpy,
+)
+
+__all__ = [
+    "WaitFreeGraph",
+    "maintenance",
+    "SequentialGraph",
+    "run_sequential",
+    "TraversalCSR",
+    "build_csr",
+    "bfs_levels",
+    "bfs_parents",
+    "path_probe",
+    "reachable",
+    "khop_mask",
+    "GraphState",
+    "OpBatch",
+    "ApplyResult",
+    "make_batch",
+    "make_state",
+    "state_from_numpy",
+    "state_to_numpy",
+    "OP_NOP",
+    "OP_ADD_VERTEX",
+    "OP_REMOVE_VERTEX",
+    "OP_CONTAINS_VERTEX",
+    "OP_ADD_EDGE",
+    "OP_REMOVE_EDGE",
+    "OP_CONTAINS_EDGE",
+]

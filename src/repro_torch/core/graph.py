@@ -1,0 +1,312 @@
+"""Host-side wrapper: the *unbounded* wait-free graph, on one device.
+
+Port of ``repro.core.graph.WaitFreeGraph`` for one shard and the wait-free
+engine.  ``WaitFreeGraph`` owns the :class:`GraphState` plus the global phase
+counter (the paper's ``maxPhase`` fetch-and-add — a host-side monotone
+counter; each batch gets ``counter + iota`` stamps).  "Unbounded" is
+amortized growth: every engine pass is *transactional* — if a bounded probe
+chain or insert round tripped its cap (``ok == False``), the post-state is
+discarded, the tables are grown (rehash = Harris physical deletion), and the
+same batch is re-applied against the grown pre-state.
+
+The graph lives on the card unless the caller asks for another device:
+``device=None`` means ``"cuda"``, and raises where no card is present.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Set, Tuple
+
+import numpy as np
+import torch
+
+from . import engine, maintenance, traversal
+from .types import (
+    EMPTY_KEY,
+    GROW_LOAD_FACTOR,
+    OP_ADD_EDGE,
+    OP_ADD_VERTEX,
+    OP_CONTAINS_EDGE,
+    OP_CONTAINS_VERTEX,
+    OP_REMOVE_EDGE,
+    OP_REMOVE_VERTEX,
+    GraphState,
+    is_pow2,
+    make_batch,
+    make_state,
+)
+
+_MAX_GROW_ATTEMPTS = 12
+
+_MUTATING_OPS = (OP_ADD_VERTEX, OP_REMOVE_VERTEX, OP_ADD_EDGE, OP_REMOVE_EDGE)
+
+
+def _bucket_size(n: int) -> int:
+    """Power-of-two batch bucket (floor 64), as in ``repro``: the padding
+    and phase stamps must match it for the states to stay identical."""
+    return max(64, 1 << max(n - 1, 1).bit_length())
+
+
+def _used_slots(state: GraphState) -> Tuple[int, int]:
+    """(used vertex slots, used edge slots), tombstones included — one read
+    back to the host."""
+    counts = torch.stack([(state.v_key != EMPTY_KEY).sum(), (state.e_key_u != EMPTY_KEY).sum()])
+    v_used, e_used = counts.tolist()
+    return v_used, e_used
+
+
+def _rehash_escalating(
+    state: GraphState, new_vcap: int, new_ecap: int, impl: Optional[str] = None
+) -> GraphState:
+    """Rehash into ``(new_vcap, new_ecap)``; should placement overflow
+    ``MAX_PROBES``, double both capacities and retry."""
+    for _ in range(_MAX_GROW_ATTEMPTS):
+        new_state, ok = maintenance.rehash(state, new_vcap, new_ecap, impl=impl)
+        if ok:
+            return new_state
+        new_vcap *= 2
+        new_ecap *= 2
+    raise RuntimeError("rehash placement did not converge")
+
+
+def _resolve_device(device) -> torch.device:
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "WaitFreeGraph runs on the card by default and no CUDA device "
+                "is available; pass device='cpu' to run on the CPU"
+            )
+        device = "cuda"
+    return torch.device(device)
+
+
+class WaitFreeGraph:
+    """The unbounded concurrent graph: the paper's public API, batched.
+
+    ``maintenance_impl`` selects where the growth rehash runs: ``"device"``
+    (the ``compact`` kernels on the graph's device) or ``"host"`` (the numpy
+    reference); ``None`` means ``"device"``.  Both give identical tables.
+
+    Traversal snapshots are rebuilt lazily after every mutating batch
+    (``csr_maintenance="rebuild"``), which gives answers bit-identical to
+    ``repro``'s incremental ``"delta"`` fold.
+
+    Not in this slice, and refused with ``NotImplementedError``:
+    ``mode="fpsp"``, ``n_shards > 1``, ``csr_maintenance="delta"`` and
+    ``obs`` (ROADMAP.md, "Queue 1").
+    """
+
+    def __init__(
+        self,
+        v_capacity: int = 1024,
+        e_capacity: int = 4096,
+        mode: str = "waitfree",
+        csr_maintenance: str = "rebuild",
+        maintenance_impl: Optional[str] = None,
+        n_shards: int = 1,
+        obs=None,
+        device=None,
+    ):
+        if mode == "fpsp":
+            raise NotImplementedError("mode='fpsp': ROADMAP.md queue 1, next slice 'FPSP'")
+        if mode != "waitfree":
+            raise ValueError(f"unknown mode {mode!r}")
+        if csr_maintenance == "delta":
+            raise NotImplementedError(
+                "csr_maintenance='delta': ROADMAP.md queue 1, next slice 'Delta CSR maintenance'"
+            )
+        if csr_maintenance != "rebuild":
+            raise ValueError(f"unknown csr_maintenance {csr_maintenance!r}")
+        if not is_pow2(n_shards):
+            raise ValueError("n_shards must be a power of two")
+        if n_shards > 1:
+            raise NotImplementedError("n_shards > 1: ROADMAP.md queue 1, next slice 'Sharding'")
+        if obs:
+            raise NotImplementedError("obs: ROADMAP.md queue 1, next slice 'Telemetry'")
+        maintenance.resolve_impl(maintenance_impl)
+        self.device = _resolve_device(device)
+        self.maintenance_impl = maintenance_impl
+        self.state = make_state(v_capacity, e_capacity, device=self.device)
+        self._phase = 0  # the paper's maxPhase counter
+
+    @property
+    def state(self) -> GraphState:
+        return self._state
+
+    @state.setter
+    def state(self, value: GraphState) -> None:
+        # any state swap invalidates the cached traversal snapshot
+        self._state = value
+        self._csr: Optional[traversal.TraversalCSR] = None
+
+    # -- batched API ------------------------------------------------------
+    def apply(self, ops, us, vs=None) -> np.ndarray:
+        """Apply a batch; returns bool[n] success per op (phase order = batch
+        order).  Batches are padded to power-of-two buckets with NOP lanes,
+        exactly as in ``repro``."""
+        ops0 = np.asarray(ops, np.int32)
+        n = ops0.shape[0]
+        if n == 0:
+            return np.zeros(0, bool)
+        us0 = np.asarray(us, np.int32)
+        vs0 = np.zeros_like(us0) if vs is None else np.asarray(vs, np.int32)
+        # read-only batches leave the abstract graph unchanged, so the cached
+        # traversal snapshot stays valid across the state swap below
+        mutating = bool(np.isin(ops0, _MUTATING_OPS).any())
+        saved_csr = None if mutating else self._csr
+        bucket = _bucket_size(n)
+        pad = np.zeros(bucket - n, np.int32)  # OP_NOP = 0
+        batch = make_batch(
+            np.concatenate([ops0, pad]),
+            np.concatenate([us0, pad]),
+            np.concatenate([vs0, pad]),
+            phase_base=self._phase,
+            device=self.device,
+        )
+        self._phase += batch.size
+
+        for _ in range(_MAX_GROW_ATTEMPTS):
+            pre = self.state  # kept alive for transactional retry
+            res = engine.apply_batch(pre, batch)
+            if bool(res.ok) and not self._needs_growth(res.state):
+                self.state = res.state
+                self._csr = saved_csr
+                return res.success[:n].cpu().numpy()
+            # discard post-state; grow from pre-state; retry the same batch
+            self.state = self._grow(pre)
+        raise RuntimeError("graph growth did not converge")
+
+    def _needs_growth(self, state: GraphState) -> bool:
+        v_used, e_used = _used_slots(state)
+        return (v_used > GROW_LOAD_FACTOR * state.v_capacity) or (
+            e_used > GROW_LOAD_FACTOR * state.e_capacity
+        )
+
+    def _grow(self, state: GraphState) -> GraphState:
+        v_used, e_used = _used_slots(state)
+        new_vcap = state.v_capacity
+        new_ecap = state.e_capacity
+        # grow whichever table is crowded (or both, when neither is)
+        if v_used > GROW_LOAD_FACTOR * state.v_capacity / 2:
+            new_vcap *= 2
+        if e_used > GROW_LOAD_FACTOR * state.e_capacity / 2:
+            new_ecap *= 2
+        if new_vcap == state.v_capacity and new_ecap == state.e_capacity:
+            new_vcap *= 2
+            new_ecap *= 2
+        return _rehash_escalating(state, new_vcap, new_ecap, self.maintenance_impl)
+
+    # -- the paper's six-operation convenience API -------------------------
+    def add_vertex(self, u: int) -> bool:
+        return bool(self.apply([OP_ADD_VERTEX], [u])[0])
+
+    def remove_vertex(self, u: int) -> bool:
+        return bool(self.apply([OP_REMOVE_VERTEX], [u])[0])
+
+    def contains_vertex(self, u: int) -> bool:
+        return bool(self.apply([OP_CONTAINS_VERTEX], [u])[0])
+
+    def add_edge(self, u: int, v: int) -> bool:
+        return bool(self.apply([OP_ADD_EDGE], [u], [v])[0])
+
+    def remove_edge(self, u: int, v: int) -> bool:
+        return bool(self.apply([OP_REMOVE_EDGE], [u], [v])[0])
+
+    def contains_edge(self, u: int, v: int) -> bool:
+        return bool(self.apply([OP_CONTAINS_EDGE], [u], [v])[0])
+
+    # -- traversal queries (batched wait-free reachability) -----------------
+    #
+    # Every query runs against one cached TraversalCSR snapshot of the
+    # post-batch state, rebuilt lazily after a mutating batch.
+
+    def traversal_csr(self) -> traversal.TraversalCSR:
+        """The cached consistent snapshot all queries linearize against."""
+        if self._csr is None:
+            self._csr = traversal.build_csr(self.state)
+        return self._csr
+
+    def _pad_keys(self, keys: Sequence[int]) -> Tuple[torch.Tensor, int]:
+        """Pad a query key batch to a power-of-two bucket with EMPTY_KEY lanes."""
+        arr = np.asarray(keys, np.int32)
+        padded = traversal._pad_pow2(arr, EMPTY_KEY)
+        return torch.as_tensor(padded, device=self.device), arr.shape[0]
+
+    def reachable(self, us, vs):
+        """Batched directed reachability: bool[n], ``us[i] ↝ vs[i]``.
+        False when either endpoint is absent; ``u ↝ u`` is True iff u exists.
+        Scalars are accepted and return a plain bool."""
+        scalar = np.isscalar(us)
+        if scalar:
+            us, vs = [us], [vs]
+        if len(us) != len(vs):
+            raise ValueError(f"reachable: {len(us)} sources vs {len(vs)} targets")
+        pu, n = self._pad_keys(us)
+        pv, _ = self._pad_keys(vs)
+        out = traversal.reachable(self.traversal_csr(), pu, pv)[:n].cpu().numpy()
+        return bool(out[0]) if scalar else out
+
+    def bfs(self, u: int) -> Dict[int, int]:
+        """BFS level map from ``u``: {vertex_key: hop_distance}, ``u`` at 0.
+        Empty when ``u`` is absent."""
+        return self.bfs_batch([u])[0]
+
+    def bfs_batch(self, sources: Sequence[int]) -> List[Dict[int, int]]:
+        """Batched BFS: one level map per source, all against one snapshot."""
+        pk, n = self._pad_keys(sources)
+        csr = self.traversal_csr()
+        levels = traversal.bfs_levels(csr, pk)[:n].cpu().numpy()
+        v_key = csr.v_key.cpu().numpy()
+        out = []
+        for row in levels:
+            hit = np.nonzero(row >= 0)[0]
+            out.append(dict(zip(v_key[hit].tolist(), row[hit].tolist())))
+        return out
+
+    def khop(self, u: int, k: int) -> Set[int]:
+        """Vertex keys within ≤k directed hops of ``u`` (including ``u``)."""
+        pk, _ = self._pad_keys([u])
+        csr = self.traversal_csr()
+        mask = traversal.khop_mask(csr, pk, int(k))[0].cpu().numpy()
+        return set(csr.v_key.cpu().numpy()[mask].tolist())
+
+    def get_path(self, u: int, v: int) -> Optional[List[int]]:
+        """A shortest directed path ``u ↝ v`` as an explicit key list, or
+        ``None`` when unreachable or either endpoint is absent."""
+        return self.get_path_batch([u], [v])[0]
+
+    def get_path_batch(self, us, vs) -> List[Optional[List[int]]]:
+        """Batched ``GetPath``: one shortest path (or None) per (u, v) pair,
+        all answered against one snapshot; the host walks the canonical
+        parent chain back from each target."""
+        if len(us) != len(vs):
+            raise ValueError(f"get_path_batch: {len(us)} sources vs {len(vs)} targets")
+        pu, n = self._pad_keys(us)
+        pv, _ = self._pad_keys(vs)
+        csr = self.traversal_csr()
+        levels, parents, vslot, vlive = (
+            x[:n].cpu().numpy() for x in traversal.path_probe(csr, pu, pv)
+        )
+        v_key = csr.v_key.cpu().numpy()
+        out: List[Optional[List[int]]] = []
+        for i in range(n):
+            if not vlive[i] or levels[i, vslot[i]] < 0:
+                out.append(None)
+                continue
+            chain = [int(vslot[i])]
+            while levels[i, chain[-1]] > 0:
+                chain.append(int(parents[i, chain[-1]]))
+            out.append([int(v_key[s]) for s in reversed(chain)])
+        return out
+
+    # -- introspection ------------------------------------------------------
+    def snapshot(self) -> Tuple[set, set]:
+        """Abstract (V, E): the live vertex keys and the incarnation-valid
+        edge keys."""
+        v_mask, e_mask = traversal.snapshot_live(self.state)
+        v_mask = v_mask.cpu().numpy()
+        e_mask = e_mask.cpu().numpy()
+        verts = set(self.state.v_key.cpu().numpy()[v_mask].tolist())
+        eu = self.state.e_key_u.cpu().numpy()[e_mask].tolist()
+        ev = self.state.e_key_v.cpu().numpy()[e_mask].tolist()
+        return verts, set(zip(eu, ev))
