@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the wait-free graph on one NVIDIA card.
+"""Drive the PyTorch/CUDA port on one NVIDIA card: the wait-free graph and
+the dense LM's serving path.
 
 Run from the root of a checkout, with one card visible:
 
@@ -9,25 +10,46 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 
 1. The card: its name and power limit, and the build of the CUDA kernels
    from ``src/repro_torch/csrc`` (timed).
-2. The key hashes on the card against their numpy twins, and each kernel
-   against its plain PyTorch version on small adversarial inputs
+2. The key hashes on the card against their numpy twins, and each graph
+   kernel against its plain PyTorch version on small adversarial inputs
    (duplicates, contention, an all-false mask, sizes off every block size,
    the placement overflow), exact equality.
-3. The main path at the scale of the SNAP com-Youtube graph (1,134,890
-   vertices, 2,987,624 edges; snap.stanford.edu/data/com-Youtube.html) with
-   synthetic uniform keys from ``--seed``: ``WaitFreeGraph(device="cuda")``
-   at its default capacities grows through the kernels while it takes every
-   vertex and 80 batches of 65,536 ops of the ``traversal`` mix, each batch
-   checked against the sequential oracle.  Then ``apply`` is timed for the
-   paper's Fig. 4 mixes, and one growth rehash, ``build_csr``, ``reachable``,
-   ``bfs_batch`` and ``get_path_batch`` are timed and checked against the
-   oracle on a subset.  Every kernel's launch count is read around this
-   phase and must be above 0.
-4. Each kernel against its plain version at the main path's shapes, on the
-   main path's own tables, with CUDA-event times taken with the L2 cache
-   flushed before each run, the kernel's bound at the device-memory rate
-   (the bytes and operations this run's data needs) and the time of one
-   PyTorch call computing the same function where there is one.
+3. The graph's main path at the scale of the SNAP com-Youtube graph
+   (1,134,890 vertices, 2,987,624 edges;
+   snap.stanford.edu/data/com-Youtube.html) with synthetic uniform keys from
+   ``--seed``: ``WaitFreeGraph(device="cuda")`` at its default capacities
+   grows through the kernels while it takes every vertex and 80 batches of
+   65,536 ops of the ``traversal`` mix, each batch checked against the
+   sequential oracle.  Then ``apply`` is timed for the paper's Fig. 4 mixes,
+   and one growth rehash, ``build_csr``, ``reachable``, ``bfs_batch`` and
+   ``get_path_batch`` are timed and checked against the oracle on a subset.
+   Every graph kernel's launch count is read around this phase and must be
+   above 0.
+4. Each graph kernel against its plain version at the main path's shapes,
+   on the main path's own tables, with CUDA-event times taken with the L2
+   cache flushed before each run, the kernel's bound (the bytes and
+   operations this run's data needs) and the time of one PyTorch call
+   computing the same function where there is one.
+5. ``flash_attention`` against its plain version on adversarial small
+   shapes (MHA, GQA, MQA, window, Sq != Sk non-causal, Sk off the tile, a
+   GQA group of 7, rows whose keys are all masked), f32 within 2e-5 and
+   bf16 within 2e-2.
+6. The LM's serving path at the full width of qwen2-7b (28 layers, d_model
+   3584, GQA 28/4, vocab 152064; arXiv:2407.10671), bf16 parameters drawn on
+   the card from ``--seed``: ``build_prefill_step`` on 2 prompts of 4,096
+   tokens through the kernel, held within 3e-2 relative L2 (last-token
+   logits) of the same prefill with the plain attention forced and timed
+   (median of 3 after a warm-up); then ``ServingEngine`` (8 slots, 512
+   positions, pages of 16) drains 16 requests of 16-64 prompt tokens and 32
+   new tokens, half greedy and half at temperature 0.8, with its page table
+   in the port's ``WaitFreeGraph(mode="fpsp")``.  ``failover()`` must give
+   identical page tables and graph state, and two greedy requests decoded
+   alone must give the batch's tokens.  The launch counts are read around
+   this phase: the attention kernel and the page table's graph kernels must
+   each run.
+7. ``flash_attention`` at the prefill's shape (B 2, Hq 28, Hkv 4, S 4096,
+   D 128, bf16, causal) against its plain version, timed as in phase 4,
+   beside ``scaled_dot_product_attention`` as the library yardstick.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``kernels`` record.  Without a card, or outside a checkout of the repository,
@@ -52,6 +74,7 @@ if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
     sys.exit(f"chip_smoke: {ROOT} is not a checkout of the repository")
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     OP_ADD_VERTEX, GraphState, SequentialGraph, WaitFreeGraph, hashing, maintenance,
     run_sequential,
@@ -64,20 +87,31 @@ from repro_torch.core.workloads import sample_batch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.compact import kernel as ck  # noqa: E402
 from repro_torch.kernels.compact import masked_compact, probe_place  # noqa: E402
+from repro_torch.kernels.flash_attention import attention  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fak  # noqa: E402
 from repro_torch.kernels.frontier import frontier_expand  # noqa: E402
 from repro_torch.kernels.frontier import kernel as fk  # noqa: E402
 from repro_torch.kernels.hash_probe import hash_probe  # noqa: E402
 from repro_torch.kernels.hash_probe import kernel as hk  # noqa: E402
+from repro_torch.launch.steps import build_prefill_step  # noqa: E402
+from repro_torch.models import LM  # noqa: E402
+from repro_torch.models.module import tree_leaves  # noqa: E402
+from repro_torch.serving import Request, ServingEngine  # noqa: E402
 
-# the kernel wrappers, whose launch counts the main path is read by
+# the kernel wrappers, whose launch counts the main paths are read by
 WRAPPERS = {
     "hash_probe": hk.hash_probe, "masked_compact": ck.masked_compact,
     "probe_place": ck.probe_place, "frontier_expand": fk.frontier_expand,
+    "flash_attention": fak.flash_attention,
 }
+GRAPH_PATH = ("hash_probe", "masked_compact", "probe_place", "frontier_expand")
+# serving: prefill attention, and the page table's locate and growth rehash
+SERVE_PATH = ("flash_attention", "hash_probe", "masked_compact", "probe_place")
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 ALU_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores, the
                             # integer lanes' stand-in (the sheet has no int32 row)
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 
 COM_YOUTUBE_VERTICES = 1_134_890
 BATCH = 65_536
@@ -87,6 +121,29 @@ FIG4_MIXES = ("lookup", "balanced", "update")
 PLACE_M, PLACE_CAP = 1 << 21, 1 << 22  # the vertex rehash from 2^21 to 2^22 slots
 L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
 SECTOR_BYTES = 32           # the unit a gather moves from device memory
+
+# flash attention against its plain version: tests/test_kernels.py's sweep
+# and tolerances, plus a GQA group of 7 at D = 128 off the 64-row tile, and
+# rows whose window lies wholly past Sk (every key masked)
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+FLASH_SHAPES = [  # (B, Hq, Hkv, Sq, Sk, D, causal, window)
+    (1, 2, 2, 32, 32, 16, True, None),
+    (2, 4, 2, 64, 64, 32, True, None),
+    (1, 8, 1, 32, 32, 64, True, None),
+    (2, 4, 2, 64, 64, 32, True, 16),
+    (1, 2, 2, 16, 48, 32, False, None),
+    (1, 2, 2, 32, 40, 16, True, None),
+    (1, 14, 2, 100, 100, 128, True, None),
+    (1, 2, 1, 64, 16, 32, True, 8),
+]
+
+LM_ARCH = "qwen2-7b"
+PREFILL_BATCH, PREFILL_LEN, PREFILL_RUNS = 2, 4096, 3
+LOGITS_REL_L2 = 3e-2        # kernel prefill against plain-attention prefill
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_PAGE = 8, 512, 16
+SERVE_REQUESTS, SERVE_NEW, SERVE_PROMPT = 16, 32, (16, 64)
+SERVE_ALONE = (0, 2)        # greedy requests admitted at tick 0, in slots 0 and 2
+PROFILE_TICKS = 6
 
 
 def log(msg: str) -> None:
@@ -237,36 +294,48 @@ def _check_bits(got, exp, what):
         raise SystemExit(f"{what}: success bits diverge from the oracle at lane {bad}")
 
 
-def profile_apply(g, oracle, rng, n_keys, n_batches: int = 3) -> dict:
-    """Where ``apply``'s time goes: a profiler window over a few balanced
-    batches (run after the timed ones, so the timing carries no profiler
-    cost).  Reports the device's busy share of the wall time, kernel
-    launches per batch and the device time of the heaviest kernels."""
+def profile_window(step, n: int, unit: str):
+    """Where the time goes: ``step()`` run ``n`` times under torch.profiler
+    (after the timed runs, so the timing carries no profiler cost).  Returns
+    the results and the device's busy share of the wall time, kernel
+    launches per step and the device time of the heaviest kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    batches = [sample_batch(rng, BATCH, "balanced", key_space=n_keys) for _ in range(n_batches)]
     sync()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        results = [g.apply(*b) for b in batches]
+        results = [step() for _ in range(n)]
         sync()
         wall_us = (time.perf_counter() - t0) * 1e6
-    for j, (b, got) in enumerate(zip(batches, results)):
-        _check_bits(got, _oracle_apply(oracle, *b), f"profiled batch {j}")
     # device-side events only: the host-side aten ops carry their kernels'
     # time too, and counting both would count it twice
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    res = {
-        "batches": n_batches,
-        "wall_us_per_batch": wall_us / n_batches,
+    return results, {
+        "steps": n,
+        f"wall_us_per_{unit}": wall_us / n,
         "device_busy_share": device_us / wall_us if wall_us else None,
-        "kernel_launches_per_batch": sum(e.count for e in kernels) / n_batches,
-        "top_kernels_us_per_batch": {e.key[:80]: e.self_device_time_total / n_batches
-                                     for e in top},
+        f"kernel_launches_per_{unit}": sum(e.count for e in kernels) / n,
+        f"top_kernels_us_per_{unit}": {e.key[:80]: e.self_device_time_total / n for e in top},
     }
+
+
+def profile_apply(g, oracle, rng, n_keys, n_batches: int = 3) -> dict:
+    """The profile of ``apply`` on a few balanced batches, each checked
+    against the oracle."""
+    batches = iter([sample_batch(rng, BATCH, "balanced", key_space=n_keys)
+                    for _ in range(n_batches)])
+    used = []
+
+    def step():
+        used.append(next(batches))
+        return g.apply(*used[-1])
+
+    results, res = profile_window(step, n_batches, "batch")
+    for j, (b, got) in enumerate(zip(used, results)):
+        _check_bits(got, _oracle_apply(oracle, *b), f"profiled batch {j}")
     log("phase 3: apply profile (balanced): " + json.dumps(res))
     return res
 
@@ -510,6 +579,248 @@ def full_shape_kernels(g, sources, launches, dev) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 5: flash attention against its plain version, adversarial shapes
+# ---------------------------------------------------------------------------
+
+
+def require_close(name: str, got, want, tol: float) -> float:
+    """Max abs error of a float kernel against its plain version; exits
+    unless every element is within ``tol`` (absolute plus relative)."""
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise SystemExit(f"{name}: non-finite output")
+    if not torch.allclose(g, w, atol=tol, rtol=tol):
+        raise SystemExit(f"{name}: kernel disagrees with its plain version "
+                         f"(max abs err {(g - w).abs().max().item()})")
+    return (g - w).abs().max().item()
+
+
+def flash_small_checks(dev) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(3)
+    worst = {str(dt): 0.0 for dt in FLASH_TOL}
+    for shape in FLASH_SHAPES:
+        b, hq, hkv, sq, sk, d, causal, window = shape
+        for dt, tol in FLASH_TOL.items():
+            q = torch.randn(b, hq, sq, d, generator=gen, device=dev).to(dt)
+            k = torch.randn(b, hkv, sk, d, generator=gen, device=dev).to(dt)
+            v = torch.randn(b, hkv, sk, d, generator=gen, device=dev).to(dt)
+            got = fak.flash_attention(q, k, v, causal=causal, window=window)
+            want = attention(q, k, v, causal=causal, window=window, impl="reference")
+            sync()
+            err = require_close(f"flash_attention {shape} {dt}", got, want, tol)
+            worst[str(dt)] = max(worst[str(dt)], err)
+            if window is not None and sq - window >= sk:  # rows that see no key
+                dead = torch.arange(sq, device=dev) - window + 1 > sk - 1
+                if got[:, :, dead].abs().max().item() != 0.0:
+                    raise SystemExit(f"flash_attention {shape}: a fully masked row is not 0")
+    log(f"phase 5: flash_attention equals its plain version on {len(FLASH_SHAPES)} shapes "
+        f"in f32 and bf16 (max abs err {json.dumps(worst)}); fully masked rows are 0")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the LM's serving path at full width
+# ---------------------------------------------------------------------------
+
+
+def _decode_alone(eng, params, req, slot: int):
+    """Greedy tokens of ``req`` decoded with ``decode_step`` as the only
+    sequence in a cache of the engine's shape, in the slot (and so at the
+    positions and matrix shapes) the engine gave it."""
+    model = eng.model
+    cache = model.decode_init(eng.max_batch, eng.max_len)
+    cache["start"] = torch.zeros(eng.max_batch, dtype=torch.int32, device=eng.device)
+    tokens = torch.zeros(eng.max_batch, 1, dtype=torch.int32, device=eng.device)
+    prompt, gen = [int(t) for t in req.prompt], []
+    with torch.no_grad():
+        for t in range(len(prompt) + req.max_new_tokens - 1):
+            tokens[slot, 0] = prompt[t] if t < len(prompt) else gen[-1]
+            logits, cache = model.decode_step(params, tokens, cache)
+            if t >= len(prompt) - 1:
+                row = logits[:, -1].float().cpu().numpy()[slot]
+                gen.append(eng._sample(req, row, position=t + 1))
+    return gen
+
+
+def _synced(fn, acc: dict, key: str):
+    """``fn``, adding its host time (synced before and after) to ``acc[key]``."""
+    def run(*args, **kwargs):
+        sync()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        sync()
+        acc[key] += time.perf_counter() - t0
+        return out
+    return run
+
+
+def lm_serve_path(seed: int, dev) -> dict:
+    cfg = get_config(LM_ARCH)
+    out = {"arch": cfg.name}
+    model = LM(cfg, dev)
+    params, dt = wall_s(lambda: model.init(torch.Generator(device=dev).manual_seed(seed)))
+    out["params"] = sum(t.numel() for t in tree_leaves(params))
+    out["param_bytes"] = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    out["init_s"] = dt
+    log(f"phase 6: {cfg.name} at full width, {out['params']} parameters "
+        f"({out['param_bytes'] / 1e9:.2f} GB) drawn on the card in {dt:.2f} s")
+
+    # prefill through the kernel, then with the plain attention forced
+    rng = np.random.default_rng(seed)
+    tokens = torch.as_tensor(
+        rng.integers(0, cfg.vocab, (PREFILL_BATCH, PREFILL_LEN)).astype(np.int32), device=dev)
+    batch = {"tokens": tokens}
+    prefill, _, _ = build_prefill_step(cfg, device=dev)
+    plain, _, _ = build_prefill_step(cfg, device=dev, run_overrides={"attn_impl": "reference"})
+    torch.cuda.reset_peak_memory_stats()
+    before = fak.flash_attention.launches
+    logits, warm_s = wall_s(lambda: prefill(params, batch))
+    per_prefill = fak.flash_attention.launches - before
+    if per_prefill != cfg.n_layers:
+        raise SystemExit(f"prefill launched flash_attention {per_prefill} times, "
+                         f"not once per layer ({cfg.n_layers})")
+    times = [wall_s(lambda: prefill(params, batch))[1] for _ in range(PREFILL_RUNS)]
+    peak = torch.cuda.max_memory_allocated()
+    _, prof = profile_window(lambda: prefill(params, batch), 1, "prefill")
+    log("phase 6: prefill profile: " + json.dumps(prof))
+    want, plain_s = wall_s(lambda: plain(params, batch))
+    a = logits[..., : cfg.vocab].float()
+    b = want[..., : cfg.vocab].float()
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        raise SystemExit("prefill logits are not finite")
+    if a.shape != (PREFILL_BATCH, 1, cfg.vocab):
+        raise SystemExit(f"prefill logits of shape {tuple(a.shape)}")
+    rel = ((a - b).norm() / b.norm()).item()
+    top1 = (a.argmax(-1) == b.argmax(-1)).flatten().tolist()
+    if rel > LOGITS_REL_L2:
+        raise SystemExit(f"prefill logits: relative L2 {rel} against the plain attention "
+                         f"exceeds {LOGITS_REL_L2}")
+    med = statistics.median(times)
+    n_tok = PREFILL_BATCH * PREFILL_LEN
+    out["prefill"] = {
+        "batch": PREFILL_BATCH, "prompt_len": PREFILL_LEN, "warmup_s": warm_s,
+        "s": times, "median_s": med, "prompt_tokens_per_s": n_tok / med,
+        "plain_attention_s": plain_s, "peak_bytes": peak,
+        "flash_launches_per_prefill": per_prefill,
+        "logits_rel_l2": rel, "top1_agree": top1, "profile": prof,
+    }
+    del logits, want, a, b
+    log(f"phase 6: prefill {PREFILL_BATCH} x {PREFILL_LEN}: median {med:.4f} s of "
+        f"{PREFILL_RUNS} ({n_tok / med:.0f} prompt tokens/s), warm-up {warm_s:.3f} s, "
+        f"plain attention {plain_s:.3f} s; peak {peak / 1e9:.2f} GB; {per_prefill} kernel "
+        f"launches per prefill; last-token logits within {rel:.3e} relative L2 of the plain "
+        f"attention's, top-1 agreeing {top1}")
+
+    # continuous-batching serving over the wait-free page table
+    eng = ServingEngine(cfg, params, max_batch=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                        page_size=SERVE_PAGE, seed=seed, device=dev)
+    rng = np.random.default_rng(seed + 1)
+    for i in range(SERVE_REQUESTS):
+        plen = int(rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1))
+        eng.submit(Request(id=i, prompt=rng.integers(0, cfg.vocab, plen).astype(np.int32),
+                           max_new_tokens=SERVE_NEW, temperature=0.0 if i % 2 == 0 else 0.8))
+    split = {"decode_step": 0.0, "page_ops": 0.0}
+    eng.model.decode_step = _synced(eng.model.decode_step, split, "decode_step")
+    eng.pages.step_ops = _synced(eng.pages.step_ops, split, "page_ops")
+    done, run_s = wall_s(eng.run)
+    del eng.model.decode_step, eng.pages.step_ops
+    if sorted(done) != list(range(SERVE_REQUESTS)) or any(
+            len(r.generated) != SERVE_NEW for r in done.values()):
+        raise SystemExit("serving did not drain every request to its length")
+    if len(eng.pages.free) != eng.pages.num_pages or eng.pages.seq_pages:
+        raise SystemExit("serving leaked KV pages")
+    twin = eng.failover()  # raises unless the replayed page tables match
+    for f in GraphState._fields:
+        if not torch.equal(getattr(twin.graph.state, f), getattr(eng.pages.graph.state, f)):
+            raise SystemExit(f"failover replay: page-table graph differs in {f}")
+    for rid in SERVE_ALONE:
+        if done[rid].temperature != 0.0 or _decode_alone(eng, params, done[rid], rid) != \
+                done[rid].generated:
+            raise SystemExit(f"request {rid} decoded alone differs from the batch")
+    n_gen = sum(len(r.generated) for r in done.values())
+    out["serve"] = {
+        "slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN, "page_size": SERVE_PAGE,
+        "requests": SERVE_REQUESTS, "ticks": eng.ticks, "generated_tokens": n_gen,
+        "prompt_tokens": sum(len(r.prompt) for r in done.values()),
+        "s": run_s, "generated_tokens_per_s": n_gen / run_s, "host_split_s": split,
+        "page_ops": sum(len(o[0]) for o in eng.pages.op_log),
+        "page_table_capacity": [eng.pages.graph.state.v_capacity,
+                                eng.pages.graph.state.e_capacity],
+    }
+    # a profiled window of full ticks on a second wave, drained afterwards
+    for i in range(SERVE_SLOTS):
+        eng.submit(Request(id=SERVE_REQUESTS + i, max_new_tokens=SERVE_NEW,
+                           prompt=rng.integers(0, cfg.vocab, SERVE_PROMPT[0]).astype(np.int32)))
+    eng.tick()
+    _, out["serve"]["profile"] = profile_window(eng.tick, PROFILE_TICKS, "tick")
+    log("phase 6: serving profile: " + json.dumps(out["serve"]["profile"]))
+    if len(eng.run()) != SERVE_REQUESTS + SERVE_SLOTS:
+        raise SystemExit("serving did not drain the profiled wave")
+    log(f"phase 6: served {SERVE_REQUESTS} requests in {out['serve']['ticks']} ticks, "
+        f"{run_s:.3f} s ({split['decode_step']:.3f} s in decode_step, "
+        f"{split['page_ops']:.3f} s in page-table ops): "
+        f"{n_gen} generated tokens ({n_gen / run_s:.1f} tokens/s), "
+        f"{out['serve']['page_ops']} page ops applied; failover replay identical (page "
+        f"tables and graph state); requests {list(SERVE_ALONE)} decoded alone give the "
+        f"batch's tokens")
+    del eng, params, twin
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: flash attention at the prefill's shape
+# ---------------------------------------------------------------------------
+
+
+def flash_full_shape(cfg, launches, dev) -> dict:
+    b, hq, hkv, s, d = PREFILL_BATCH, cfg.n_heads, cfg.n_kv_heads, PREFILL_LEN, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn(b, hq, s, d, generator=gen, device=dev).bfloat16()
+    k = torch.randn(b, hkv, s, d, generator=gen, device=dev).bfloat16()
+    v = torch.randn(b, hkv, s, d, generator=gen, device=dev).bfloat16()
+    got = fak.flash_attention(q, k, v, causal=True)
+    want = attention(q, k, v, causal=True, impl="reference")
+    err = require_close("flash_attention at the prefill shape", got, want,
+                        FLASH_TOL[torch.bfloat16])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pairs = s * (s + 1) // 2  # the (q, k) pairs the causal mask keeps
+    row = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:106",
+        "launches": launches["flash_attention"], "max_abs_err": err,
+        "ms": cuda_ms(lambda: fak.flash_attention(q, k, v, causal=True), 10),
+        "plain_ms": cuda_ms(lambda: attention(q, k, v, causal=True, impl="reference"), 3),
+        "bound_ms": None, "bound_by": None,
+        "library_ms": cuda_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 10),
+    }
+    t_bytes = 2 * (q.numel() * 2 + k.numel() + v.numel()) / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * b * hq * pairs * d / BF16_OPS_PER_S * 1e3
+    row["bound_ms"], row["bound_by"] = (t_ops, "operations") if t_ops >= t_bytes else \
+        (t_bytes, "bytes")
+    log(f"phase 7: flash_attention at B={b} Hq={hq} Hkv={hkv} S={s} D={d} bf16 causal: "
+        f"{row['ms']:.4f} ms (plain {row['plain_ms']:.3f} ms, scaled_dot_product_attention "
+        f"{row['library_ms']:.4f} ms), bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
+        f"max abs err {err}")
+    return row
+
+
+def run_counted(path, fn):
+    """Run one main path with every launch count set to 0 just before it;
+    exits if a kernel of ``path`` was launched no time in it."""
+    for w in WRAPPERS.values():
+        w.launches = 0
+    out = fn()
+    counts = {name: w.launches for name, w in WRAPPERS.items()}
+    log(f"kernel launches on the path: {json.dumps(counts)}")
+    missing = [name for name in path if counts[name] == 0]
+    if missing:
+        raise SystemExit(f"the main path never launched: {missing}")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -537,20 +848,23 @@ def main(argv=None) -> int:
 
     small_kernel_checks(dev)
 
-    # phase 3: the main path, with every launch count read around it
-    for fn in WRAPPERS.values():
-        fn.launches = 0
-    summary, g, sources = main_path(args.seed)
+    # phase 3: the graph's main path, with every launch count read around it
+    summary, g, sources = run_counted(GRAPH_PATH, lambda: main_path(args.seed))
     launches = {name: fn.launches for name, fn in WRAPPERS.items()}
-    log(f"phase 3: kernel launches on the main path: {json.dumps(launches)}")
-    missing = [name for name, n in launches.items() if n == 0]
-    if missing:
-        raise SystemExit(f"the main path never launched: {missing}")
-
     rows = full_shape_kernels(g, sources, launches, dev)
+    del g
+
+    flash_small_checks(dev)
+
+    # phase 6: the LM's serving path, with every launch count read around it
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products stay f32
+    summary["lm"] = run_counted(SERVE_PATH, lambda: lm_serve_path(args.seed, dev))
+    summary["lm"]["launches"] = {name: fn.launches for name, fn in WRAPPERS.items()}
+    rows.append(flash_full_shape(get_config(LM_ARCH), summary["lm"]["launches"], dev))
+
     summary["card"] = smi
     summary["seconds"] = time.perf_counter() - t_start
-    log("main path: " + json.dumps(summary))
+    log("main paths: " + json.dumps(summary))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,20 @@
+"""h2o-danube-3-4b [dense] — llama+mistral mix with sliding-window attention.
+[arXiv:2401.16818; unverified]"""
+
+from repro_torch.models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="h2o-danube-3-4b",
+    family="dense",
+    n_layers=24,
+    d_model=3840,
+    n_heads=32,
+    n_kv_heads=8,
+    d_head=120,
+    d_ff=10240,
+    vocab=32000,
+    norm="rmsnorm",
+    act="swiglu",
+    rope=True,
+    window=4096,          # mistral-style SWA
+)

@@ -2,8 +2,10 @@
 PyTorch.  Module for module the counterpart of ``repro.core``:
 
   * :class:`repro_torch.core.graph.WaitFreeGraph` — unbounded graph, six ops,
-    batched apply, growth, snapshot queries (one shard, wait-free engine).
-  * :func:`repro_torch.core.engine.apply_batch` — the wait-free combine pass.
+    batched apply, growth, snapshot queries (one shard).
+  * :func:`repro_torch.core.engine.apply_batch` — the wait-free combine pass;
+    :func:`repro_torch.core.fastpath.apply_batch_fpsp` its fast-path-slow-path
+    twin.
   * :mod:`repro_torch.core.oracle` — sequential specification (ground truth).
   * :mod:`repro_torch.core.traversal` — batched reachability/BFS/k-hop over
     CSR snapshots.

@@ -1,9 +1,10 @@
 """Host-side wrapper: the *unbounded* wait-free graph, on one device.
 
-Port of ``repro.core.graph.WaitFreeGraph`` for one shard and the wait-free
-engine.  ``WaitFreeGraph`` owns the :class:`GraphState` plus the global phase
-counter (the paper's ``maxPhase`` fetch-and-add — a host-side monotone
-counter; each batch gets ``counter + iota`` stamps).  "Unbounded" is
+Port of ``repro.core.graph.WaitFreeGraph`` for one shard, with the
+wait-free engine or its fast-path-slow-path twin (``mode="fpsp"``).
+``WaitFreeGraph`` owns the :class:`GraphState` plus the global phase counter
+(the paper's ``maxPhase`` fetch-and-add — a host-side monotone counter; each
+batch gets ``counter + iota`` stamps).  "Unbounded" is
 amortized growth: every engine pass is *transactional* — if a bounded probe
 chain or insert round tripped its cap (``ok == False``), the post-state is
 discarded, the tables are grown (rehash = Harris physical deletion), and the
@@ -20,7 +21,8 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
-from . import engine, maintenance, traversal
+from ..device import resolve_device
+from . import engine, fastpath, maintenance, traversal
 from .types import (
     EMPTY_KEY,
     GROW_LOAD_FACTOR,
@@ -69,17 +71,6 @@ def _rehash_escalating(
     raise RuntimeError("rehash placement did not converge")
 
 
-def _resolve_device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "WaitFreeGraph runs on the card by default and no CUDA device "
-                "is available; pass device='cpu' to run on the CPU"
-            )
-        device = "cuda"
-    return torch.device(device)
-
-
 class WaitFreeGraph:
     """The unbounded concurrent graph: the paper's public API, batched.
 
@@ -91,9 +82,12 @@ class WaitFreeGraph:
     (``csr_maintenance="rebuild"``), which gives answers bit-identical to
     ``repro``'s incremental ``"delta"`` fold.
 
-    Not in this slice, and refused with ``NotImplementedError``:
-    ``mode="fpsp"``, ``n_shards > 1``, ``csr_maintenance="delta"`` and
-    ``obs`` (ROADMAP.md, "Queue 1").
+    ``mode`` selects the engine: ``"waitfree"`` (``engine.apply_batch``) or
+    ``"fpsp"`` (``fastpath.apply_batch_fpsp``); both give identical results.
+
+    Not ported yet, and refused with ``NotImplementedError``:
+    ``n_shards > 1``, ``csr_maintenance="delta"`` and ``obs`` (ROADMAP.md,
+    "Queue 1").
     """
 
     def __init__(
@@ -107,9 +101,7 @@ class WaitFreeGraph:
         obs=None,
         device=None,
     ):
-        if mode == "fpsp":
-            raise NotImplementedError("mode='fpsp': ROADMAP.md queue 1, next slice 'FPSP'")
-        if mode != "waitfree":
+        if mode not in ("waitfree", "fpsp"):
             raise ValueError(f"unknown mode {mode!r}")
         if csr_maintenance == "delta":
             raise NotImplementedError(
@@ -124,7 +116,9 @@ class WaitFreeGraph:
         if obs:
             raise NotImplementedError("obs: ROADMAP.md queue 1, next slice 'Telemetry'")
         maintenance.resolve_impl(maintenance_impl)
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device, "WaitFreeGraph")
+        self.mode = mode
+        self._apply_fn = engine.apply_batch if mode == "waitfree" else fastpath.apply_batch_fpsp
         self.maintenance_impl = maintenance_impl
         self.state = make_state(v_capacity, e_capacity, device=self.device)
         self._phase = 0  # the paper's maxPhase counter
@@ -167,7 +161,7 @@ class WaitFreeGraph:
 
         for _ in range(_MAX_GROW_ATTEMPTS):
             pre = self.state  # kept alive for transactional retry
-            res = engine.apply_batch(pre, batch)
+            res = self._apply_fn(pre, batch)
             if bool(res.ok) and not self._needs_growth(res.state):
                 self.state = res.state
                 self._csr = saved_csr

@@ -42,6 +42,8 @@ _SIGNATURES = {
     "rt_masked_compact": [_P, _P, _I, _L, _P, _P, _P, _I, _P],
     "rt_probe_place_round": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "rt_frontier_expand": [_P, _I, _L, _P, _P, _L, _P, _P],
+    "rt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+                           _I, _I, _I, _I, _P],
 }
 
 _lib = None

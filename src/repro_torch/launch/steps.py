@@ -1,0 +1,44 @@
+"""Step builders for serving.
+
+Port of ``build_prefill_step`` and ``build_decode_step`` of
+``repro.launch.steps``.  Each returns ``(step_fn, model, run)``:
+
+* ``prefill`` — forward over the full prompt, returns last-token logits;
+* ``decode``  — one new token against a KV cache.
+
+PyTorch runs eagerly, so the step is the plain function the reference
+hands to ``jax.jit``; the mesh, sharding and remat settings of the
+reference's ``build_run`` have no meaning on one card.  The model lives on
+the card unless ``device`` says otherwise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..models import LM
+from ..models.config import ArchConfig
+from ..models.lm import DEFAULT_RUN
+
+
+def build_prefill_step(cfg: ArchConfig, *, run_overrides: dict = None, device=None):
+    model = LM(cfg, device)
+    run = {**DEFAULT_RUN, **(run_overrides or {})}
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        hid, _, _ = model.hidden_states(params, batch["tokens"], run=run)
+        return model._logits(params, hid[:, -1:])
+
+    return prefill_step, model, run
+
+
+def build_decode_step(cfg: ArchConfig, *, run_overrides: dict = None, device=None):
+    model = LM(cfg, device)
+    run = {**DEFAULT_RUN, **(run_overrides or {})}
+
+    @torch.no_grad()
+    def decode_step(params, tokens, cache):
+        return model.decode_step(params, tokens, cache, run=run)
+
+    return decode_step, model, run

@@ -14,9 +14,11 @@ from repro_torch.core.types import GraphState as TorchGraphState
 
 
 def to_np(x) -> np.ndarray:
-    """A numpy array from a JAX array, a torch tensor or a numpy array."""
+    """A numpy array from a JAX array, a torch tensor or a numpy array
+    (bfloat16 tensors come out as float32, which holds them exactly)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
     return np.asarray(x)
 
 

@@ -1,0 +1,146 @@
+"""The port's forward attention against ``repro``'s flash attention.
+
+On the CPU ``attention`` takes the plain chunked version; it is held against
+``repro``'s ``mha_reference`` and its Pallas kernel in interpret mode at the
+sweep of ``tests/test_kernels.py`` (MHA, GQA, MQA, window, Sq != Sk
+non-causal, Sk off the block), in f32 and bf16, at that file's tolerances
+(2e-5 and 2e-2).  Inputs are made with numpy and rounded to the working type
+by each package.  The ``cuda``-marked tests hold the CUDA kernel against the
+plain version and run only where there is a card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import cuda_device, to_np  # noqa: F401
+from repro_torch.kernels.flash_attention import attention, mha_chunked, mha_reference
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+T_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+SWEEP = [
+    (1, 2, 2, 32, 32, 16, True, None),     # MHA causal
+    (2, 4, 2, 64, 64, 32, True, None),     # GQA
+    (1, 8, 1, 32, 32, 64, True, None),     # MQA
+    (2, 4, 2, 64, 64, 32, True, 16),       # sliding window
+    (1, 2, 2, 16, 48, 32, False, None),    # cross (Sq != Sk, no causal)
+    (1, 2, 2, 32, 40, 16, True, None),     # non-multiple Sk (padding)
+]
+# beyond the sweep: a group of 7 (qwen2-7b's) with D = 128 and Sq off the
+# kernel's 64-row tile, and rows whose keys are all masked (window past Sk)
+EXTRA = [
+    (1, 14, 2, 100, 100, 128, True, None),
+    (1, 2, 1, 64, 16, 32, True, 8),
+]
+
+
+def _inputs(shape, seed):
+    B, Hq, Hkv, Sq, Sk, D = shape[:6]
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Hq, Sq, D)).astype(np.float32),
+            rng.standard_normal((B, Hkv, Sk, D)).astype(np.float32),
+            rng.standard_normal((B, Hkv, Sk, D)).astype(np.float32))
+
+
+def _close(got, want, dtype):
+    np.testing.assert_allclose(np.asarray(to_np(got), np.float32), np.asarray(want, np.float32),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window", SWEEP)
+def test_plain_version_matches_repro(B, Hq, Hkv, Sq, Sk, D, causal, window, dtype):
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from repro.kernels.flash_attention import attention as j_attention
+    from repro.kernels.flash_attention import mha_reference as j_reference
+
+    q, k, v = _inputs((B, Hq, Hkv, Sq, Sk, D), seed=Sq * 1000 + Sk + D)
+    jd = getattr(jnp, dtype)
+    jq, jk, jv = (jnp.asarray(a).astype(jd) for a in (q, k, v))
+    tq, tk, tv = (torch.as_tensor(a).to(T_DTYPES[dtype]) for a in (q, k, v))
+    np.testing.assert_array_equal(to_np(tq.float()), np.asarray(jq.astype(jnp.float32)))
+
+    want = np.asarray(j_reference(jq, jk, jv, causal=causal, window=window).astype(jnp.float32))
+    interp = j_attention(jq, jk, jv, causal=causal, window=window, impl="kernel_interpret",
+                         block_q=16, block_k=16)
+    interp = np.asarray(jax.device_get(interp.astype(jnp.float32)))
+
+    got = attention(tq, tk, tv, causal=causal, window=window, block_q=16, block_k=16)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    _close(got, want, dtype)
+    _close(got, interp, dtype)
+    # the default chunk sizes and the naive version agree too
+    _close(attention(tq, tk, tv, causal=causal, window=window), want, dtype)
+    _close(mha_reference(tq, tk, tv, causal=causal, window=window), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window", EXTRA)
+def test_group_seven_and_fully_masked_rows(B, Hq, Hkv, Sq, Sk, D, causal, window, dtype):
+    q, k, v = (torch.as_tensor(a).to(T_DTYPES[dtype])
+               for a in _inputs((B, Hq, Hkv, Sq, Sk, D), seed=7))
+    got = attention(q, k, v, causal=causal, window=window, block_q=32, block_k=16)
+    want = mha_reference(q, k, v, causal=causal, window=window)
+    assert not torch.isnan(got).any()
+    # a row sees no key when its whole window lies past Sk: the port gives 0
+    # there (mha_reference averages v over the masked keys instead)
+    qpos = torch.arange(Sq)
+    dead = (qpos - window + 1 > Sk - 1) if window is not None else torch.zeros(Sq, dtype=bool)
+    assert torch.equal(got[:, :, dead], torch.zeros_like(got[:, :, dead]))
+    _close(got[:, :, ~dead], to_np(want[:, :, ~dead].float()), dtype)
+
+
+def test_chunked_defaults_to_right_aligned_causal():
+    """``mha_chunked`` keeps the reference's ``q_offset = Sk - Sq`` default;
+    ``attention`` counts both from 0, as the kernel does."""
+    q, k, v = (torch.as_tensor(a) for a in _inputs((1, 2, 2, 8, 24, 16), seed=3))
+    tail = mha_chunked(q, k, v, causal=True)
+    np.testing.assert_allclose(to_np(tail), to_np(mha_chunked(q, k, v, causal=True, q_offset=16)))
+    head = attention(q, k, v, causal=True)
+    np.testing.assert_allclose(to_np(head), to_np(mha_reference(q, k, v, causal=True)),
+                               atol=2e-5, rtol=2e-5)
+
+
+def test_kernel_wrapper_checks_its_inputs():
+    q = torch.zeros(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_kernel.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="impl"):
+        attention(q, q, q, impl="bogus")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window", SWEEP + EXTRA)
+def test_cuda_kernel_matches_plain(cuda_device, B, Hq, Hkv, Sq, Sk, D, causal, window, dtype):
+    q, k, v = (torch.as_tensor(a, device=cuda_device).to(T_DTYPES[dtype])
+               for a in _inputs((B, Hq, Hkv, Sq, Sk, D), seed=11))
+    before = flash_kernel.flash_attention.launches
+    got = attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_kernel.flash_attention.launches == before + 1
+    want = attention(q, k, v, causal=causal, window=window, impl="reference")
+    assert not torch.isnan(got).any()
+    _close(got, to_np(want.float()), dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_refuses_bad_inputs(cuda_device):
+    q = torch.zeros(1, 4, 8, 16, device=cuda_device)
+    k = torch.zeros(1, 3, 8, 16, device=cuda_device)
+    with pytest.raises(ValueError, match="Hkv"):
+        flash_kernel.flash_attention(q, k, k)
+    with pytest.raises(TypeError):
+        flash_kernel.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_kernel.flash_attention(q.transpose(2, 3), q, q)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        x = torch.zeros(1, 4, 8, 20, device=cuda_device)
+        flash_kernel.flash_attention(x, x, x)
+    with pytest.raises(ValueError, match="16-byte"):
+        x = torch.zeros(4 * 8 * 16 + 1, device=cuda_device)[1:].view(1, 4, 8, 16)
+        flash_kernel.flash_attention(x, x, x)

@@ -3,8 +3,8 @@
 One op stream that forces several growths goes through both graphs: the
 success bits, the full state after every batch, the snapshot and the
 traversal answers must be identical, and agree with the port's oracle copy.
-Also: the graph refuses to run quietly on the CPU, refuses the settings of
-later slices, and the package imports neither JAX nor ``repro``.
+Also: the graph refuses to run quietly on the CPU, the settings of later
+slices are refused, and the package imports neither JAX nor ``repro``.
 """
 
 import pkgutil
@@ -19,9 +19,11 @@ import torch
 
 import repro_torch
 from _torch_parity import assert_states_equal
+from repro_torch.configs import get_smoke_config
 from repro_torch.core import WaitFreeGraph
 from repro_torch.core.oracle import SequentialGraph, run_sequential
 from repro_torch.core.workloads import initial_vertices, sample_batch
+from repro_torch.models import LM
 
 KEY_SPACE = 300
 
@@ -97,11 +99,16 @@ def test_default_device_is_the_card(monkeypatch):
         WaitFreeGraph()
 
 
-@pytest.mark.parametrize("kwargs", [{"mode": "fpsp"}, {"n_shards": 2},
+# keyword arguments of WaitFreeGraph, or {"family": arch} for an LM of a
+# family the port does not run yet
+@pytest.mark.parametrize("kwargs", [{"family": "mixtral-8x7b"}, {"n_shards": 2},
                                     {"csr_maintenance": "delta"}, {"obs": True}])
 def test_later_slices_are_refused(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        WaitFreeGraph(device="cpu", **kwargs)
+        if "family" in kwargs:
+            LM(get_smoke_config(kwargs["family"]), device="cpu")
+        else:
+            WaitFreeGraph(device="cpu", **kwargs)
 
 
 _PKG = Path(repro_torch.__file__).parent
