@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA card: the wait-free graph and
-the dense LM's serving path.
+the serving paths of three LMs (dense, ssm and hybrid).
 
 Run from the root of a checkout, with one card visible:
 
@@ -50,6 +50,36 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 7. ``flash_attention`` at the prefill's shape (B 2, Hq 28, Hkv 4, S 4096,
    D 128, bf16, causal) against its plain version, timed as in phase 4,
    beside ``scaled_dot_product_attention`` as the library yardstick.
+8. ``ssd_scan`` against its plain version on small shapes (the reference
+   sweep's, K = V = 128, S = 100 at chunk 4, an odd S at chunk 1), in both
+   decay modes, both readouts, f32 within 1e-4 and bf16 within 5e-2, with
+   decays of 1, 0 and 1e-30 and a nonzero initial state whose final state is
+   compared too; in scalar mode a one-column decay must give the kernel's
+   result bit for bit.
+9. rwkv6-3b (ssm; arXiv:2404.05892) at full width (32 layers, d_model 2560,
+   40 heads of 64, d_ff 8960, vocab 65536, bf16), as phase 6: the prefill of
+   2 x 4,096 tokens runs ``ssd_scan`` once per layer.  The kernel is held
+   to the plain scan on the bf16 inputs that the prefill gave the first and
+   last layer's scan (within 5e-2, outputs and final states), and the whole
+   prefill, on an f32 copy of the weights, within 3e-2 relative L2 of the
+   plain scan's (in bf16 the random stack amplifies rounding chaotically
+   through its depth, so the bf16 logits' distance is reported, not held);
+   the prefill's recurrent states continued by one ``decode_step`` must give
+   the logits of a 4,097-token prefill; the serving engine drains phase 6's
+   traffic with the same checks.  Launches made only to compare are not
+   counted.
+10. zamba2-1.2b (hybrid; arXiv:2411.15242) at full width (38 layers, d_model
+   2048, mamba2 with 64 heads, N 64, conv 4, the shared MHA block after every
+   6 layers), the same way: ``ssd_scan`` (scalar decay) 38 times and
+   ``flash_attention`` 6 times a prefill.  The prefill does not produce the
+   shared block's KV cache (nor does the reference's), so the handoff is
+   checked on the first and last mamba2 layers: a 4,096-token block run's
+   state continued by one decode step against the 4,097-token block run.
+11. ``ssd_scan`` at both prefill shapes (rwkv6: B 2, H 40, S 4096, K = V =
+   64, bf16, strict, per-channel, chunk 64; zamba2: B 2, H 64, the same S,
+   K, V, bf16, scalar, one decay a step), timed as in phase 4 beside its
+   plain version and its bound (the least the function needs, whatever the
+   chunk); no single PyTorch call computes it.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``kernels`` record.  Without a card, or outside a checkout of the repository,
@@ -59,6 +89,7 @@ it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -93,25 +124,38 @@ from repro_torch.kernels.frontier import frontier_expand  # noqa: E402
 from repro_torch.kernels.frontier import kernel as fk  # noqa: E402
 from repro_torch.kernels.hash_probe import hash_probe  # noqa: E402
 from repro_torch.kernels.hash_probe import kernel as hk  # noqa: E402
+from repro_torch.kernels.ssd_scan import kernel as ssk  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.launch.steps import build_prefill_step  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
-from repro_torch.models.module import tree_leaves  # noqa: E402
+from repro_torch.models import blocks as model_blocks  # noqa: E402
+from repro_torch.models import layers as model_layers  # noqa: E402
+from repro_torch.models.module import tree_leaves, tree_map  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 
 # the kernel wrappers, whose launch counts the main paths are read by
 WRAPPERS = {
     "hash_probe": hk.hash_probe, "masked_compact": ck.masked_compact,
     "probe_place": ck.probe_place, "frontier_expand": fk.frontier_expand,
-    "flash_attention": fak.flash_attention,
+    "flash_attention": fak.flash_attention, "ssd_scan": ssk.ssd_scan,
 }
 GRAPH_PATH = ("hash_probe", "masked_compact", "probe_place", "frontier_expand")
-# serving: prefill attention, and the page table's locate and growth rehash
-SERVE_PATH = ("flash_attention", "hash_probe", "masked_compact", "probe_place")
+# serving: the page table's locate and growth rehash, and each model's
+# prefill kernels
+PAGE_TABLE = ("hash_probe", "masked_compact", "probe_place")
+SERVE_PATH = ("flash_attention",) + PAGE_TABLE
+RWKV_PATH = ("ssd_scan",) + PAGE_TABLE
+ZAMBA_PATH = ("ssd_scan", "flash_attention") + PAGE_TABLE
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 ALU_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores, the
                             # integer lanes' stand-in (the sheet has no int32 row)
 BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
+TF32_OPS_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
+F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+EXP_PER_S = F32_OPS_PER_S / 16  # the SFUs: 16 exps a clock per SM against the
+                                # 128 f32 lanes' 256 flops a clock behind 67e12
 
 COM_YOUTUBE_VERTICES = 1_134_890
 BATCH = 65_536
@@ -138,12 +182,26 @@ FLASH_SHAPES = [  # (B, Hq, Hkv, Sq, Sk, D, causal, window)
 ]
 
 LM_ARCH = "qwen2-7b"
+SSM_ARCH, HYBRID_ARCH = "rwkv6-3b", "zamba2-1.2b"
 PREFILL_BATCH, PREFILL_LEN, PREFILL_RUNS = 2, 4096, 3
 LOGITS_REL_L2 = 3e-2        # kernel prefill against plain-attention prefill
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_PAGE = 8, 512, 16
 SERVE_REQUESTS, SERVE_NEW, SERVE_PROMPT = 16, 32, (16, 64)
 SERVE_ALONE = (0, 2)        # greedy requests admitted at tick 0, in slots 0 and 2
 PROFILE_TICKS = 6
+
+# ssd_scan against its plain version: tests/test_kernels.py's sweep and
+# tolerances, plus K = V = 128, S = 100 (chunk 4) and an odd S (chunk 1)
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+SSD_SHAPES = [  # (B, H, S, K, V, chunk)
+    (1, 2, 64, 8, 8, 16),
+    (2, 3, 128, 16, 24, 32),
+    (2, 2, 128, 32, 32, 64),
+    (1, 1, 256, 64, 64, 64),
+    (1, 2, 128, 128, 128, 64),
+    (2, 2, 100, 16, 16, 4),
+    (1, 3, 37, 8, 24, 1),
+]
 
 
 def log(msg: str) -> None:
@@ -655,62 +713,208 @@ def _synced(fn, acc: dict, key: str):
     return run
 
 
-def lm_serve_path(seed: int, dev) -> dict:
-    cfg = get_config(LM_ARCH)
+def _rel_l2(a, b) -> float:
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _logits_distance(what: str, got, want, vocab: int):
+    """Relative L2 and top-1 agreement of two last-token logits; exits if a
+    value is not finite."""
+    a, b = got[..., :vocab].float(), want[..., :vocab].float()
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        raise SystemExit(f"{what}: logits are not finite")
+    return _rel_l2(a, b), (a.argmax(-1) == b.argmax(-1)).flatten().tolist()
+
+
+def _check_logits(what: str, got, want, vocab: int):
+    """:func:`_logits_distance`, and an exit if either is off the limit."""
+    rel, top1 = _logits_distance(what, got, want, vocab)
+    if rel > LOGITS_REL_L2 or not all(top1):
+        raise SystemExit(f"{what}: relative L2 {rel} (limit {LOGITS_REL_L2}), top-1 "
+                         f"agreeing {top1}")
+    return rel, top1
+
+
+def _model_handoff(model, params, tokens):
+    """The prefill's recurrent states continued by one ``decode_step``,
+    against the prefill of one token more (ssm: the whole model)."""
+    n = tokens.shape[1] - 1
+    with torch.no_grad():
+        states = model.init_recurrent_states(tokens.shape[0], model.cfg.param_dtype)
+        _, _, new_states = model.hidden_states(params, tokens[:, :n], states=states)
+        cache = {"len": torch.tensor(n, dtype=torch.int32, device=tokens.device),
+                 "states": new_states}
+        got, _ = model.decode_step(params, tokens[:, n:], cache)
+        full_states = model.init_recurrent_states(tokens.shape[0], model.cfg.param_dtype)
+        hid, _, _ = model.hidden_states(params, tokens, states=full_states)
+        want = model._logits(params, hid[:, -1:])
+    return {"whole model": _check_logits("handoff", got, want, model.cfg.vocab)[0]}
+
+
+def _block_handoff(model, params, tokens):
+    """The handoff on the first and last mamba2 layers (hybrid: the prefill
+    yields no KV cache for the shared block): a block run over the prompt,
+    its state continued by one decode step, against the block run over one
+    token more, on the prompt's embeddings."""
+    cfg, n = model.cfg, tokens.shape[1] - 1
+    x = model_layers.embed_apply(params["embed"], cfg, tokens)
+    out = {}
+    with torch.no_grad():
+        for i in (0, cfg.n_layers - 1):
+            p = tree_map(lambda t: t[i], params["blocks"])
+            _, st = model_blocks.mamba2_block_apply(p, cfg, x[:, :n])
+            got, _ = model_blocks.mamba2_block_apply(p, cfg, x[:, n:], state=st)
+            want, _ = model_blocks.mamba2_block_apply(p, cfg, x)
+            a, b = got[:, -1].float(), want[:, -1].float()
+            if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+                raise SystemExit(f"handoff at layer {i}: not finite")
+            out[f"layer {i}"] = _rel_l2(a, b)
+            if out[f"layer {i}"] > LOGITS_REL_L2:
+                raise SystemExit(f"handoff at layer {i}: relative L2 {out[f'layer {i}']}")
+    return out
+
+
+@contextlib.contextmanager
+def _scan_inputs_of(calls):
+    """The model's prefill scans run as they would; the inputs of the scan
+    calls numbered ``calls`` (in the order the layers make them) are kept."""
+    kept, n, real = {}, [0], ssd_ops.ssd_scan
+
+    def recording(q, k, v, w, **kw):
+        if n[0] in calls:
+            h0 = kw["h0"]
+            kept[n[0]] = ((q.clone(), k.clone(), v.clone(), w.clone()),
+                          {**kw, "h0": None if h0 is None else h0.clone()})
+        n[0] += 1
+        return real(q, k, v, w, **kw)
+
+    ssd_ops.ssd_scan = recording
+    try:
+        yield kept
+    finally:
+        ssd_ops.ssd_scan = real
+
+
+def _layer_scan_gate(kept) -> dict:
+    """``ssd_scan`` on the kept inputs of model layers (bf16, as the prefill
+    gave them) against its plain version, outputs and final states within
+    the bf16 tolerance of phase 8; the max abs error per scan call."""
+    tol, out = SSD_TOL[torch.bfloat16], {}
+    with uncounted():
+        for i, (args, kw) in sorted(kept.items()):
+            kw = {**kw, "return_state": True}
+            del kw["impl"]
+            got, hT = ssk.ssd_scan(*args, **kw)
+            want, want_h = ssd_scan(*args, **kw, impl="reference")
+            what = f"ssd_scan on the inputs of scan call {i} of the bf16 prefill"
+            out[f"call {i}"] = max(require_close(what, got, want, tol),
+                                   require_close(what + ", final state", hT, want_h, tol))
+    return out
+
+
+def lm_serve_path(arch: str, phase: int, seed: int, dev, *, plain_run: dict,
+                  per_prefill: dict, handoff=None, gate_f32: bool = False,
+                  scan_calls=()) -> dict:
+    """One LM at full width: the prefill through the kernels (each launched
+    ``per_prefill[name]`` times), held against the prefill with ``plain_run``
+    forcing a plain version, the prefill-to-decode ``handoff`` where the
+    model has recurrent states, and continuous-batching serving.
+
+    With ``gate_f32`` the kernel-against-plain comparison and the handoff
+    are held to their limit on an f32 copy of the same weights, and the bf16
+    comparison of the logits is measured and reported: the random recurrent
+    stacks carry a rounding difference of one bf16 step through their depth
+    chaotically, so at bf16 the comparison measures that amplification and
+    not the kernel.  The bf16 kernel is held per layer instead: the inputs
+    of the scan calls numbered ``scan_calls`` in the bf16 prefill are kept,
+    and the kernel on them is held to its plain version (outputs and final
+    states).  Launches made only to compare are not counted."""
+    cfg = get_config(arch)
     out = {"arch": cfg.name}
     model = LM(cfg, dev)
     params, dt = wall_s(lambda: model.init(torch.Generator(device=dev).manual_seed(seed)))
     out["params"] = sum(t.numel() for t in tree_leaves(params))
     out["param_bytes"] = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     out["init_s"] = dt
-    log(f"phase 6: {cfg.name} at full width, {out['params']} parameters "
+    log(f"phase {phase}: {cfg.name} at full width, {out['params']} parameters "
         f"({out['param_bytes'] / 1e9:.2f} GB) drawn on the card in {dt:.2f} s")
 
-    # prefill through the kernel, then with the plain attention forced
+    # prefill through the kernels, then with a plain version forced
     rng = np.random.default_rng(seed)
-    tokens = torch.as_tensor(
-        rng.integers(0, cfg.vocab, (PREFILL_BATCH, PREFILL_LEN)).astype(np.int32), device=dev)
-    batch = {"tokens": tokens}
+    prompt = rng.integers(0, cfg.vocab, (PREFILL_BATCH, PREFILL_LEN))
+    nxt = rng.integers(0, cfg.vocab, (PREFILL_BATCH, 1))  # the handoff's next token
+    tokens = torch.as_tensor(np.concatenate([prompt, nxt], 1).astype(np.int32), device=dev)
+    batch = {"tokens": tokens[:, :PREFILL_LEN]}
     prefill, _, _ = build_prefill_step(cfg, device=dev)
-    plain, _, _ = build_prefill_step(cfg, device=dev, run_overrides={"attn_impl": "reference"})
+    plain, _, _ = build_prefill_step(cfg, device=dev, run_overrides=plain_run)
     torch.cuda.reset_peak_memory_stats()
-    before = fak.flash_attention.launches
-    logits, warm_s = wall_s(lambda: prefill(params, batch))
-    per_prefill = fak.flash_attention.launches - before
-    if per_prefill != cfg.n_layers:
-        raise SystemExit(f"prefill launched flash_attention {per_prefill} times, "
-                         f"not once per layer ({cfg.n_layers})")
+    before = {name: WRAPPERS[name].launches for name in per_prefill}
+    with _scan_inputs_of(scan_calls) as kept:
+        logits, warm_s = wall_s(lambda: prefill(params, batch))
+    counts = {name: WRAPPERS[name].launches - before[name] for name in per_prefill}
+    if counts != per_prefill:
+        raise SystemExit(f"prefill launched {counts}, not {per_prefill}")
     times = [wall_s(lambda: prefill(params, batch))[1] for _ in range(PREFILL_RUNS)]
     peak = torch.cuda.max_memory_allocated()
     _, prof = profile_window(lambda: prefill(params, batch), 1, "prefill")
-    log("phase 6: prefill profile: " + json.dumps(prof))
-    want, plain_s = wall_s(lambda: plain(params, batch))
-    a = logits[..., : cfg.vocab].float()
-    b = want[..., : cfg.vocab].float()
-    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
-        raise SystemExit("prefill logits are not finite")
-    if a.shape != (PREFILL_BATCH, 1, cfg.vocab):
-        raise SystemExit(f"prefill logits of shape {tuple(a.shape)}")
-    rel = ((a - b).norm() / b.norm()).item()
-    top1 = (a.argmax(-1) == b.argmax(-1)).flatten().tolist()
-    if rel > LOGITS_REL_L2:
-        raise SystemExit(f"prefill logits: relative L2 {rel} against the plain attention "
-                         f"exceeds {LOGITS_REL_L2}")
+    log(f"phase {phase}: prefill profile: " + json.dumps(prof))
+    with uncounted():
+        want, plain_s = wall_s(lambda: plain(params, batch))
+    if logits.shape != (PREFILL_BATCH, 1, model_layers.padded_vocab(cfg)):
+        raise SystemExit(f"prefill logits of shape {tuple(logits.shape)}")
+    compare = _logits_distance if gate_f32 else _check_logits
+    rel, top1 = compare(f"prefill against {plain_run}", logits, want, cfg.vocab)
     med = statistics.median(times)
     n_tok = PREFILL_BATCH * PREFILL_LEN
     out["prefill"] = {
         "batch": PREFILL_BATCH, "prompt_len": PREFILL_LEN, "warmup_s": warm_s,
         "s": times, "median_s": med, "prompt_tokens_per_s": n_tok / med,
-        "plain_attention_s": plain_s, "peak_bytes": peak,
-        "flash_launches_per_prefill": per_prefill,
+        "plain_s": plain_s, "plain_run": plain_run, "peak_bytes": peak,
+        "launches_per_prefill": counts,
         "logits_rel_l2": rel, "top1_agree": top1, "profile": prof,
     }
-    del logits, want, a, b
-    log(f"phase 6: prefill {PREFILL_BATCH} x {PREFILL_LEN}: median {med:.4f} s of "
+    del logits, want
+    if scan_calls:
+        out["prefill"]["layer_scan_max_abs_err"] = _layer_scan_gate(kept)
+    del kept
+    log(f"phase {phase}: prefill {PREFILL_BATCH} x {PREFILL_LEN}: median {med:.4f} s of "
         f"{PREFILL_RUNS} ({n_tok / med:.0f} prompt tokens/s), warm-up {warm_s:.3f} s, "
-        f"plain attention {plain_s:.3f} s; peak {peak / 1e9:.2f} GB; {per_prefill} kernel "
-        f"launches per prefill; last-token logits within {rel:.3e} relative L2 of the plain "
-        f"attention's, top-1 agreeing {top1}")
+        f"with {plain_run} {plain_s:.3f} s; peak {peak / 1e9:.2f} GB; kernel launches per "
+        f"prefill {counts}; last-token logits within {rel:.3e} relative L2 of the plain "
+        f"run's, top-1 agreeing {top1}")
+    if scan_calls:
+        log(f"phase {phase}: ssd_scan on the bf16 inputs of the prefill's scan calls "
+            f"{list(scan_calls)} (first and last layer) equals its plain version within "
+            f"{SSD_TOL[torch.bfloat16]}, outputs and final states: max abs err "
+            f"{json.dumps(out['prefill']['layer_scan_max_abs_err'])}")
+    gate_model, gate_params, gated = model, params, "bf16"
+    if gate_f32:
+        cfg32 = cfg.scaled(dtype="float32")
+        gate_model = LM(cfg32, dev)
+        gate_params = tree_map(lambda t: t.float(), params)
+        k32, _, _ = build_prefill_step(cfg32, device=dev)
+        p32, _, _ = build_prefill_step(cfg32, device=dev, run_overrides=plain_run)
+        with uncounted():
+            (got, want), dt = wall_s(lambda: (k32(gate_params, batch),
+                                              p32(gate_params, batch)))
+        rel32, top1_32 = _check_logits(f"f32 prefill against {plain_run}", got, want, cfg.vocab)
+        out["prefill"].update(f32_logits_rel_l2=rel32, f32_top1_agree=top1_32,
+                              bf16_gated=False)
+        gated = "f32 copy of the weights"
+        log(f"phase {phase}: the same prefill on an f32 copy of the weights ({dt:.2f} s for "
+            f"both): last-token logits within {rel32:.3e} relative L2 of the plain run's "
+            f"(limit {LOGITS_REL_L2}), top-1 agreeing {top1_32}; the bf16 figure above is "
+            f"measured, not held to the limit")
+        del got, want
+    if handoff is not None:
+        with uncounted():
+            out["handoff_rel_l2"], dt = wall_s(lambda: handoff(gate_model, gate_params, tokens))
+        log(f"phase {phase}: prefill-to-decode handoff on the {gated} ({dt:.2f} s): the "
+            f"prompt's recurrent states continued by one decode step give the "
+            f"{PREFILL_LEN + 1}-token run's result within relative L2 "
+            f"{json.dumps(out['handoff_rel_l2'])}")
+    del tokens, batch, gate_params
+    torch.cuda.empty_cache()
 
     # continuous-batching serving over the wait-free page table
     eng = ServingEngine(cfg, params, max_batch=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
@@ -754,10 +958,10 @@ def lm_serve_path(seed: int, dev) -> dict:
                            prompt=rng.integers(0, cfg.vocab, SERVE_PROMPT[0]).astype(np.int32)))
     eng.tick()
     _, out["serve"]["profile"] = profile_window(eng.tick, PROFILE_TICKS, "tick")
-    log("phase 6: serving profile: " + json.dumps(out["serve"]["profile"]))
+    log(f"phase {phase}: serving profile: " + json.dumps(out["serve"]["profile"]))
     if len(eng.run()) != SERVE_REQUESTS + SERVE_SLOTS:
         raise SystemExit("serving did not drain the profiled wave")
-    log(f"phase 6: served {SERVE_REQUESTS} requests in {out['serve']['ticks']} ticks, "
+    log(f"phase {phase}: served {SERVE_REQUESTS} requests in {out['serve']['ticks']} ticks, "
         f"{run_s:.3f} s ({split['decode_step']:.3f} s in decode_step, "
         f"{split['page_ops']:.3f} s in page-table ops): "
         f"{n_gen} generated tokens ({n_gen / run_s:.1f} tokens/s), "
@@ -807,6 +1011,133 @@ def flash_full_shape(cfg, launches, dev) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phases 8 and 11: the SSD scan against its plain version
+# ---------------------------------------------------------------------------
+
+
+def _ssd_inputs(gen, shape, scalar, dtype, dev):
+    """q, k, v at scale 0.5, a decay in (0, 1) (one per (b, h, t) when
+    ``scalar``) with whole steps at 1, 0 and 1e-30, and an f32 state."""
+    b, h, s, k, v = shape[:5]
+    q = (torch.randn(b, h, s, k, generator=gen, device=dev) * 0.5).to(dtype)
+    kk = (torch.randn(b, h, s, k, generator=gen, device=dev) * 0.5).to(dtype)
+    vv = (torch.randn(b, h, s, v, generator=gen, device=dev) * 0.5).to(dtype)
+    w = torch.rand(b, h, s, 1 if scalar else k, generator=gen, device=dev) * 0.99 + 0.01
+    w = w.expand(b, h, s, k).clone()
+    w[:, :, ::7] = 1.0
+    w[:, :, 3::11] = 0.0
+    w[:, :, 5::13] = 1e-30
+    h0 = torch.randn(b, h, k, v, generator=gen, device=dev)
+    return q, kk, vv, w.to(dtype), h0
+
+
+def ssd_small_checks(dev) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(5)
+    worst = {str(dt): 0.0 for dt in SSD_TOL}
+    n = 0
+    for shape in SSD_SHAPES:
+        chunk = shape[5]
+        for scalar in (False, True):
+            for strict in (False, True):
+                for dt, tol in SSD_TOL.items():
+                    q, k, v, w, h0 = _ssd_inputs(gen, shape, scalar, dt, dev)
+                    got, hT = ssk.ssd_scan(q, k, v, w, chunk=chunk, scalar_decay=scalar,
+                                           strict=strict, h0=h0, return_state=True)
+                    want, want_h = ssd_scan(q, k, v, w, chunk=chunk, strict=strict, h0=h0,
+                                            return_state=True, impl="reference")
+                    sync()
+                    what = f"ssd_scan {shape} scalar={scalar} strict={strict} {dt}"
+                    err = max(require_close(what, got, want, tol),
+                              require_close(what + " final state", hT, want_h, tol))
+                    if scalar:  # the one-column decay gives the same result
+                        got1, hT1 = ssk.ssd_scan(q, k, v, w[..., :1].contiguous(), chunk=chunk,
+                                                 scalar_decay=True, strict=strict, h0=h0,
+                                                 return_state=True)
+                        if not (torch.equal(got1, got) and torch.equal(hT1, hT)):
+                            raise SystemExit(f"{what}: a one-column decay gives another result")
+                    worst[str(dt)] = max(worst[str(dt)], err)
+                    n += 1
+    log(f"phase 8: ssd_scan equals its plain version in {n} cases ({len(SSD_SHAPES)} shapes, "
+        f"both decay modes and readouts, f32 and bf16, decays of 1, 0 and 1e-30, a nonzero "
+        f"initial state; outputs and final states; max abs err {json.dumps(worst)}); in "
+        f"scalar mode a one-column decay gives the same result bit for bit")
+    return worst
+
+
+SSD_BOUND_CHUNKS = (1, 2, 4, 8, 16)  # the chunked forms the scan's bound weighs
+
+
+def _ssd_bound(b, h, s, k, v, scalar, strict, elt_bytes):
+    """(ms, "bytes" | "operations"), the least the scan's function needs,
+    whatever chunk the caller passes (the chunk changes the rounding, not
+    the function).  Bytes: q, k, v read and y written once, w read once (one
+    value a step when ``scalar``), the f32 initial state read and final
+    state written once.  Operations: the cheapest of the forms that keep
+    every exponent <= 0.  The sequential recurrence needs no exps: per step
+    and state entry the update h * w + k v (two lane instructions) and the
+    readout q . h (one), on the f32 lanes.  The chunked form at each chunk
+    of up to 16 that divides S: the exps on the SFUs (the pairwise decays,
+    one (C, C) matrix when scalar, and the decays folded into q and k), the
+    per-channel pairwise products on the f32 lanes, and the matrix products
+    (q . k^T when scalar, the readout and the state update) at the TF32
+    tensor-core rate."""
+    def chunked(c):
+        n = b * h * (s // c)  # (b, h, chunk) tiles
+        pairs = c * (c - 1) // 2 if strict else c * (c + 1) // 2
+        exps = n * (pairs + 2 * c + 1) if scalar else n * k * (pairs + 2 * c + 1)
+        lane_flops = 0 if scalar else n * 4 * k * pairs
+        tc_flops = n * (2 * (c * v * k + pairs * v + c * k * v)
+                        + (2 * k * pairs if scalar else 0))
+        return max(exps / EXP_PER_S, lane_flops / F32_OPS_PER_S, tc_flops / TF32_OPS_PER_S)
+
+    sequential = b * h * s * k * v * 3 * 2 / F32_OPS_PER_S  # 3 instructions, 2 flops each
+    t_ops = min([sequential] + [chunked(c) for c in SSD_BOUND_CHUNKS if s % c == 0]) * 1e3
+    moved = elt_bytes * b * h * s * (2 * k + 2 * v + (1 if scalar else k)) \
+        + 2 * 4 * b * h * k * v
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def ssd_full_shape(arch, cfg, scalar, strict, launches, dev) -> dict:
+    """``ssd_scan`` at a prefill's shape, as the model's block calls it
+    (an f32 initial state in, the final state out)."""
+    if scalar:
+        _, hds, hd, n_state = model_blocks._mamba_dims(cfg)
+        k_dim, v_dim = n_state, hd
+    else:
+        hds, hd = model_blocks._rwkv_heads(cfg)
+        k_dim, v_dim = hd, hd
+    b, s = PREFILL_BATCH, PREFILL_LEN
+    chunk = model_blocks._pick_chunk(s)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q, k, v, w, h0 = _ssd_inputs(gen, (b, hds, s, k_dim, v_dim), scalar, torch.bfloat16, dev)
+    if scalar:
+        w = w[..., :1].contiguous()  # one decay a step, as mamba2_block_apply passes it
+    kw = dict(chunk=chunk, strict=strict, h0=h0, return_state=True)
+    got, hT = ssk.ssd_scan(q, k, v, w, scalar_decay=scalar, **kw)
+    want, want_h = ssd_scan(q, k, v, w, impl="reference", **kw)
+    tol = SSD_TOL[torch.bfloat16]
+    err = max(require_close(f"ssd_scan at the {arch} prefill shape", got, want, tol),
+              require_close(f"ssd_scan final state at the {arch} prefill shape", hT, want_h, tol))
+    bound = _ssd_bound(b, hds, s, k_dim, v_dim, scalar, strict, 2)
+    row = {
+        "name": f"ssd_scan[{arch}]", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:97",
+        "launches": launches["ssd_scan"], "max_abs_err": err,
+        "ms": cuda_ms(lambda: ssk.ssd_scan(q, k, v, w, scalar_decay=scalar, **kw), 10),
+        "plain_ms": cuda_ms(lambda: ssd_scan(q, k, v, w, impl="reference", **kw), 3),
+        "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+        "shape": {"B": b, "H": hds, "S": s, "K": k_dim, "V": v_dim, "chunk": chunk,
+                  "dtype": "bfloat16", "strict": strict, "scalar_decay": scalar},
+    }
+    log(f"phase 11: ssd_scan at the {arch} prefill shape (B={b} H={hds} S={s} K={k_dim} "
+        f"V={v_dim} chunk {chunk} bf16 strict={strict} scalar={scalar}): {row['ms']:.4f} ms "
+        f"(plain {row['plain_ms']:.3f} ms; no single PyTorch call computes it), bound "
+        f"{row['bound_ms']:.4f} ms by {row['bound_by']}, max abs err {err}")
+    return row
+
+
 def run_counted(path, fn):
     """Run one main path with every launch count set to 0 just before it;
     exits if a kernel of ``path`` was launched no time in it."""
@@ -821,6 +1152,18 @@ def run_counted(path, fn):
     return out
 
 
+@contextlib.contextmanager
+def uncounted():
+    """Launches made to compare a kernel with its plain version: every
+    launch count is put back as it was when the block ends."""
+    saved = {name: w.launches for name, w in WRAPPERS.items()}
+    try:
+        yield
+    finally:
+        for name, w in WRAPPERS.items():
+            w.launches = saved[name]
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -833,6 +1176,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     t_start = time.perf_counter()
+    phase_s = {}
 
     # phase 1: the card and the kernel build
     smi = subprocess.run(
@@ -858,12 +1202,48 @@ def main(argv=None) -> int:
 
     # phase 6: the LM's serving path, with every launch count read around it
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products stay f32
-    summary["lm"] = run_counted(SERVE_PATH, lambda: lm_serve_path(args.seed, dev))
+    lm_cfg = get_config(LM_ARCH)
+    summary["lm"] = run_counted(SERVE_PATH, lambda: lm_serve_path(
+        LM_ARCH, 6, args.seed, dev, plain_run={"attn_impl": "reference"},
+        per_prefill={"flash_attention": lm_cfg.n_layers}))
     summary["lm"]["launches"] = {name: fn.launches for name, fn in WRAPPERS.items()}
-    rows.append(flash_full_shape(get_config(LM_ARCH), summary["lm"]["launches"], dev))
+    rows.append(flash_full_shape(lm_cfg, summary["lm"]["launches"], dev))
+    phase_s["1-7"] = time.perf_counter() - t_start
+
+    t0 = time.perf_counter()
+    ssd_small_checks(dev)
+    phase_s["8"] = time.perf_counter() - t0
+
+    # phases 9 and 10: the recurrent LMs, each with every launch count read
+    # around it
+    ssm_cfg, hyb_cfg = get_config(SSM_ARCH), get_config(HYBRID_ARCH)
+    plain_scan = {"scan_impl": "reference"}
+    t0 = time.perf_counter()
+    summary["ssm"] = run_counted(RWKV_PATH, lambda: lm_serve_path(
+        SSM_ARCH, 9, args.seed, dev, plain_run=plain_scan,
+        per_prefill={"ssd_scan": ssm_cfg.n_layers}, handoff=_model_handoff, gate_f32=True,
+        scan_calls=(0, ssm_cfg.n_layers - 1)))
+    summary["ssm"]["launches"] = {name: fn.launches for name, fn in WRAPPERS.items()}
+    phase_s["9"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    summary["hybrid"] = run_counted(ZAMBA_PATH, lambda: lm_serve_path(
+        HYBRID_ARCH, 10, args.seed, dev, plain_run=plain_scan,
+        per_prefill={"ssd_scan": hyb_cfg.n_layers,
+                     "flash_attention": hyb_cfg.n_layers // hyb_cfg.shared_attn_every},
+        handoff=_block_handoff, gate_f32=True, scan_calls=(0, hyb_cfg.n_layers - 1)))
+    summary["hybrid"]["launches"] = {name: fn.launches for name, fn in WRAPPERS.items()}
+    phase_s["10"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    rows.append(ssd_full_shape(SSM_ARCH, ssm_cfg, False, True, summary["ssm"]["launches"], dev))
+    rows.append(ssd_full_shape(HYBRID_ARCH, hyb_cfg, True, False,
+                               summary["hybrid"]["launches"], dev))
+    phase_s["11"] = time.perf_counter() - t0
 
     summary["card"] = smi
     summary["seconds"] = time.perf_counter() - t_start
+    summary["phase_seconds"] = phase_s
+    log(f"wall seconds by phase: {json.dumps(phase_s)}; total {summary['seconds']:.1f}")
     log("main paths: " + json.dumps(summary))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

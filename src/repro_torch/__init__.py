@@ -1,9 +1,10 @@
 """repro_torch — ``repro`` ported to PyTorch and hand-written CUDA kernels for
-an NVIDIA H100: the wait-free graph, and the dense LM's serving path whose
-KV page table is that graph.
+an NVIDIA H100: the wait-free graph, and the serving path of the dense,
+ssm (rwkv6) and hybrid (zamba2) LM families, whose KV page table is that
+graph.
 
 It imports ``torch`` and never ``jax`` nor anything of ``repro``; ``repro``
 stays the reference every result is held against (bit-identical for the
 graph, since all its state is int32/bool; within the float tolerances of
-``repro``'s own tests for attention and the LM).
+``repro``'s own tests for attention, the scan and the LM).
 """

@@ -3,8 +3,9 @@
 Port of ``repro.configs`` (the same ten published configurations, kept as
 data in this package).  Each module exports ``CONFIG`` and the registry
 derives the reduced smoke config via
-``repro_torch.models.config.reduced_for_smoke``.  Only the dense family
-runs in the port so far (ROADMAP.md queue 1); the others are data only.
+``repro_torch.models.config.reduced_for_smoke``.  The dense, ssm and
+hybrid families run in the port; moe, vlm and audio are data only so far
+(ROADMAP.md queue 1).
 """
 
 from __future__ import annotations

@@ -27,7 +27,9 @@ def build_prefill_step(cfg: ArchConfig, *, run_overrides: dict = None, device=No
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        hid, _, _ = model.hidden_states(params, batch["tokens"], run=run)
+        # zero recurrent states for ssm/hybrid, as the reference passes
+        states = model.init_recurrent_states(batch["tokens"].shape[0], cfg.param_dtype)
+        hid, _, _ = model.hidden_states(params, batch["tokens"], run=run, states=states)
         return model._logits(params, hid[:, -1:])
 
     return prefill_step, model, run

@@ -1,6 +1,8 @@
-"""The LM half of the port: the dense family's layers, blocks and decoder.
+"""The LM half of the port: layers, blocks and decoder.
 
-Port of ``repro.models`` for ``family == "dense"``; see ``lm.py``.
+Port of ``repro.models`` for the dense, ssm (rwkv6) and hybrid (zamba2:
+mamba2 with a shared attention block) families; moe, vlm and audio still
+raise ``NotImplementedError``.  See ``lm.py``.
 """
 
 from .config import ArchConfig, MoEConfig, SSMConfig, reduced_for_smoke

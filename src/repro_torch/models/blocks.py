@@ -1,22 +1,60 @@
 """Residual blocks.
 
-Port of ``repro.models.blocks`` for the dense family: the pre-norm
-attention + MLP block and its decode-cache initialiser.  The other block
-kinds (``xattn``, ``rwkv6``, ``mamba2``) wait for the slices of their
-families and raise ``NotImplementedError``; the MoE FFN waits too, and
-``LM`` refuses its family.
+Port of ``repro.models.blocks`` for the dense, ssm and hybrid families:
+
+* ``attn``   — pre-norm attention + MLP (dense transformers, and the shared
+               block of zamba2);
+* ``rwkv6``  — Finch time-mix (data-dependent per-channel decay, strict
+               readout + bonus) and channel-mix;
+* ``mamba2`` — SSD block (causal conv, scalar-decay scan, gated norm).
+
+Each kind has ``*_meta(cfg)`` and ``*_apply(params, cfg, x, ...)`` and a
+decode-state initialiser.  The recurrent blocks run their prefill (S > 1)
+through :func:`repro_torch.kernels.ssd_scan.ssd_scan`, which launches the
+CUDA kernel for tensors on the card and takes the plain chunked version on
+the CPU; ``scan_impl="reference"`` forces the plain version anywhere.  Their
+one-token decode step is the plain ``linear_scan_step``, as it is jnp in the
+reference.  The ``xattn`` block (vlm) and the MoE FFN wait for later slices
+and raise ``NotImplementedError``; ``LM`` refuses their families.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from ..kernels.ssd_scan import ops as ssd_ops
+from ..kernels.ssd_scan.ref import linear_scan_step
 from .config import ArchConfig
 from .layers import attn_apply, attn_meta, mlp_apply, mlp_meta, norm_apply, norm_meta
+from .module import ParamMeta
+
+F32 = torch.float32
+
+_SCAN_IMPLS = {"chunked": None, "reference": "reference"}
 
 
 def _later(kind: str):
     raise NotImplementedError(f"{kind} blocks: ROADMAP.md queue 1, the other LM families")
+
+
+def _pick_chunk(S: int, target: int = 64) -> int:
+    """Largest power-of-two chunk ≤ target that divides S."""
+    c = 1
+    while c * 2 <= min(target, S) and S % (c * 2) == 0:
+        c *= 2
+    return c
+
+
+def _scan(q, k, v, w, h0, *, chunk, strict, scalar_decay, scan_impl):
+    """The prefill scan on contiguous operands, with the final state."""
+    if scan_impl not in _SCAN_IMPLS:
+        raise ValueError(f"unknown scan_impl {scan_impl!r}")
+    return ssd_ops.ssd_scan(
+        q.contiguous(), k.contiguous(), v.contiguous(), w.contiguous(),
+        chunk=_pick_chunk(q.shape[2], chunk), strict=strict, scalar_decay=scalar_decay,
+        h0=h0, return_state=True, impl=_SCAN_IMPLS[scan_impl],
+    )
 
 
 def attn_block_meta(cfg: ArchConfig):
@@ -55,9 +93,225 @@ def xattn_block_meta(cfg: ArchConfig):
     _later("cross-attention (vlm)")
 
 
+# ---------------------------------------------------------------------------
+# RWKV-6 (Finch) block
+# ---------------------------------------------------------------------------
+
+def _rwkv_heads(cfg: ArchConfig):
+    hd = cfg.ssm.head_dim
+    if cfg.d_model % hd:
+        raise ValueError(f"d_model {cfg.d_model} is not a multiple of the head dim {hd}")
+    return cfg.d_model // hd, hd
+
+
 def rwkv6_block_meta(cfg: ArchConfig):
-    _later("rwkv6")
+    d, dt = cfg.d_model, cfg.param_dtype
+    lora = cfg.ssm.decay_lora
+    H, hd = _rwkv_heads(cfg)
+    return {
+        "ln1": norm_meta(cfg),
+        "ln2": norm_meta(cfg),
+        # time-mix
+        "mu": ParamMeta((5, d), F32, (None, None), "zeros"),   # r,k,v,w,g lerps
+        "wr": ParamMeta((d, d), dt, ("fsdp", "tp"), "normal"),
+        "wk": ParamMeta((d, d), dt, ("fsdp", "tp"), "normal"),
+        "wv": ParamMeta((d, d), dt, ("fsdp", "tp"), "normal"),
+        "wg": ParamMeta((d, d), dt, ("fsdp", "tp"), "normal"),
+        "wo": ParamMeta((d, d), dt, ("tp", "fsdp"), "normal"),
+        "w0": ParamMeta((d,), F32, (None,), "zeros"),          # decay base
+        "wA": ParamMeta((d, lora), F32, ("fsdp", None), "normal"),
+        "wB": ParamMeta((lora, d), F32, (None, "fsdp"), "normal"),
+        "bonus": ParamMeta((H, hd), F32, (None, None), "zeros"),
+        "gn": ParamMeta((d,), F32, (None,), "ones"),           # per-head groupnorm
+        # channel-mix
+        "cmu": ParamMeta((2, d), F32, (None, None), "zeros"),  # r,k lerps
+        "cwr": ParamMeta((d, d), dt, ("fsdp", "tp"), "normal"),
+        "cwk": ParamMeta((d, cfg.d_ff), dt, ("fsdp", "tp"), "normal"),
+        "cwv": ParamMeta((cfg.d_ff, d), dt, ("tp", "fsdp"), "normal"),
+    }
+
+
+def _token_shift(x, prev):
+    """x: (B,S,d); prev: (B,d) last token of the previous segment."""
+    return torch.cat([prev[:, None, :], x[:, :-1, :]], dim=1)
+
+
+def rwkv6_block_apply(p, cfg: ArchConfig, x, state=None, *, chunk=64, scan_impl="chunked"):
+    """state: None (fresh) or dict(tshift (B,d), cshift (B,d), h (B,H,K,V)).
+    S > 1 runs the chunked scan (prefill, state-continuing); S == 1 with a
+    state runs the O(1) recurrent step (decode).  Returns (x', new_state)."""
+    B, S, d = x.shape
+    H, hd = _rwkv_heads(cfg)
+    decode = state is not None and S == 1
+    zeros = torch.zeros((B, d), dtype=x.dtype, device=x.device)
+    tprev = zeros if state is None else state["tshift"].to(x.dtype)
+    cprev = zeros if state is None else state["cshift"].to(x.dtype)
+    h0 = None if state is None else state["h"]
+
+    # ---- time mix ----
+    xa = norm_apply(p["ln1"], cfg, x)
+    xs = _token_shift(xa, tprev)
+    mu = p["mu"].to(xa.dtype)
+
+    def mix(i):
+        return xa + (xs - xa) * mu[i]
+
+    r = mix(0) @ p["wr"]
+    kk = mix(1) @ p["wk"]
+    vv = mix(2) @ p["wv"]
+    g = F.silu((mix(4) @ p["wg"]).to(F32)).to(xa.dtype)
+    # data-dependent decay (low-rank, Finch)
+    dw = torch.tanh(mix(3).to(F32) @ p["wA"])
+    dw = dw @ p["wB"] + p["w0"]
+    w = torch.exp(-torch.exp(dw))                               # (B,S,d) in (0,1)
+
+    def to_heads(t):
+        return t.reshape(B, S, H, hd).transpose(1, 2)
+
+    rh, kh, vh, wh = to_heads(r), to_heads(kk), to_heads(vv), to_heads(w.to(x.dtype))
+
+    if decode:
+        y1, hT = linear_scan_step(rh[:, :, 0], kh[:, :, 0], vh[:, :, 0], wh[:, :, 0], h0,
+                                  strict=True)
+        y = y1[:, :, None, :]
+    else:
+        y, hT = _scan(rh, kh, vh, wh, h0, chunk=chunk, strict=True, scalar_decay=False,
+                      scan_impl=scan_impl)
+    # bonus: y += (r · (u ⊙ k)) v
+    u = p["bonus"].to(F32)
+    s_bonus = torch.einsum("bhsk,hk,bhsk->bhs", rh.to(F32), u, kh.to(F32))
+    y = y.to(F32) + s_bonus[..., None] * vh.to(F32)
+
+    # per-head groupnorm (population variance, as jnp.var) then output proj
+    mean = y.mean(-1, keepdim=True)
+    var = y.var(-1, keepdim=True, correction=0)
+    y = (y - mean) * torch.rsqrt(var + 1e-5)
+    y = y.transpose(1, 2).reshape(B, S, d) * p["gn"]
+    y = y.to(x.dtype) * g
+    x = x + y @ p["wo"]
+
+    # ---- channel mix ----
+    xc = norm_apply(p["ln2"], cfg, x)
+    xcs = _token_shift(xc, cprev)
+    cmu = p["cmu"].to(xc.dtype)
+    xr = xc + (xcs - xc) * cmu[0]
+    xk = xc + (xcs - xc) * cmu[1]
+    kc = xk @ p["cwk"]
+    kc = torch.square(F.relu(kc.to(F32))).to(xc.dtype)
+    vc = kc @ p["cwv"]
+    rc = torch.sigmoid((xr @ p["cwr"]).to(F32)).to(xc.dtype)
+    x = x + rc * vc
+
+    return x, {"tshift": xa[:, -1, :], "cshift": xc[:, -1, :], "h": hT}
+
+
+def rwkv6_state_init(cfg: ArchConfig, batch: int, dtype, device):
+    H, hd = _rwkv_heads(cfg)
+    return {
+        "tshift": torch.zeros((batch, cfg.d_model), dtype=dtype, device=device),
+        "cshift": torch.zeros((batch, cfg.d_model), dtype=dtype, device=device),
+        "h": torch.zeros((batch, H, hd, hd), dtype=F32, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD) block
+# ---------------------------------------------------------------------------
+
+def _mamba_dims(cfg: ArchConfig):
+    d_inner = 2 * cfg.d_model
+    hd = cfg.ssm.head_dim
+    if d_inner % hd:
+        raise ValueError(f"d_inner {d_inner} is not a multiple of the head dim {hd}")
+    return d_inner, d_inner // hd, hd, cfg.ssm.state
 
 
 def mamba2_block_meta(cfg: ArchConfig):
-    _later("mamba2")
+    d, dt = cfg.d_model, cfg.param_dtype
+    d_inner, H, hd, N = _mamba_dims(cfg)
+    conv_dim = d_inner + 2 * N
+    return {
+        "ln": norm_meta(cfg),
+        "in_proj": ParamMeta((d, 2 * d_inner + 2 * N + H), dt, ("fsdp", "tp"), "normal"),
+        "conv_w": ParamMeta((cfg.ssm.conv, conv_dim), F32, (None, "tp"), "normal", scale=0.5),
+        "conv_b": ParamMeta((conv_dim,), F32, ("tp",), "zeros"),
+        "A_log": ParamMeta((H,), F32, (None,), "zeros"),
+        "D": ParamMeta((H,), F32, (None,), "ones"),
+        "dt_bias": ParamMeta((H,), F32, (None,), "zeros"),
+        "gn": ParamMeta((d_inner,), F32, ("tp",), "ones"),
+        "out_proj": ParamMeta((d_inner, d), dt, ("tp", "fsdp"), "normal"),
+    }
+
+
+def _causal_conv(x, w, b, prev):
+    """x: (B,S,C); w: (K,C) depthwise; prev: (B,K-1,C) left context.  The
+    taps are cast to x's dtype and summed in order in that dtype."""
+    K = w.shape[0]
+    S = x.shape[1]
+    xp = torch.cat([prev, x], dim=1)                           # (B, S+K-1, C)
+    out = xp[:, 0:S, :] * w[0][None, None, :].to(x.dtype)
+    for i in range(1, K):
+        out = out + xp[:, i:i + S, :] * w[i][None, None, :].to(x.dtype)
+    return out + b.to(x.dtype), xp[:, -(K - 1):, :]
+
+
+def mamba2_block_apply(p, cfg: ArchConfig, x, state=None, *, chunk=64, scan_impl="chunked"):
+    """state: None (fresh) or dict(conv (B,K-1,C), h (B,H,N,hd)).  S > 1 runs
+    the chunked scan; S == 1 with a state runs the decode step.  Returns
+    (x', new_state)."""
+    B, S, d = x.shape
+    d_inner, H, hd, N = _mamba_dims(cfg)
+    decode = state is not None and S == 1
+
+    xa = norm_apply(p["ln"], cfg, x)
+    proj = xa @ p["in_proj"]
+    z, xbc, dt_raw = torch.split(proj, [d_inner, d_inner + 2 * N, H], dim=-1)
+
+    conv_prev = (
+        torch.zeros((B, cfg.ssm.conv - 1, d_inner + 2 * N), dtype=xbc.dtype, device=x.device)
+        if state is None else state["conv"].to(xbc.dtype)
+    )
+    xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_prev)
+    xbc = F.silu(xbc.to(F32)).to(x.dtype)
+    xin, Bmat, Cmat = torch.split(xbc, [d_inner, N, N], dim=-1)
+
+    dt_a = F.softplus(dt_raw.to(F32) + p["dt_bias"])            # (B,S,H)
+    a = torch.exp(-torch.exp(p["A_log"])[None, None] * dt_a)    # (B,S,H) decay
+
+    # onto the generalized scan: per head, k = B, q = C (shared), v = dt * x;
+    # B and C are broadcast over heads and materialised, as in the reference;
+    # the decay stays one value per (b, h, t), which the scan's scalar mode
+    # takes as is and its plain version broadcasts over N
+    xh = xin.reshape(B, S, H, hd).transpose(1, 2)               # (B,H,S,hd)
+    vh = xh * dt_a.transpose(1, 2)[..., None].to(xh.dtype)
+    kh = Bmat[:, None].expand(B, H, S, N).to(xh.dtype)
+    qh = Cmat[:, None].expand(B, H, S, N).to(xh.dtype)
+    wh = a.transpose(1, 2)[..., None].to(xh.dtype)             # (B,H,S,1)
+
+    h0 = None if state is None else state["h"]
+    if decode:
+        y1, hT = linear_scan_step(qh[:, :, 0], kh[:, :, 0], vh[:, :, 0], wh[:, :, 0], h0)
+        y = y1[:, :, None, :]
+    else:
+        # one decay per (b, h, t): the kernel's scalar mode is exact here
+        y, hT = _scan(qh, kh, vh, wh, h0, chunk=chunk, strict=False, scalar_decay=True,
+                      scan_impl=scan_impl)
+
+    y = y.to(F32) + p["D"][None, :, None, None] * xh.to(F32)
+    y = y.transpose(1, 2).reshape(B, S, d_inner)
+
+    # gated RMSNorm (f32 gate), then the out projection
+    y = y * F.silu(z.to(F32))
+    var = torch.mean(y * y, dim=-1, keepdim=True)
+    y = y * torch.rsqrt(var + 1e-6) * p["gn"]
+    out = y.to(x.dtype) @ p["out_proj"]
+    return x + out, {"conv": conv_state, "h": hT}
+
+
+def mamba2_state_init(cfg: ArchConfig, batch: int, dtype, device):
+    d_inner, H, hd, N = _mamba_dims(cfg)
+    return {
+        "conv": torch.zeros((batch, cfg.ssm.conv - 1, d_inner + 2 * N), dtype=dtype,
+                            device=device),
+        "h": torch.zeros((batch, H, N, hd), dtype=F32, device=device),
+    }

@@ -1,6 +1,6 @@
 """Continuous-batching serving engine over the wait-free page table.
 
-Port of ``repro.serving.engine`` for the dense family:
+Port of ``repro.serving.engine`` for the dense, ssm and hybrid families:
 
   * **slot-based continuous batching** — ``max_batch`` cache slots step
     together every engine tick; a slot still consuming its prompt feeds the
@@ -8,8 +8,9 @@ Port of ``repro.serving.engine`` for the dense family:
     sampled token.  One ``decode_step`` per tick serves admission, prefill
     and decode at once.
   * **slot reuse** — admitting into a previously used slot zeroes that
-    slot's KV rows and sets ``cache["start"][slot]`` so attention never sees
-    the predecessor's rows.
+    slot's rows in every cache leaf (KV rows, the hybrid's shared-block KV
+    rows, recurrent states) and sets ``cache["start"][slot]`` so attention
+    never sees the predecessor's rows.
   * **wait-free page accounting** — every tick builds one op batch
     (admit/extend/finish) for :class:`PagedKVManager`, whose page table is
     the port's ``WaitFreeGraph`` in FPSP mode.
@@ -170,9 +171,11 @@ class ServingEngine:
     def _admit(self, slot: int, req: Request, pos: int) -> None:
         self.slots[slot] = req
         self._consumed[slot] = 0
-        # zero the slot's stale cache rows and mark its admission offset
-        for leaf in self.cache["kv"].values():
-            leaf[:, slot] = 0
+        # zero the slot's stale cache rows and recurrent states (every leaf
+        # is laid out (layers, batch, ...)) and mark its admission offset
+        for key in ("kv", "shared_kv", "states"):
+            for leaf in self.cache.get(key, {}).values():
+                leaf[:, slot] = 0
         self.cache["start"][slot] = pos
 
     def _sample(self, req: Request, logits_row: np.ndarray, position: int) -> int:

@@ -8,6 +8,15 @@ handed to both.  Each layer function, the prefill logits
 forward checks.  The configs cover RoPE + GQA + QKV bias (qwen2-7b), the
 sliding window (h2o-danube-3-4b), layernorm + GeLU + biases
 (starcoder2-15b) and tied embeddings (command-r-plus-104b).
+
+The recurrent families, rwkv6-3b (ssm) and zamba2-1.2b (hybrid: mamba2 and
+a shared attention block), are held to the same 2e-4 on their hidden
+states, recurrent states, decode logits and prefill step.  The reference
+initialises some of their leaves to constants (rwkv6's token-shift lerps
+``mu``/``cmu``, ``bonus`` and decay base ``w0``; mamba2's ``A_log``,
+``dt_bias``, ``conv_b`` and ``D``), which would leave the token shift and
+the bonus unexercised; the tests add numpy noise to those leaves and hand
+the same arrays to both packages.
 """
 
 import numpy as np
@@ -21,6 +30,7 @@ from _torch_parity import to_np  # noqa: E402
 from repro.configs import get_smoke_config as j_smoke  # noqa: E402
 from repro.models import LM as JLM  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
+from repro.launch.steps import build_prefill_step as j_prefill_step  # noqa: E402
 from repro.models.blocks import attn_cache_init as j_cache_init  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.launch.steps import build_decode_step, build_prefill_step  # noqa: E402
@@ -29,19 +39,29 @@ from repro_torch.models.blocks import attn_cache_init  # noqa: E402
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 ARCHS = ["qwen2-7b", "h2o-danube-3-4b", "starcoder2-15b", "command-r-plus-104b"]
+REC_ARCHS = ["rwkv6-3b", "zamba2-1.2b"]
+# leaves the reference initialises to constants, re-drawn with numpy noise
+NOISY = {"rwkv6-3b": {"mu": 0.5, "cmu": 0.5, "bonus": 0.5, "w0": 0.5},
+         "zamba2-1.2b": {"A_log": 0.5, "dt_bias": 0.5, "conv_b": 0.1, "D": 0.5}}
 
 _CACHE = {}
 
 
-def _setup(arch):
+def _setup(arch, n_layers=None):
     """(reference cfg, port cfg, reference params, port params), once."""
-    if arch not in _CACHE:
-        jcfg = j_smoke(arch)
-        jp = JLM(jcfg).init(jax.random.key(0))
-        tree = jax.tree.map(np.asarray, jp)
-        cfg = get_smoke_config(arch)
-        _CACHE[arch] = (jcfg, cfg, jp, params_from_numpy(cfg, tree, device="cpu"))
-    return _CACHE[arch]
+    if (arch, n_layers) not in _CACHE:
+        jcfg, cfg = j_smoke(arch), get_smoke_config(arch)
+        if n_layers is not None:
+            jcfg, cfg = jcfg.scaled(n_layers=n_layers), cfg.scaled(n_layers=n_layers)
+        tree = jax.tree.map(np.asarray, JLM(jcfg).init(jax.random.key(0)))
+        rng = np.random.default_rng(100)
+        for name, scale in NOISY.get(arch, {}).items():
+            leaf = tree["blocks"][name]
+            noise = scale * rng.standard_normal(leaf.shape)
+            tree["blocks"][name] = (leaf + noise).astype(leaf.dtype)
+        jp = jax.tree.map(jnp.asarray, tree)
+        _CACHE[arch, n_layers] = (jcfg, cfg, jp, params_from_numpy(cfg, tree, device="cpu"))
+    return _CACHE[arch, n_layers]
 
 
 def _t(x):
@@ -70,7 +90,7 @@ def test_configs_match_the_reference():
             assert L.padded_vocab(port) == JL.padded_vocab(ref)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + REC_ARCHS)
 def test_params_round_trip_and_meta(arch):
     jcfg, cfg, jp, tp = _setup(arch)
     back = params_to_numpy(tp)
@@ -194,6 +214,106 @@ def test_prefill_and_decode_logits(arch):
         got, tc = step(tp, _t(tok), tc)
         _close(got, want, f"decode step {t}")
     assert int(tc["len"]) == 5
+
+
+def _close_tree(got, want, what):
+    assert sorted(got) == sorted(want), what
+    for name in want:
+        assert tuple(got[name].shape) == tuple(want[name].shape), f"{what} {name}"
+        _close(got[name], want[name], f"{what} {name}")
+
+
+@pytest.mark.parametrize("arch,n_layers", [("rwkv6-3b", None), ("zamba2-1.2b", None),
+                                           ("zamba2-1.2b", 7)])
+def test_recurrent_hidden_states_and_states(arch, n_layers):
+    """The prefill forward and its recurrent states, from zero states and
+    continued from a first segment's states (odd lengths run chunk 1).
+    zamba2 at 7 layers has a mamba2 tail after its two shared-block groups,
+    as the full config's 38 layers in groups of 6 do."""
+    jcfg, cfg, jp, tp = _setup(arch, n_layers)
+    rng = np.random.default_rng(2)
+    B, S1, S2 = 2, 40, 13
+    toks = rng.integers(0, cfg.vocab, (B, S1 + S2)).astype(np.int32)
+    jm, tm = JLM(jcfg), LM(cfg, device="cpu")
+    run = {"sp": False, "remat": False}
+
+    js = jm.init_recurrent_states(B, jnp.float32)
+    ts = tm.init_recurrent_states(B, torch.float32)
+    _close_tree(ts, js, "initial states")
+    jh, _, js = jm.hidden_states(jp, jnp.asarray(toks[:, :S1]), run=run, states=js)
+    th, aux, ts = tm.hidden_states(tp, _t(toks[:, :S1]), states=ts)
+    assert aux == 0.0
+    _close(th, jh, "hidden")
+    _close_tree(ts, js, "states after the first segment")
+    _close(tm._logits(tp, th), jm._logits(jp, jh), "logits")
+    jh, _, js = jm.hidden_states(jp, jnp.asarray(toks[:, S1:]), run=run, states=js)
+    th, _, ts = tm.hidden_states(tp, _t(toks[:, S1:]), states=ts)
+    _close(th, jh, "hidden, continued")
+    _close_tree(ts, js, "states after the second segment")
+    # no states means zero states
+    th0, _, ts0 = tm.hidden_states(tp, _t(toks[:, :S1]))
+    th1, _, ts1 = tm.hidden_states(tp, _t(toks[:, :S1]),
+                                   states=tm.init_recurrent_states(B, torch.float32))
+    assert torch.equal(th0, th1) and all(torch.equal(ts0[n], ts1[n]) for n in ts0)
+    # the plain scan forced gives the same (on the CPU both are the plain one)
+    thr, _, _ = tm.hidden_states(tp, _t(toks[:, :S1]), run={"scan_impl": "reference"})
+    assert torch.equal(thr, th0)
+
+
+@pytest.mark.parametrize("arch,n_layers", [("rwkv6-3b", None), ("zamba2-1.2b", None),
+                                           ("zamba2-1.2b", 7)])
+def test_recurrent_prefill_and_decode(arch, n_layers):
+    """The prefill step's last-token logits and five decode steps (cache
+    states and the hybrid's shared-block KV) against the reference."""
+    jcfg, cfg, jp, tp = _setup(arch, n_layers)
+    rng = np.random.default_rng(3)
+    B, S = 2, 24
+    toks = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    jm = JLM(jcfg)
+    jstep, _, _ = j_prefill_step(jcfg, multi_pod=False, run_overrides={"sp": False})
+    want = jstep(jp, {"tokens": jnp.asarray(toks)})
+    prefill, _, _ = build_prefill_step(cfg, device="cpu")
+    _close(prefill(tp, {"tokens": _t(toks)}), want, "prefill step")
+
+    jc = jm.decode_init(B, 16)
+    step, tm, _ = build_decode_step(cfg, device="cpu")
+    tc = tm.decode_init(B, 16)
+    assert sorted(tc) == sorted(jc)
+    for t in range(5):
+        tok = toks[:, t:t + 1]
+        want, jc = jm.decode_step(jp, jnp.asarray(tok), jc)
+        got, tc = step(tp, _t(tok), tc)
+        _close(got, want, f"decode step {t}")
+        _close_tree(tc["states"], jc["states"], f"states after step {t}")
+        if "shared_kv" in jc:
+            _close_tree(tc["shared_kv"], jc["shared_kv"], f"shared KV after step {t}")
+    assert int(tc["len"]) == 5
+
+
+def test_recurrent_block_helpers():
+    from repro.models import blocks as JB
+
+    from repro_torch.models import blocks as TB
+
+    for S in (1, 2, 7, 24, 40, 64, 100, 4096, 4097):
+        assert TB._pick_chunk(S) == JB._pick_chunk(S)
+    jcfg, cfg, jp, tp = _setup("zamba2-1.2b")
+    rng = np.random.default_rng(4)
+    C = 2 * cfg.d_model + 2 * cfg.ssm.state
+    x = rng.standard_normal((2, 5, C)).astype(np.float32)
+    prev = rng.standard_normal((2, cfg.ssm.conv - 1, C)).astype(np.float32)
+    lp = jax.tree.map(lambda a: a[0], jp["blocks"])
+    want, wstate = JB._causal_conv(x, lp["conv_w"], lp["conv_b"], prev)
+    got, gstate = TB._causal_conv(_t(x), _t(np.array(lp["conv_w"])),
+                                  _t(np.array(lp["conv_b"])), _t(prev))
+    _close(got, want, "causal conv")
+    _close(gstate, wstate, "causal conv state")
+    for name, jinit, tinit, jc in (("rwkv6", JB.rwkv6_state_init, TB.rwkv6_state_init,
+                                    j_smoke("rwkv6-3b")),
+                                   ("mamba2", JB.mamba2_state_init, TB.mamba2_state_init,
+                                    j_smoke("zamba2-1.2b"))):
+        pc = get_smoke_config(jc.name)
+        _close_tree(tinit(pc, 3, torch.float32, "cpu"), jinit(jc, 3, jnp.float32), name)
 
 
 def test_other_families_are_refused():

@@ -5,7 +5,9 @@ serving checks ported.
   the reference's for the same op stream, and ``replay`` rebuilds them.
 * ``ServingEngine``: the same requests (greedy and sampled) on the same
   parameters generate the same tokens, in the same number of ticks, with
-  the same page tables, as the reference's engine.
+  the same page tables, as the reference's engine; for qwen2-7b, and for
+  rwkv6-3b and zamba2-1.2b with more requests than slots, so that slot
+  reuse resets the recurrent states and the shared block's KV rows.
 * The checks of ``tests/test_serving.py`` for the dense family: the engine
   equals free-running decode, slot reuse is isolated, batching equals
   decoding alone, pages do not leak, failover replays exactly, and
@@ -103,6 +105,55 @@ def test_engine_matches_repro(both):
     assert sorted(tdone) == sorted(jdone)
     for i in jdone:
         assert tdone[i].generated == jdone[i].generated, f"request {i}"
+    assert teng.ticks == jeng.ticks
+    assert teng.pages.op_log == jeng.pages.op_log
+    assert_states_equal(teng.pages.graph.state, jeng.pages.graph.state)
+
+
+# leaves the reference initialises to constants, given numpy noise (as in
+# tests/test_torch_models.py) so that the token shift and bonus take part
+NOISY = {"rwkv6-3b": ("mu", "cmu", "bonus", "w0"),
+         "zamba2-1.2b": ("A_log", "dt_bias", "conv_b", "D")}
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-1.2b"])
+def test_recurrent_engine_matches_repro(arch):
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from repro.configs import get_smoke_config as j_smoke
+    from repro.models import LM as JLM
+    from repro.serving import Request as JRequest
+    from repro.serving import ServingEngine as JEngine
+
+    jcfg, cfg = j_smoke(arch), get_smoke_config(arch)
+    tree = jax.tree.map(np.asarray, JLM(jcfg).init(jax.random.key(0)))
+    rng = np.random.default_rng(8)
+    for name in NOISY[arch]:
+        leaf = tree["blocks"][name]
+        tree["blocks"][name] = (leaf + 0.3 * rng.standard_normal(leaf.shape)).astype(leaf.dtype)
+    jp = jax.tree.map(jnp.asarray, tree)
+    tp = params_from_numpy(cfg, tree, device="cpu")
+
+    reqs = _requests(10, 5, cfg.vocab, max_new=4)
+    jeng = JEngine(jcfg, jp, max_batch=2, max_len=64, page_size=8, seed=2)
+    teng = ServingEngine(cfg, tp, max_batch=2, max_len=64, page_size=8, seed=2, device="cpu")
+    for r in reqs:
+        jeng.submit(JRequest(**r))
+        teng.submit(Request(**r))
+    reused = 0
+    while jeng.queue or any(s is not None for s in jeng.slots):
+        before = [s is None for s in teng.slots]
+        jeng.tick()
+        teng.tick()
+        reused += sum(b and s is not None for b, s in zip(before, teng.slots)) if teng.ticks > 1 \
+            else 0
+        assert teng.pages.seq_pages == jeng.pages.seq_pages
+        assert [r and r.id for r in teng.slots] == [r and r.id for r in jeng.slots]
+    assert reused >= 2  # slots were handed to a second request while the cache lived on
+    assert sorted(teng.finished) == sorted(jeng.finished) == list(range(5))
+    for i in jeng.finished:
+        assert teng.finished[i].generated == jeng.finished[i].generated, f"request {i}"
     assert teng.ticks == jeng.ticks
     assert teng.pages.op_log == jeng.pages.op_log
     assert_states_equal(teng.pages.graph.state, jeng.pages.graph.state)
