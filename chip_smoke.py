@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one NVIDIA card: the wait-free graph and
-the serving paths of three LMs (dense, ssm and hybrid).
+"""Drive the PyTorch/CUDA port on one NVIDIA card: the wait-free graph, the
+serving paths of three LMs (dense, ssm and hybrid) and the paged decode
+attention on the serving page table's own block tables.
 
 Run from the root of a checkout, with one card visible:
 
@@ -44,9 +45,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    new tokens, half greedy and half at temperature 0.8, with its page table
    in the port's ``WaitFreeGraph(mode="fpsp")``.  ``failover()`` must give
    identical page tables and graph state, and two greedy requests decoded
-   alone must give the batch's tokens.  The launch counts are read around
-   this phase: the attention kernel and the page table's graph kernels must
-   each run.
+   alone must give the batch's tokens.  A second wave of 8 requests gets
+   the pages the first wave gave back; it is profiled for 6 ticks and then
+   drained by hand, and at every 8th tick (at least 4 times, pages reused)
+   ``paged_attention`` runs on the engine's own block tables: each live
+   slot's pages from ``eng.pages.block_table``, its cache rows of the first
+   and last attention layer copied into those pages of a pool of random
+   rows, q drawn from the seed; the kernel is held within 2e-2 (bf16) of
+   the plain paged version and of the engine's dense decode attention.  The
+   launch counts are read around this phase: the attention kernels and the
+   page table's graph kernels must each run.
 7. ``flash_attention`` at the prefill's shape (B 2, Hq 28, Hkv 4, S 4096,
    D 128, bf16, causal) against its plain version, timed as in phase 4,
    beside ``scaled_dot_product_attention`` as the library yardstick.
@@ -71,7 +79,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 10. zamba2-1.2b (hybrid; arXiv:2411.15242) at full width (38 layers, d_model
    2048, mamba2 with 64 heads, N 64, conv 4, the shared MHA block after every
    6 layers), the same way: ``ssd_scan`` (scalar decay) 38 times and
-   ``flash_attention`` 6 times a prefill.  The prefill does not produce the
+   ``flash_attention`` 6 times a prefill, and ``paged_attention`` in the
+   drain on the first and last occurrence of the shared block (MHA, 32
+   heads of 64).  The prefill does not produce the
    shared block's KV cache (nor does the reference's), so the handoff is
    checked on the first and last mamba2 layers: a 4,096-token block run's
    state continued by one decode step against the 4,097-token block run.
@@ -80,6 +90,25 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    K, V, bf16, scalar, one decay a step), timed as in phase 4 beside its
    plain version and its bound (the least the function needs, whatever the
    chunk); no single PyTorch call computes it.
+12. ``paged_attention`` against its plain version on small shapes (the
+   reference sweep's, a GQA group of 7 at D 128, a group of 1 at D 64, long
+   sequences over many splits; lengths 0, 1, a page boundary and the full
+   table, repeated page ids, zero-filled table tails), f32 within 2e-5 and
+   bf16 within 2e-2; a length of 0 gives 0; a live page id past the pool, a
+   length past the table, D 136 and a group of 17 are refused.
+13. ``paged_attention`` at one decode step at full width, bf16, pages of 16,
+   16 sequences: qwen2-7b (28/4 heads of 128, lengths 4,096-32,768) and
+   zamba2-1.2b's shared block (32 heads of 64, lengths 1,024-4,096), on
+   block tables from a ``PagedKVManager`` on the card (24 sequences
+   admitted, every third finished, then the 16 admitted into the pages
+   given back), held to its plain version in bf16 within 2e-2 and within
+   1e-2 of the largest output, and on the same tables in f32 within 2e-5;
+   timed as in phase 4 beside its plain version, its bound
+   (K and V of the live rows, q, out and the page ids at 3.35 TB/s) and
+   ``scaled_dot_product_attention`` over the same K/V gathered into a
+   contiguous cache (no PyTorch call reads paged K/V).  Its ``launches``
+   are those of the drain checks of phases 6 and 10: the engine itself
+   decodes over a dense cache.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``kernels`` record.  Without a card, or outside a checkout of the repository,
@@ -107,7 +136,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (  # noqa: E402
-    OP_ADD_VERTEX, GraphState, SequentialGraph, WaitFreeGraph, hashing, maintenance,
+    OP_ADD_EDGE, OP_ADD_VERTEX, GraphState, SequentialGraph, WaitFreeGraph, hashing, maintenance,
     run_sequential,
 )
 from repro_torch.core.hashing import hash_vertex, probe_slot  # noqa: E402
@@ -124,6 +153,8 @@ from repro_torch.kernels.frontier import frontier_expand  # noqa: E402
 from repro_torch.kernels.frontier import kernel as fk  # noqa: E402
 from repro_torch.kernels.hash_probe import hash_probe  # noqa: E402
 from repro_torch.kernels.hash_probe import kernel as hk  # noqa: E402
+from repro_torch.kernels.paged_attention import kernel as pak  # noqa: E402
+from repro_torch.kernels.paged_attention import paged_attention  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as ssk  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
@@ -132,21 +163,22 @@ from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import blocks as model_blocks  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models.module import tree_leaves, tree_map  # noqa: E402
-from repro_torch.serving import Request, ServingEngine  # noqa: E402
+from repro_torch.serving import PagedKVManager, Request, ServingEngine  # noqa: E402
 
 # the kernel wrappers, whose launch counts the main paths are read by
 WRAPPERS = {
     "hash_probe": hk.hash_probe, "masked_compact": ck.masked_compact,
     "probe_place": ck.probe_place, "frontier_expand": fk.frontier_expand,
     "flash_attention": fak.flash_attention, "ssd_scan": ssk.ssd_scan,
+    "paged_attention": pak.paged_attention,
 }
 GRAPH_PATH = ("hash_probe", "masked_compact", "probe_place", "frontier_expand")
-# serving: the page table's locate and growth rehash, and each model's
-# prefill kernels
+# serving: the page table's locate and growth rehash, each model's prefill
+# kernels, and the paged decode on the drain's block tables
 PAGE_TABLE = ("hash_probe", "masked_compact", "probe_place")
-SERVE_PATH = ("flash_attention",) + PAGE_TABLE
+SERVE_PATH = ("flash_attention", "paged_attention") + PAGE_TABLE
 RWKV_PATH = ("ssd_scan",) + PAGE_TABLE
-ZAMBA_PATH = ("ssd_scan", "flash_attention") + PAGE_TABLE
+ZAMBA_PATH = ("ssd_scan", "flash_attention", "paged_attention") + PAGE_TABLE
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 ALU_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores, the
@@ -202,6 +234,29 @@ SSD_SHAPES = [  # (B, H, S, K, V, chunk)
     (2, 2, 100, 16, 16, 4),
     (1, 3, 37, 8, 24, 1),
 ]
+
+# paged_attention against its plain version: tests/test_kernels.py's sweep
+# and tolerances, plus a GQA group of 7 at D = 128, a group of 1 at D = 64,
+# and sequences over many tiles and splits
+PAGED_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+PAGED_SHAPES = [  # (B, Hq, Hkv, D, P, page_size, pages_per_seq)
+    (2, 4, 4, 16, 8, 8, 2),
+    (3, 8, 2, 32, 16, 8, 4),
+    (1, 12, 1, 64, 8, 16, 3),
+    (2, 14, 2, 128, 16, 16, 4),
+    (3, 4, 4, 64, 12, 16, 3),
+    (4, 28, 4, 128, 1100, 16, 260),
+]
+PAGED_EVERY, PAGED_MIN_CHECKS = 8, 4  # the drain's checks: every 8th tick, at least 4
+# at phase 13's lengths an output is about sqrt(e / S), 0.01-0.02: as small as
+# the bf16 limit, so there the bf16 error is also held to the outputs' scale
+# (max abs err over max |plain|), and the same tables run once in f32
+PAGED_FULL_REL_TOL = 1e-2
+# phase 13: one decode step's attention at full width, 16 sequences, on
+# block tables of the port's page table; lengths up to qwen2-7b's native
+# context of 32,768 (arXiv:2407.10671), and 1,024-4,096 for zamba2-1.2b
+PAGED_DECODE_BATCH, PAGED_PRELOAD = 16, 24
+PAGED_LENS = {LM_ARCH: (4096, 32768), HYBRID_ARCH: (1024, 4096)}
 
 
 def log(msg: str) -> None:
@@ -812,6 +867,66 @@ def _layer_scan_gate(kept) -> dict:
     return out
 
 
+def _paged_drain_check(eng, key: str, gen, reusable: set, dev) -> dict:
+    """``paged_attention`` on the engine's own block tables at this tick:
+    each live slot's pages from ``eng.pages.block_table``, its length
+    ``cache["len"] - cache["start"][slot]``, and its cache rows of the first
+    and last attention layer copied into those pages of a pool of random
+    rows.  The kernel (a launch of the path, so counted) is held within the
+    working type's tolerance to the plain paged version and to the engine's
+    own dense decode attention over the slot's cache."""
+    cache = eng.cache
+    live = [s for s, r in enumerate(eng.slots) if r is not None]
+    page = eng.page_size
+    table = eng.pages.block_table([eng.slots[s].id for s in live], eng.max_len // page)
+    start = cache["start"][live]
+    lens = (cache["len"] - start).to(torch.int32)
+    starts, lengths = start.tolist(), lens.tolist()
+    n_pages = [-(-n // page) for n in lengths]
+    pages = {int(p) for i, n in enumerate(n_pages) for p in table[i, :n]}
+    bt = torch.as_tensor(table, device=dev)
+    n_attn, err = cache[key]["k"].shape[0], 0.0
+    for layer in (0, n_attn - 1):
+        k_all, v_all = cache[key]["k"][layer], cache[key]["v"][layer]  # (slots, Hkv, T, D)
+        _, hkv, _, d = k_all.shape
+        pool = [torch.randn(eng.pages.num_pages, page, hkv, d, generator=gen, device=dev)
+                .to(k_all.dtype) for _ in range(2)]
+        for i, slot in enumerate(live):
+            for j in range(n_pages[i]):
+                lo, rows = starts[i] + page * j, min(page, lengths[i] - page * j)
+                for dst, src in zip(pool, (k_all, v_all)):
+                    dst[table[i, j], :rows] = src[slot, :, lo:lo + rows].transpose(0, 1)
+        q = torch.randn(len(live), eng.cfg.n_heads, d, generator=gen, device=dev).to(k_all.dtype)
+        got = pak.paged_attention(q, *pool, bt, lens)
+        plain = paged_attention(q, *pool, bt, lens, impl="reference")
+        dense = model_layers._decode_attention(q[:, :, None], k_all[live], v_all[live],
+                                               cache["len"], start=start)[:, :, 0]
+        what, tol = f"paged_attention at tick {eng.ticks}, attention layer {layer}", \
+            PAGED_TOL[k_all.dtype]
+        err = max(err, require_close(what, got, plain, tol),
+                  require_close(what + ", against the dense decode attention", got, dense, tol))
+    return {"tick": eng.ticks, "tables": len(live), "pages": pages, "max_abs_err": err,
+            "reused": len(pages & reusable)}
+
+
+def _paged_drain_summary(phase: int, checks: list, reusable: set) -> dict:
+    """Exits unless there were enough checks and one saw reused pages."""
+    if len(checks) < PAGED_MIN_CHECKS or not any(c["reused"] for c in checks):
+        raise SystemExit(f"phase {phase}: {len(checks)} paged decode checks, reused pages "
+                         f"{[c['reused'] for c in checks]}: too few checks or no page reused")
+    pages = set().union(*(c["pages"] for c in checks))
+    res = {"checks": len(checks), "ticks": [c["tick"] for c in checks],
+           "block_tables": sum(c["tables"] for c in checks), "kernel_calls": 2 * len(checks),
+           "distinct_pages": len(pages), "reused_pages": len(pages & reusable),
+           "max_abs_err": max(c["max_abs_err"] for c in checks)}
+    log(f"phase {phase}: paged decode on the engine's own block tables at ticks {res['ticks']}: "
+        f"{res['block_tables']} block tables, first and last attention layer, "
+        f"{res['distinct_pages']} distinct pages of which {res['reused_pages']} were granted "
+        f"before to a finished sequence; the kernel equals the plain paged version and the "
+        f"dense decode attention (max abs err {res['max_abs_err']})")
+    return res
+
+
 def lm_serve_path(arch: str, phase: int, seed: int, dev, *, plain_run: dict,
                   per_prefill: dict, handoff=None, gate_f32: bool = False,
                   scan_calls=()) -> dict:
@@ -952,15 +1067,28 @@ def lm_serve_path(arch: str, phase: int, seed: int, dev, *, plain_run: dict,
         "page_table_capacity": [eng.pages.graph.state.v_capacity,
                                 eng.pages.graph.state.e_capacity],
     }
-    # a profiled window of full ticks on a second wave, drained afterwards
+    # a profiled window of full ticks on a second wave, whose sequences get
+    # the pages the first wave gave back; drained by hand afterwards, with
+    # the paged decode checked on the engine's own block tables
+    reusable = {v for ops, _, vs in eng.pages.op_log for op, v in zip(ops, vs)
+                if op == OP_ADD_EDGE}
     for i in range(SERVE_SLOTS):
         eng.submit(Request(id=SERVE_REQUESTS + i, max_new_tokens=SERVE_NEW,
                            prompt=rng.integers(0, cfg.vocab, SERVE_PROMPT[0]).astype(np.int32)))
     eng.tick()
     _, out["serve"]["profile"] = profile_window(eng.tick, PROFILE_TICKS, "tick")
     log(f"phase {phase}: serving profile: " + json.dumps(out["serve"]["profile"]))
-    if len(eng.run()) != SERVE_REQUESTS + SERVE_SLOTS:
+    kv_key = next((k for k in ("kv", "shared_kv") if k in eng.cache), None)
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    checks = []
+    while eng.queue or any(s is not None for s in eng.slots):
+        eng.tick()
+        if kv_key and eng.ticks % PAGED_EVERY == 0 and any(s is not None for s in eng.slots):
+            checks.append(_paged_drain_check(eng, kv_key, gen, reusable, dev))
+    if len(eng.finished) != SERVE_REQUESTS + SERVE_SLOTS:
         raise SystemExit("serving did not drain the profiled wave")
+    if kv_key:
+        out["serve"]["paged_decode"] = _paged_drain_summary(phase, checks, reusable)
     log(f"phase {phase}: served {SERVE_REQUESTS} requests in {out['serve']['ticks']} ticks, "
         f"{run_s:.3f} s ({split['decode_step']:.3f} s in decode_step, "
         f"{split['page_ops']:.3f} s in page-table ops): "
@@ -1138,6 +1266,190 @@ def ssd_full_shape(arch, cfg, scalar, strict, launches, dev) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phases 12 and 13: paged decode attention against its plain version
+# ---------------------------------------------------------------------------
+
+
+def _paged_inputs(gen, shape, dtype, dev):
+    """q, k_pages, v_pages; a block table of distinct pages, or with repeats
+    where the pool is smaller than the tables (as the reference sweep draws
+    it); lengths in [1, pages_per_seq * page_size]."""
+    b, hq, hkv, d, p, page, pps = shape
+    q = torch.randn(b, hq, d, generator=gen, device=dev).to(dtype)
+    kp = torch.randn(p, page, hkv, d, generator=gen, device=dev).to(dtype)
+    vp = torch.randn(p, page, hkv, d, generator=gen, device=dev).to(dtype)
+    if b * pps <= p:
+        bt = torch.randperm(p, generator=gen, device=dev)[: b * pps].reshape(b, pps)
+    else:
+        bt = torch.randint(0, p, (b, pps), generator=gen, device=dev)
+    sl = torch.randint(1, page * pps + 1, (b,), generator=gen, device=dev)
+    return q, kp, vp, bt.to(torch.int32), sl.to(torch.int32)
+
+
+def _refused(what: str, fn) -> None:
+    """Exits unless ``fn`` raises the wrapper's ValueError."""
+    try:
+        fn()
+    except ValueError:
+        return
+    raise SystemExit(f"paged_attention accepted {what}")
+
+
+def paged_small_checks(dev) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(7)
+    worst = {str(dt): 0.0 for dt in PAGED_TOL}
+    n = 0
+    for dt, tol in PAGED_TOL.items():
+        for shape in PAGED_SHAPES:
+            args = _paged_inputs(gen, shape, dt, dev)
+            got = pak.paged_attention(*args)
+            want = paged_attention(*args, impl="reference")
+            sync()
+            worst[str(dt)] = max(worst[str(dt)], require_close(
+                f"paged_attention {shape} {dt}", got, want, tol))
+            n += 1
+        # lengths 0, 1, one page, three pages, the full table and two pages
+        # and 5; one page repeated through a table; zero-filled table tails
+        page, pps = 16, 8
+        q, kp, vp, bt, _ = _paged_inputs(gen, (6, 14, 2, 128, 20, page, pps), dt, dev)
+        sl = torch.tensor([0, 1, page, 3 * page, page * pps, 2 * page + 5], dtype=torch.int32,
+                          device=dev)
+        bt[1] = 3
+        bt[3, 3:] = 0
+        bt[5] = torch.tensor([4, 4, 7, 0, 0, 0, 0, 0], dtype=torch.int32, device=dev)
+        got = pak.paged_attention(q, kp, vp, bt, sl)
+        want = paged_attention(q, kp, vp, bt, sl, impl="reference")
+        sync()
+        worst[str(dt)] = max(worst[str(dt)], require_close(
+            f"paged_attention edge lengths {dt}", got, want, tol))
+        if got[0].abs().max().item() != 0.0:
+            raise SystemExit("paged_attention: a sequence of length 0 does not give 0")
+        n += 1
+    # refusals: a live page id past the pool, a length past the table, D 136, g 17
+    q, kp, vp, bt, sl = _paged_inputs(gen, (2, 4, 2, 16, 6, 4, 3), torch.float32, dev)
+    bad = bt.clone()
+    bad[0, 0] = kp.shape[0]
+    _refused("a live page id past the pool", lambda: pak.paged_attention(q, kp, vp, bad, sl))
+    _refused("a length past the table",
+             lambda: pak.paged_attention(q, kp, vp, bt, torch.full_like(sl, 13)))
+    for shape in ((2, 4, 2, 136, 6, 4, 3), (2, 17, 1, 16, 6, 4, 3)):
+        args = _paged_inputs(gen, shape, torch.float32, dev)
+        _refused(f"the shape {shape}", lambda: pak.paged_attention(*args))
+    log(f"phase 12: paged_attention equals its plain version in {n} cases "
+        f"({len(PAGED_SHAPES)} shapes and the edge lengths 0, 1, a page, the full table, "
+        f"repeated page ids and zero-filled tails, in f32 and bf16; max abs err "
+        f"{json.dumps(worst)}); a length of 0 gives 0; a live page id past the pool, a "
+        f"length past the table, D 136 and a group of 17 are refused")
+    return worst
+
+
+def _paged_tables(arch: str, seed: int, dev):
+    """Block tables from a ``PagedKVManager`` on the card (its graph the
+    port's FPSP ``WaitFreeGraph``): ``PAGED_PRELOAD`` sequences admitted,
+    every third finished, then the timed ones admitted into the pages
+    given back (the free list is out of order by then).  Returns the pool
+    size, the table and the timed lengths."""
+    lo, hi = PAGED_LENS[arch]
+    page = SERVE_PAGE
+    rng = np.random.default_rng(seed + 13)
+    pre = rng.integers(lo, hi + 1, PAGED_PRELOAD)
+    timed = rng.integers(lo, hi + 1, PAGED_DECODE_BATCH)
+    num_pages = sum(-(-int(n) // page) for n in np.concatenate([pre, timed]))
+    pages = PagedKVManager(num_pages, page, device=dev)
+    pages.step_ops({i: int(n) for i, n in enumerate(pre)}, [], [])
+    pages.step_ops({}, [], list(range(0, PAGED_PRELOAD, 3)))
+    ids = [PAGED_PRELOAD + i for i in range(PAGED_DECODE_BATCH)]
+    pages.step_ops({s: int(n) for s, n in zip(ids, timed)}, [], [])
+    table = pages.block_table(ids, -(-hi // page))
+    scattered = sum(bool(np.any(np.diff(table[i, : -(-int(n) // page)]) != 1))
+                    for i, n in enumerate(timed))
+    if not scattered:
+        raise SystemExit(f"phase 13 ({arch}): every timed sequence got consecutive pages")
+    return num_pages, table, timed.astype(np.int32), scattered
+
+
+def paged_full_shape(arch: str, cfg, launches, seed: int, dev) -> dict:
+    """``paged_attention`` at one decode step of ``arch`` at full width,
+    bf16, pages of 16, on block tables of the port's page table, timed as
+    in phase 4, beside its plain version, its bound and
+    ``scaled_dot_product_attention`` over the same K/V gathered into a
+    contiguous cache (the gather not timed)."""
+    b, hq, hkv, d, page = PAGED_DECODE_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, SERVE_PAGE
+    num_pages, table, lens, scattered = _paged_tables(arch, seed, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    q = torch.randn(b, hq, d, generator=gen, device=dev).bfloat16()
+    kp = torch.randn(num_pages, page, hkv, d, generator=gen, device=dev).bfloat16()
+    vp = torch.randn(num_pages, page, hkv, d, generator=gen, device=dev).bfloat16()
+    bt, sl = torch.as_tensor(table, device=dev), torch.as_tensor(lens, device=dev)
+    args = (q, kp, vp, bt, sl)
+    with uncounted():
+        got = pak.paged_attention(*args)
+        want = paged_attention(*args, impl="reference")
+        err = require_close(f"paged_attention at the {arch} decode shape", got, want,
+                            PAGED_TOL[torch.bfloat16])
+        rel_err = err / want.float().abs().max().item()
+        if rel_err > PAGED_FULL_REL_TOL:
+            raise SystemExit(f"paged_attention at the {arch} decode shape: max abs err {err} is "
+                             f"{rel_err:.3g} of the largest output (limit {PAGED_FULL_REL_TOL})")
+        args32 = (q.float(), kp.float(), vp.float(), bt, sl)
+        err32 = require_close(f"paged_attention at the {arch} decode shape, f32",
+                              pak.paged_attention(*args32),
+                              paged_attention(*args32, impl="reference"), PAGED_TOL[torch.float32])
+        del args32
+        ms = cuda_ms(lambda: pak.paged_attention(*args), 10)
+        check_ms = cuda_ms(lambda: pak._check_values(bt, sl, num_pages, page), 10)
+        plain_ms = cuda_ms(lambda: paged_attention(*args, impl="reference"), 3)
+        _, prof = profile_window(lambda: pak.paged_attention(*args), 5, "call")
+    kernel_us = sum(us for name, us in prof["top_kernels_us_per_call"].items() if "paged_" in name)
+    del want
+    # the same K/V as a contiguous (B, Hkv, S_max, D) cache with a length mask
+    s_max = int(lens.max())
+    n_p = -(-s_max // page)
+    kc, vc = (x[bt[:, :n_p].long()].reshape(b, n_p * page, hkv, d)[:, :s_max].transpose(1, 2)
+              .contiguous() for x in (kp, vp))
+    mask = (torch.arange(s_max, device=dev)[None, :] < sl[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_out = sdpa(q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True)[:, :, 0]
+    sdpa_err = (sdpa_out.float() - got.float()).abs().max().item()
+    sdpa_ms = cuda_ms(lambda: sdpa(q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True), 10)
+    del kc, vc, sdpa_out
+    rows = int(lens.sum())
+    live_pages = sum(-(-int(n) // page) for n in lens)
+    moved = 2 * rows * hkv * d * 2 + 2 * q.numel() * 2 + 4 * live_pages + 4 * b
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = max(4 * rows * hq * d / F32_OPS_PER_S, rows * hq / EXP_PER_S) * 1e3
+    bound, by = (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+    row = {
+        "name": f"paged_attention[{arch}]", "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention/kernel.py:84",
+        "launches": launches["paged_attention"],
+        "launched_by": "the drain checks of phases 6 and 10; the engine decodes over a dense cache",
+        "max_abs_err": err, "max_abs_err_over_max_output": rel_err, "f32_max_abs_err": err32,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "share_of_bound": bound / ms, "kernel_device_ms": kernel_us / 1e3, "check_ms": check_ms,
+        "contiguous_sdpa_ms": sdpa_ms, "contiguous_sdpa_max_abs_err": sdpa_err,
+        "shape": {"B": b, "Hq": hq, "Hkv": hkv, "D": d, "page_size": page,
+                  "pages_per_seq": table.shape[1], "pool_pages": num_pages,
+                  "live_rows": rows, "live_pages": live_pages, "bytes": moved,
+                  "seq_lens": [int(n) for n in lens], "scattered_tables": scattered,
+                  "dtype": "bfloat16"},
+    }
+    log(f"phase 13: paged_attention at the {arch} decode shape (B={b} Hq={hq} Hkv={hkv} D={d} "
+        f"bf16, pages of 16, lengths {int(lens.min())}-{s_max}, {rows} live rows in "
+        f"{live_pages} pages of a {num_pages}-page pool, {scattered} of {b} tables not "
+        f"consecutive): {ms:.4f} ms by the wrapper ({kernel_us / 1e3:.4f} ms in its two kernels "
+        f"under the profiler; its length and page-id checks alone, with their read from the "
+        f"device, {check_ms:.4f} ms), plain {plain_ms:.3f} ms, bound {bound:.4f} ms by {by} "
+        f"({moved / 1e6:.1f} MB), {100 * bound / ms:.1f}% of the bound; no PyTorch call reads "
+        f"paged K/V: scaled_dot_product_attention over the same K/V as a contiguous cache "
+        f"{sdpa_ms:.4f} ms (max abs diff {sdpa_err}); max abs err {err} ({rel_err:.3g} of the "
+        f"largest output; f32 on the same tables: {err32}); launched by the drain checks of "
+        f"phases 6 and 10: {launches['paged_attention']}")
+    return row
+
+
 def run_counted(path, fn):
     """Run one main path with every launch count set to 0 just before it;
     exits if a kernel of ``path`` was launched no time in it."""
@@ -1239,6 +1551,15 @@ def main(argv=None) -> int:
     rows.append(ssd_full_shape(HYBRID_ARCH, hyb_cfg, True, False,
                                summary["hybrid"]["launches"], dev))
     phase_s["11"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    paged_small_checks(dev)
+    phase_s["12"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows.append(paged_full_shape(LM_ARCH, lm_cfg, summary["lm"]["launches"], args.seed, dev))
+    rows.append(paged_full_shape(HYBRID_ARCH, hyb_cfg, summary["hybrid"]["launches"], args.seed,
+                                 dev))
+    phase_s["13"] = time.perf_counter() - t0
 
     summary["card"] = smi
     summary["seconds"] = time.perf_counter() - t_start

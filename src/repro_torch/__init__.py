@@ -1,7 +1,10 @@
 """repro_torch — ``repro`` ported to PyTorch and hand-written CUDA kernels for
 an NVIDIA H100: the wait-free graph, and the serving path of the dense,
 ssm (rwkv6) and hybrid (zamba2) LM families, whose KV page table is that
-graph.
+graph.  Its seven CUDA kernels (``kernels/``) are the counterparts of
+``repro``'s seven Pallas kernels; the last, ``paged_attention``, is decode
+attention over K/V pages addressed through the block tables of that page
+table.
 
 It imports ``torch`` and never ``jax`` nor anything of ``repro``; ``repro``
 stays the reference every result is held against (bit-identical for the

@@ -45,6 +45,8 @@ _SIGNATURES = {
     "rt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
                            _I, _I, _I, _I, _P],
     "rt_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "rt_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           ctypes.c_float, _I, _P],
 }
 
 _lib = None
