@@ -10,11 +10,14 @@ Run from the root of a checkout, with one card visible:
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
 1. The card: its name and power limit, and the build of the CUDA kernels
-   from ``src/repro_torch/csrc`` (timed).
+   from ``src/repro_torch/csrc`` (timed); the bf16 attention kernels' SASS
+   must hold wgmma (``HGMMA``) and TMA (``UTMALDG``) and no ``mma.sync``,
+   reported with ptxas's registers and spills.
 2. The key hashes on the card against their numpy twins, and each graph
    kernel against its plain PyTorch version on small adversarial inputs
    (duplicates, contention, an all-false mask, sizes off every block size,
-   the placement overflow), exact equality.
+   the placement overflow, a compaction across thousands of 4,096-lane
+   tiles), exact equality; ``masked_compact`` must be one launch a call.
 3. The graph's main path at the scale of the SNAP com-Youtube graph
    (1,134,890 vertices, 2,987,624 edges;
    snap.stanford.edu/data/com-Youtube.html) with synthetic uniform keys from
@@ -32,9 +35,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    operations this run's data needs) and the time of one PyTorch call
    computing the same function where there is one.
 5. ``flash_attention`` against its plain version on adversarial small
-   shapes (MHA, GQA, MQA, window, Sq != Sk non-causal, Sk off the tile, a
-   GQA group of 7, rows whose keys are all masked), f32 within 2e-5 and
-   bf16 within 2e-2.
+   shapes (MHA, GQA, MQA, window, Sq != Sk both ways, Sq and Sk of 1, 127,
+   128, 129 and 4,100, D of 8 to 128, a GQA group of 7, rows whose keys
+   are all masked, 1,200 blocks), f32 within 2e-5 and bf16 within 2e-2.
 6. The LM's serving path at the full width of qwen2-7b (28 layers, d_model
    3584, GQA 28/4, vocab 152064; arXiv:2407.10671), bf16 parameters drawn on
    the card from ``--seed``: ``build_prefill_step`` on 2 prompts of 4,096
@@ -55,9 +58,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    the plain paged version and of the engine's dense decode attention.  The
    launch counts are read around this phase: the attention kernels and the
    page table's graph kernels must each run.
-7. ``flash_attention`` at the prefill's shape (B 2, Hq 28, Hkv 4, S 4096,
-   D 128, bf16, causal) against its plain version, timed as in phase 4,
-   beside ``scaled_dot_product_attention`` as the library yardstick.
+7. ``flash_attention`` at the prefill shapes of qwen2-7b (B 2, Hq 28, Hkv
+   4, S 4096, D 128, bf16, causal) and zamba2-1.2b's shared block (B 2, Hq
+   = Hkv = 32, D 64) against its plain version, timed as in phase 4,
+   beside ``scaled_dot_product_attention`` as the library yardstick (its
+   own max abs error against the plain version reported too), with
+   TFLOP/s and the share of the bound; the zamba2-1.2b row's launches are
+   those of phase 10.
 8. ``ssd_scan`` against its plain version on small shapes (the reference
    sweep's, K = V = 128, S = 100 at chunk 4, an odd S at chunk 1), in both
    decay modes, both readouts, f32 within 1e-4 and bf16 within 5e-2, with
@@ -120,6 +127,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -199,8 +207,11 @@ L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
 SECTOR_BYTES = 32           # the unit a gather moves from device memory
 
 # flash attention against its plain version: tests/test_kernels.py's sweep
-# and tolerances, plus a GQA group of 7 at D = 128 off the 64-row tile, and
-# rows whose window lies wholly past Sk (every key masked)
+# and tolerances, plus a GQA group of 7 at D = 128 off the 64-row tile, rows
+# whose window lies wholly past Sk (every key masked), and the edges of the
+# bf16 kernel's 128-row tiles and 64-column boxes: Sq and Sk of 1, 127, 128,
+# 129 and 4,100, Sq != Sk both ways, D of 8, 64, 72, 120 and 128, and 1,200
+# blocks of (q tile, head, batch)
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 FLASH_SHAPES = [  # (B, Hq, Hkv, Sq, Sk, D, causal, window)
     (1, 2, 2, 32, 32, 16, True, None),
@@ -211,7 +222,26 @@ FLASH_SHAPES = [  # (B, Hq, Hkv, Sq, Sk, D, causal, window)
     (1, 2, 2, 32, 40, 16, True, None),
     (1, 14, 2, 100, 100, 128, True, None),
     (1, 2, 1, 64, 16, 32, True, 8),
+    (1, 2, 2, 1, 1, 64, True, None),
+    (1, 2, 2, 127, 127, 128, True, None),
+    (1, 2, 2, 128, 128, 72, True, None),
+    (1, 4, 4, 129, 129, 8, True, None),
+    (1, 7, 1, 4100, 4100, 128, True, None),
+    (1, 2, 2, 129, 300, 120, False, None),
+    (1, 2, 2, 300, 129, 64, True, None),
+    (1, 14, 2, 1, 4100, 128, False, None),
+    (1, 2, 1, 200, 60, 64, True, 16),
+    (2, 600, 600, 16, 16, 64, True, None),
 ]
+# the bf16 kernel is also held per block of 128 q rows of one head (its q
+# tile): the relative L2 error of the block against the plain version.  At
+# S 4096 a late row's outputs are about as small as the 2e-2 limit above, so
+# a tile of stale K/V there could pass it; a right kernel reads 2e-3 to 3e-3
+# here (bf16 rounding of P and of the output).  Applied where Sq >= 1,024.
+FLASH_BLOCK_REL_TOL = 1e-2
+FLASH_BLOCK_ROWS = 128
+# masked_compact across many of the kernel's 4,096-lane tiles (the look-back)
+COMPACT_MANY_TILES = [(1, (1 << 23) + 17, 0.5), (6, 4097, 0.01), (1, 4095, 1.0), (6, 1, 1.0)]
 
 LM_ARCH = "qwen2-7b"
 SSM_ARCH, HYBRID_ARCH = "rwkv6-3b", "zamba2-1.2b"
@@ -358,12 +388,17 @@ def small_kernel_checks(dev) -> None:
     q = torch.tensor([5, 100, -1], dtype=torch.int32, device=dev)
     require_equal("hash_probe", hk.hash_probe(full, q), hash_probe(full, q, impl="reference"))
 
-    # masked_compact: densities 0, 0.3, 1; N off the 1024-lane block
-    for rows, n, density in ((2, 1000, 0.0), (4, 100_003, 0.3), (1, 1025, 1.0), (6, 4096, 0.8)):
+    # masked_compact: densities 0, 0.3, 1; N off the 4,096-lane tile; then
+    # thousands of tiles, so the look-back crosses many; one launch a call
+    for rows, n, density in ((2, 1000, 0.0), (4, 100_003, 0.3), (1, 1025, 1.0), (6, 4096, 0.8),
+                             *COMPACT_MANY_TILES):
         vals = torch.as_tensor(rng.integers(-5, 1000, (rows, n)).astype(np.int32), device=dev)
         mask = torch.as_tensor(rng.random(n) < density, device=dev)
+        before = ck.masked_compact.launches
         require_equal("masked_compact", ck.masked_compact(vals, mask, fill=-1),
                       masked_compact(vals, mask, fill=-1, impl="reference"))
+        if ck.masked_compact.launches != before + 1:
+            raise SystemExit("masked_compact: not one launch a call")
 
     # probe_place: contended homes, partial activity, the overflow case
     for cap, m, contended, probes in ((1024, 500, False, 32), (256, 60, True, 32),
@@ -709,6 +744,22 @@ def require_close(name: str, got, want, tol: float) -> float:
     return (g - w).abs().max().item()
 
 
+def require_block_rel_l2(name: str, got, want, tol: float = FLASH_BLOCK_REL_TOL) -> float:
+    """Largest relative L2 error over blocks of ``FLASH_BLOCK_ROWS`` q rows
+    of one (batch, head) of attention outputs (B, H, S, D); exits unless
+    each is within ``tol``.  A block the plain version gives as 0 (rows that
+    see no key) is held to an absolute 0 instead."""
+    b, h, s, d = want.shape
+    pad = -s % FLASH_BLOCK_ROWS
+    g, w = (torch.nn.functional.pad(x.float(), (0, 0, 0, pad)).reshape(
+        b, h, -1, FLASH_BLOCK_ROWS * d) for x in (got, want))
+    worst = ((g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)).max().item()
+    if not worst <= tol:
+        raise SystemExit(f"{name}: relative L2 error {worst} of a {FLASH_BLOCK_ROWS}-row block "
+                         f"against the plain version (limit {tol})")
+    return worst
+
+
 def flash_small_checks(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(3)
     worst = {str(dt): 0.0 for dt in FLASH_TOL}
@@ -723,12 +774,18 @@ def flash_small_checks(dev) -> dict:
             sync()
             err = require_close(f"flash_attention {shape} {dt}", got, want, tol)
             worst[str(dt)] = max(worst[str(dt)], err)
+            if dt == torch.bfloat16 and sq >= 1024:
+                worst["bf16_block_rel_l2"] = max(worst.get("bf16_block_rel_l2", 0.0),
+                                                 require_block_rel_l2(f"flash_attention {shape}",
+                                                                      got, want))
             if window is not None and sq - window >= sk:  # rows that see no key
                 dead = torch.arange(sq, device=dev) - window + 1 > sk - 1
                 if got[:, :, dead].abs().max().item() != 0.0:
                     raise SystemExit(f"flash_attention {shape}: a fully masked row is not 0")
     log(f"phase 5: flash_attention equals its plain version on {len(FLASH_SHAPES)} shapes "
-        f"in f32 and bf16 (max abs err {json.dumps(worst)}); fully masked rows are 0")
+        f"in f32 and bf16 (max abs err, and bf16's largest relative L2 error of a "
+        f"{FLASH_BLOCK_ROWS}-row block where Sq >= 1024: {json.dumps(worst)}); fully masked "
+        f"rows are 0")
     return worst
 
 
@@ -1106,7 +1163,10 @@ def lm_serve_path(arch: str, phase: int, seed: int, dev, *, plain_run: dict,
 # ---------------------------------------------------------------------------
 
 
-def flash_full_shape(cfg, launches, dev) -> dict:
+def flash_full_shape(arch: str, cfg, launches: int, dev) -> dict:
+    """``flash_attention`` at ``arch``'s prefill shape, bf16, causal, beside
+    its plain version and ``scaled_dot_product_attention``, whose own error
+    against the plain version is reported too."""
     b, hq, hkv, s, d = PREFILL_BATCH, cfg.n_heads, cfg.n_kv_heads, PREFILL_LEN, cfg.head_dim
     gen = torch.Generator(device=dev).manual_seed(4)
     q = torch.randn(b, hq, s, d, generator=gen, device=dev).bfloat16()
@@ -1114,28 +1174,39 @@ def flash_full_shape(cfg, launches, dev) -> dict:
     v = torch.randn(b, hkv, s, d, generator=gen, device=dev).bfloat16()
     got = fak.flash_attention(q, k, v, causal=True)
     want = attention(q, k, v, causal=True, impl="reference")
-    err = require_close("flash_attention at the prefill shape", got, want,
+    err = require_close(f"flash_attention at the {arch} prefill shape", got, want,
                         FLASH_TOL[torch.bfloat16])
+    block_rel = require_block_rel_l2(f"flash_attention at the {arch} prefill shape", got, want)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_err = (sdpa(q, k, v, is_causal=True, enable_gqa=True).float() - want.float()).abs().max()
     pairs = s * (s + 1) // 2  # the (q, k) pairs the causal mask keeps
+    flops = 4 * b * hq * pairs * d
     row = {
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "name": "flash_attention" if arch == LM_ARCH else f"flash_attention[{arch}]",
+        "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:106",
-        "launches": launches["flash_attention"], "max_abs_err": err,
+        "launches": launches, "max_abs_err": err, "block_rel_l2": block_rel,
         "ms": cuda_ms(lambda: fak.flash_attention(q, k, v, causal=True), 10),
         "plain_ms": cuda_ms(lambda: attention(q, k, v, causal=True, impl="reference"), 3),
         "bound_ms": None, "bound_by": None,
         "library_ms": cuda_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 10),
+        "library_max_abs_err": lib_err.item(),
+        "shape": {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d, "dtype": "bfloat16",
+                  "causal": True},
     }
     t_bytes = 2 * (q.numel() * 2 + k.numel() + v.numel()) / HBM_BYTES_PER_S * 1e3
-    t_ops = 4 * b * hq * pairs * d / BF16_OPS_PER_S * 1e3
+    t_ops = flops / BF16_OPS_PER_S * 1e3
     row["bound_ms"], row["bound_by"] = (t_ops, "operations") if t_ops >= t_bytes else \
         (t_bytes, "bytes")
-    log(f"phase 7: flash_attention at B={b} Hq={hq} Hkv={hkv} S={s} D={d} bf16 causal: "
-        f"{row['ms']:.4f} ms (plain {row['plain_ms']:.3f} ms, scaled_dot_product_attention "
-        f"{row['library_ms']:.4f} ms), bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
-        f"max abs err {err}")
+    row["tflops"] = flops / row["ms"] / 1e9
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    log(f"phase 7: flash_attention at the {arch} prefill shape B={b} Hq={hq} Hkv={hkv} S={s} "
+        f"D={d} bf16 causal: {row['ms']:.4f} ms, {row['tflops']:.1f} TFLOP/s, "
+        f"{100 * row['share_of_bound']:.1f}% of the bound {row['bound_ms']:.4f} ms by "
+        f"{row['bound_by']} (plain {row['plain_ms']:.3f} ms, scaled_dot_product_attention "
+        f"{row['library_ms']:.4f} ms); max abs err {err}, scaled_dot_product_attention's "
+        f"{row['library_max_abs_err']}; largest relative L2 error of a {FLASH_BLOCK_ROWS}-row "
+        f"block {block_rel} (limit {FLASH_BLOCK_REL_TOL})")
     return row
 
 
@@ -1450,6 +1521,37 @@ def paged_full_shape(arch: str, cfg, launches, seed: int, dev) -> dict:
     return row
 
 
+def hopper_sass(so: Path) -> dict:
+    """The bf16 attention kernels' machine code: each must hold wgmma
+    (``HGMMA``) and TMA loads (``UTMALDG``) and no ``mma.sync`` (``HMMA``);
+    the highest register its SASS names, and ptxas's register and spill
+    report of each, from the build's log."""
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    out = {}
+    for func in sass.split("Function : ")[1:]:
+        name = func.split(None, 1)[0]
+        if "flash_fwd_wgmma_kernel" not in name:
+            continue
+        counts = {op: len(re.findall(rf"\b{op}\b", func)) for op in ("HGMMA", "UTMALDG", "HMMA")}
+        if not counts["HGMMA"] or not counts["UTMALDG"] or counts["HMMA"]:
+            raise SystemExit(f"phase 1: {name} is not on wgmma and TMA: {counts}")
+        # above ptxas's 168 a thread only where setmaxnreg raised the consumers' budget
+        counts["highest_register"] = max(int(r) for r in re.findall(r"\bR(\d+)\b", func))
+        out["D64" if "ILi64E" in name else "D128"] = counts
+    if len(out) != 2:
+        raise SystemExit(f"phase 1: expected the bf16 attention kernel at D 64 and 128, got {out}")
+    report = (so.parent / "flash_attention.nvcc.log").read_text().splitlines()
+    for i, line in enumerate(report):
+        if "flash_fwd_wgmma_kernel" in line and "Compiling entry" in line:
+            key = "D64" if "ILi64E" in line else "D128"
+            out[key]["ptxas"] = "; ".join(x.split(":", 1)[-1].strip() for x in report[i + 1:i + 4]
+                                          if "Used" in x or "spill" in x)
+    log(f"phase 1: flash_attention's bf16 kernels in SASS: {json.dumps(out)}")
+    return out
+
+
 def run_counted(path, fn):
     """Run one main path with every launch count set to 0 just before it;
     exits if a kernel of ``path`` was launched no time in it."""
@@ -1497,10 +1599,11 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     log(smi)
     t0 = time.perf_counter()
-    _build.library()
+    lib = _build.library()
     log(f"phase 1: card {torch.cuda.get_device_name(0)} ({smi}); kernels built from "
         f"src/repro_torch/csrc in {time.perf_counter() - t0:.1f} s; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
+    flash_sass = hopper_sass(Path(lib._name))
 
     small_kernel_checks(dev)
 
@@ -1519,7 +1622,11 @@ def main(argv=None) -> int:
         LM_ARCH, 6, args.seed, dev, plain_run={"attn_impl": "reference"},
         per_prefill={"flash_attention": lm_cfg.n_layers}))
     summary["lm"]["launches"] = {name: fn.launches for name, fn in WRAPPERS.items()}
-    rows.append(flash_full_shape(lm_cfg, summary["lm"]["launches"], dev))
+    rows.append(flash_full_shape(LM_ARCH, lm_cfg, summary["lm"]["launches"]["flash_attention"],
+                                 dev))
+    hyb_cfg = get_config(HYBRID_ARCH)
+    hyb_flash = flash_full_shape(HYBRID_ARCH, hyb_cfg, 0, dev)  # launches: phase 10's
+    rows.append(hyb_flash)
     phase_s["1-7"] = time.perf_counter() - t_start
 
     t0 = time.perf_counter()
@@ -1528,7 +1635,7 @@ def main(argv=None) -> int:
 
     # phases 9 and 10: the recurrent LMs, each with every launch count read
     # around it
-    ssm_cfg, hyb_cfg = get_config(SSM_ARCH), get_config(HYBRID_ARCH)
+    ssm_cfg = get_config(SSM_ARCH)
     plain_scan = {"scan_impl": "reference"}
     t0 = time.perf_counter()
     summary["ssm"] = run_counted(RWKV_PATH, lambda: lm_serve_path(
@@ -1544,6 +1651,7 @@ def main(argv=None) -> int:
                      "flash_attention": hyb_cfg.n_layers // hyb_cfg.shared_attn_every},
         handoff=_block_handoff, gate_f32=True, scan_calls=(0, hyb_cfg.n_layers - 1)))
     summary["hybrid"]["launches"] = {name: fn.launches for name, fn in WRAPPERS.items()}
+    hyb_flash["launches"] = summary["hybrid"]["launches"]["flash_attention"]
     phase_s["10"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -1562,6 +1670,7 @@ def main(argv=None) -> int:
     phase_s["13"] = time.perf_counter() - t0
 
     summary["card"] = smi
+    summary["flash_sass"] = flash_sass
     summary["seconds"] = time.perf_counter() - t_start
     summary["phase_seconds"] = phase_s
     log(f"wall seconds by phase: {json.dumps(phase_s)}; total {summary['seconds']:.1f}")

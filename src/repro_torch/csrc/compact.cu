@@ -2,17 +2,25 @@
 //
 // masked_compact replaces repro/kernels/compact/kernel.py::masked_compact
 // (body _compact_kernel): a stable stream compaction of R int32 rows by one
-// bool mask.  Survivors go first in lane order; the caller pre-fills the tail
-// with `fill`.  The TPU kernel ran its grid in order and carried a running
-// offset from one block to the next; blocks on this card run in no order, so
-// the offset becomes three passes: (1) each block counts its mask, (2) one
-// block scans the block counts and writes the total, (3) each block ranks its
-// survivors with a warp ballot/popc and a shared-memory scan over its warps,
-// adds its block offset and scatters all R rows.  No atomic-counter append:
-// positions come from the scan, so the order is the lane order.  Bounded by
-// bytes: each mask byte is read twice and each value read and written once;
-// the reads of pass 3 and all writes are coalesced along the lane.
-//
+// bool mask.  Survivors go first in lane order, the tail is `fill`, and the
+// count is written.  The TPU kernel ran its grid in order and carried a
+// running offset from one block to the next; blocks on this card run in no
+// order, so one launch does it with a decoupled look-back.  Each block takes
+// the next tile of 4,096 lanes from an atomic counter (so a tile's
+// predecessors were all taken by blocks already running: forward progress
+// whatever order the blocks run in), reads its mask once, ranks its
+// survivors with warp ballots and a scan over the (iteration, warp) groups,
+// and publishes its survivor count in its status word (flag and value in
+// one 64-bit word).  One warp then walks back over the predecessors' status
+// words, 32 at a time, adding aggregates until it meets an inclusive
+// prefix, and publishes its own.  No pre-fill: the tail [count, N) has
+// exactly one slot per non-survivor, and the non-survivor of rank r among
+// non-survivors (the tile's start minus its survivor prefix, plus its rank
+// in the tile) writes `fill` at N - 1 - r, so every output element is
+// written exactly once.  Survivors are staged in shared memory and written
+// out contiguously, row by row; the last tile writes the count.  Bounded by
+// bytes: the mask read once, each value read and written once.
+
 // probe_place replaces repro/kernels/compact/kernel.py::probe_place (body
 // _place_kernel, which runs compact/ref.py::probe_place_rounds): claim-round
 // placement of pre-hashed keys into an empty table.  One round is three
@@ -31,7 +39,18 @@
 
 namespace {
 
-constexpr int kBlock = 1024;
+constexpr int kCompactThreads = 512;
+constexpr int kCompactIters = 8;  // lanes a thread
+constexpr int kCompactTile = kCompactThreads * kCompactIters;
+constexpr int kCompactWarps = kCompactThreads / 32;
+constexpr unsigned long long kAggregate = 1ull << 32;  // status: the tile's own count
+constexpr unsigned long long kPrefix = 2ull << 32;     // status: survivors up to its end
+
+__device__ __forceinline__ int warp_sum(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
 
 __device__ __forceinline__ int warp_inclusive_scan(int v) {
   const int lane = threadIdx.x & 31;
@@ -43,72 +62,112 @@ __device__ __forceinline__ int warp_inclusive_scan(int v) {
   return v;
 }
 
-// Exclusive scan of one int per thread over the block; s_warp holds 33 ints.
-// Returns the thread's exclusive prefix and writes the block total to *total.
-__device__ int block_exclusive_scan(int v, int* s_warp, int* total) {
+__device__ __forceinline__ unsigned long long load_status(const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+__device__ __forceinline__ void store_status(unsigned long long* p, unsigned long long w) {
+  *reinterpret_cast<volatile unsigned long long*>(p) = w;
+}
+
+// Thread t of the block holds lanes tile0 + j * 512 + t (j < 8), so every
+// mask and value read is coalesced along the lane.
+__global__ void __launch_bounds__(kCompactThreads)
+masked_compact_kernel(const int* __restrict__ values, const uint8_t* __restrict__ mask, int rows,
+                      long long n, int fill, int* __restrict__ out, int* __restrict__ count,
+                      unsigned long long* __restrict__ status, int* __restrict__ next_tile,
+                      int ntiles) {
+  __shared__ int s_group[kCompactIters * kCompactWarps];  // survivors a group, then its offset
+  __shared__ int s_tile, s_prefix, s_agg;
+  __shared__ int s_buf[kCompactTile];
+
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int inc = warp_inclusive_scan(v);
-  if (lane == 31) s_warp[warp] = inc;
+  if (threadIdx.x == 0) s_tile = atomicAdd(next_tile, 1);
   __syncthreads();
+  const int tile = s_tile;
+  const long long tile0 = static_cast<long long>(tile) * kCompactTile;
+
+  unsigned keep = 0;
+  int rank[kCompactIters];  // rank inside the (iteration, warp) group
+  int v[kCompactIters];     // row 0's values, loaded while the look-back runs
+#pragma unroll
+  for (int j = 0; j < kCompactIters; ++j) {
+    const long long i = tile0 + j * kCompactThreads + threadIdx.x;
+    const bool k = i < n && mask[i] != 0;
+    const unsigned ballot = __ballot_sync(0xffffffffu, k);
+    if (lane == 0) s_group[j * kCompactWarps + warp] = __popc(ballot);
+    rank[j] = __popc(ballot & ((1u << lane) - 1u));
+    keep |= static_cast<unsigned>(k) << j;
+    v[j] = k ? values[i] : 0;
+  }
+  __syncthreads();
+
   if (warp == 0) {
-    const int w = lane < nwarps ? s_warp[lane] : 0;
-    const int winc = warp_inclusive_scan(w);
-    if (lane < nwarps) s_warp[lane] = winc - w;
-    if (lane == 31) s_warp[32] = winc;
+    // exclusive scan of the 128 group counts, 4 a lane, in lane order
+    int c[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[e] = s_group[lane * 4 + e];
+    const int sum = c[0] + c[1] + c[2] + c[3];
+    const int inc = warp_inclusive_scan(sum);
+    int off = inc - sum;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s_group[lane * 4 + e] = off;
+      off += c[e];
+    }
+    const int agg = __shfl_sync(0xffffffffu, inc, 31);
+
+    // decoupled look-back over the predecessors' status words
+    int excl = 0;
+    if (lane == 0) store_status(status + tile, (tile == 0 ? kPrefix : kAggregate) | static_cast<unsigned>(agg));
+    if (tile > 0) {
+      for (int p = tile - 1;; p -= 32) {
+        const int idx = p - lane;
+        unsigned long long w = kPrefix;  // before tile 0: a prefix of 0
+        if (idx >= 0) {
+          do {
+            w = load_status(status + idx);
+          } while ((w >> 32) == 0);
+        }
+        const int val = static_cast<int>(static_cast<unsigned>(w));
+        const unsigned done = __ballot_sync(0xffffffffu, (w >> 32) == 2);
+        if (done) {  // the nearest inclusive prefix ends the walk
+          excl += warp_sum(lane <= __ffs(done) - 1 ? val : 0);
+          break;
+        }
+        excl += warp_sum(val);
+      }
+      if (lane == 0) store_status(status + tile, kPrefix | static_cast<unsigned>(excl + agg));
+    }
+    if (lane == 0) {
+      s_prefix = excl;
+      s_agg = agg;
+      if (tile == ntiles - 1) *count = excl + agg;
+    }
   }
   __syncthreads();
-  *total = s_warp[32];
-  return s_warp[warp] + inc - v;
-}
 
-// pass 1: survivors per block
-__global__ void compact_count_kernel(const uint8_t* __restrict__ mask, long long n,
-                                     int* __restrict__ block_counts) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int keep = (i < n) && mask[i];
-  const int c = __syncthreads_count(keep);
-  if (threadIdx.x == 0) block_counts[blockIdx.x] = c;
-}
-
-// pass 2: one block turns block counts into block offsets, writes the total
-__global__ void compact_scan_kernel(int* __restrict__ block_counts, int nblocks,
-                                    int* __restrict__ count) {
-  __shared__ int s_warp[33];
-  const int per = (nblocks + blockDim.x - 1) / blockDim.x;
-  const int lo = threadIdx.x * per;
-  const int hi = min(lo + per, nblocks);
-  int sum = 0;
-  for (int j = lo; j < hi; ++j) sum += block_counts[j];
-  int total;
-  int off = block_exclusive_scan(sum, s_warp, &total);
-  for (int j = lo; j < hi; ++j) {
-    const int c = block_counts[j];
-    block_counts[j] = off;
-    off += c;
-  }
-  if (threadIdx.x == 0) *count = total;
-}
-
-// pass 3: rank survivors inside the block and scatter every row
-__global__ void compact_scatter_kernel(const int* __restrict__ values,
-                                       const uint8_t* __restrict__ mask, int rows,
-                                       long long n, const int* __restrict__ block_offsets,
-                                       int* __restrict__ out) {
-  __shared__ int s_warp[33];
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int lane = threadIdx.x & 31;
-  const bool keep = (i < n) && mask[i];
-  const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-  const int lane_rank = __popc(ballot & ((1u << lane) - 1u));
-  int total;
-  // only lane 0 of each warp contributes the warp's count to the block scan
-  const int warp_off = block_exclusive_scan(lane == 0 ? __popc(ballot) : 0, s_warp, &total);
-  const int warp_base = __shfl_sync(0xffffffffu, warp_off, 0);
-  if (keep) {
-    const long long pos = static_cast<long long>(block_offsets[blockIdx.x]) + warp_base + lane_rank;
-    for (int r = 0; r < rows; ++r) out[r * n + pos] = values[r * n + i];
+  const int prefix = s_prefix;
+  const int agg = s_agg;
+  const int valid = static_cast<int>(min(static_cast<long long>(kCompactTile), n - tile0));
+  const int dropped = valid - agg;
+  // slot of this tile's first non-survivor: N - 1 - (non-survivors before it)
+  const long long fill_top = n - 1 - (tile0 - prefix);
+  for (int r = 0; r < rows; ++r) {
+    const int* vrow = values + r * n;
+    int* orow = out + r * n;
+#pragma unroll
+    for (int j = 0; j < kCompactIters; ++j) {
+      if ((keep >> j) & 1u) {
+        const int x = r == 0 ? v[j] : vrow[tile0 + j * kCompactThreads + threadIdx.x];
+        s_buf[s_group[j * kCompactWarps + warp] + rank[j]] = x;
+      }
+    }
+    __syncthreads();
+    for (int x = threadIdx.x; x < agg; x += kCompactThreads) orow[prefix + x] = s_buf[x];
+    for (int x = threadIdx.x; x < dropped; x += kCompactThreads) orow[fill_top - x] = fill;
+    __syncthreads();
   }
 }
 
@@ -171,16 +230,19 @@ __global__ void place_reset_kernel(int m, const int* __restrict__ cand,
 
 }  // namespace
 
-extern "C" int rt_masked_compact(const void* values, const void* mask, int rows,
-                                 long long n, void* out, void* count,
-                                 void* block_counts, int nblocks, void* stream) {
+// scratch: ntiles + 1 64-bit words, zeroed here: the tile counter (as an
+// int, in word 0) and one status word a tile
+extern "C" int rt_masked_compact(const void* values, const void* mask, int rows, long long n,
+                                 int fill, void* out, void* count, void* scratch, int ntiles,
+                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint8_t* m = static_cast<const uint8_t*>(mask);
-  int* bc = static_cast<int*>(block_counts);
-  compact_count_kernel<<<nblocks, kBlock, 0, st>>>(m, n, bc);
-  compact_scan_kernel<<<1, kBlock, 0, st>>>(bc, nblocks, static_cast<int*>(count));
-  compact_scatter_kernel<<<nblocks, kBlock, 0, st>>>(
-      static_cast<const int*>(values), m, rows, n, bc, static_cast<int*>(out));
+  unsigned long long* words = static_cast<unsigned long long*>(scratch);
+  cudaError_t err = cudaMemsetAsync(words, 0, (ntiles + 1) * sizeof(unsigned long long), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  masked_compact_kernel<<<ntiles, kCompactThreads, 0, st>>>(
+      static_cast<const int*>(values), static_cast<const uint8_t*>(mask), rows, n, fill,
+      static_cast<int*>(out), static_cast<int*>(count), words + 1, reinterpret_cast<int*>(words),
+      ntiles);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,8 +5,10 @@ Every ``src/repro_torch/csrc/*.cu`` is compiled for Hopper
 linked into one shared library with a plain C interface that is loaded with
 ``ctypes``.  The library lands in ``build/repro_torch/<hash>/`` at the root
 of the checkout, keyed by a hash of the sources, so an edited kernel is
-rebuilt and an unchanged one is loaded as it is.  Nothing is built when a
-module is imported: :func:`library` builds at the first launch.
+rebuilt and an unchanged one is loaded as it is; each source's compiler
+output (ptxas's registers and spills a kernel) is kept there as
+``<stem>.nvcc.log``.  Nothing is built when a module is imported:
+:func:`library` builds at the first launch.
 
 Each C entry point takes its pointers and the CUDA stream as ``void*``,
 launches on that stream, and returns ``cudaGetLastError()``;
@@ -29,7 +31,7 @@ _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -39,7 +41,7 @@ _L = ctypes.c_longlong
 # C entry point -> argtypes (every one returns an int cudaError_t)
 _SIGNATURES = {
     "rt_hash_probe": [_P, _I, _P, _I, _P, _P, _P],
-    "rt_masked_compact": [_P, _P, _I, _L, _P, _P, _P, _I, _P],
+    "rt_masked_compact": [_P, _P, _I, _L, _I, _P, _P, _P, _I, _P],
     "rt_probe_place_round": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "rt_frontier_expand": [_P, _I, _L, _P, _P, _L, _P, _P],
     "rt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
@@ -94,6 +96,8 @@ def _compile(out: Path, srcs) -> None:
             log, _ = proc.communicate()
             if proc.returncode != 0:
                 errors.append(f"{src.name}:\n{log}")
+            # ptxas's report (registers, spills) of each kernel, kept beside the library
+            (out.parent / f"{src.stem}.nvcc.log").write_text(log)
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
         so = tmp / out.name

@@ -1,8 +1,10 @@
 """Launch wrappers for the CUDA compaction primitives (``csrc/compact.cu``).
 
 Replace the Pallas kernels ``repro/kernels/compact/kernel.py::masked_compact``
-and ``::probe_place``.  The notes on what bounds each and how it is laid out
-are in the CUDA source.
+and ``::probe_place``.  ``masked_compact`` is one launch (a decoupled
+look-back over 4,096-lane tiles, the tail filled by reverse rank) after one
+memset of its scratch; ``probe_place`` is three launches a claim round.  The
+notes on what bounds each and how it is laid out are in the CUDA source.
 """
 
 from __future__ import annotations
@@ -12,33 +14,36 @@ import torch
 from ...core.types import INT32_MAX
 from .. import _build
 
-_COMPACT_BLOCK = 1024  # threads per block in compact.cu
+_COMPACT_TILE = 4096  # lanes a block takes in compact.cu
 
 
 def masked_compact(
     values: torch.Tensor, mask: torch.Tensor, *, fill: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(out i32[R, N], count i32[]) for CUDA tensors: stable compaction of
-    the columns of ``values`` where ``mask`` is set, tail filled."""
+    the columns of ``values`` where ``mask`` is set, tail filled.  One
+    launch; every output element is written once, so nothing is pre-filled."""
     _build.require_cuda("masked_compact", values, mask)
     if values.dtype != torch.int32 or mask.dtype != torch.bool:
         raise TypeError("masked_compact: values int32, mask bool")
     if values.dim() != 2 or mask.dim() != 1 or values.shape[1] != mask.shape[0]:
         raise ValueError("masked_compact: values [R, N] and mask [N]")
     rows, n = values.shape
-    out = torch.full((rows, n), fill, dtype=torch.int32, device=values.device)
-    count = torch.zeros((), dtype=torch.int32, device=values.device)
+    if n > INT32_MAX or not -INT32_MAX - 1 <= fill <= INT32_MAX:
+        raise ValueError(f"masked_compact: N {n} or fill {fill} outside int32")
+    out = torch.empty((rows, n), dtype=torch.int32, device=values.device)
     if n == 0 or rows == 0:
         return out, mask.sum().to(torch.int32)
-    nblocks = -(-n // _COMPACT_BLOCK)
-    block_counts = torch.empty(nblocks, dtype=torch.int32, device=values.device)
+    ntiles = -(-n // _COMPACT_TILE)
+    count = torch.empty((), dtype=torch.int32, device=values.device)
+    scratch = torch.empty(ntiles + 1, dtype=torch.int64, device=values.device)
     code = _build.library().rt_masked_compact(
-        values.data_ptr(), mask.view(torch.uint8).data_ptr(), rows, n,
-        out.data_ptr(), count.data_ptr(), block_counts.data_ptr(), nblocks,
+        values.data_ptr(), mask.view(torch.uint8).data_ptr(), rows, n, int(fill),
+        out.data_ptr(), count.data_ptr(), scratch.data_ptr(), ntiles,
         _build.stream_ptr(values),
     )
     _build.check(code, "rt_masked_compact")
-    masked_compact.launches += 3  # count, scan, scatter
+    masked_compact.launches += 1
     return out, count
 
 

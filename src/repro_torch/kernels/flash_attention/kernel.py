@@ -1,8 +1,11 @@
 """Launch wrapper for the CUDA flash attention (``csrc/flash_attention.cu``).
 
 Replaces the Pallas kernel
-``repro/kernels/flash_attention/kernel.py::flash_attention``.  The note on
-what bounds it and how it is laid out is in the CUDA source.
+``repro/kernels/flash_attention/kernel.py::flash_attention``.  bf16 runs on
+Hopper's own machinery (TMA loads into a ring of shared-memory stages, a
+producer warpgroup and two consumer warpgroups, ``wgmma`` for both
+products); f32 on the FMA lanes.  The note on what bounds it and how it is
+laid out is in the CUDA source.
 """
 
 from __future__ import annotations

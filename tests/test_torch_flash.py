@@ -9,6 +9,9 @@ by each package.  The ``cuda``-marked tests hold the CUDA kernel against the
 plain version and run only where there is a card.
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -34,6 +37,32 @@ EXTRA = [
     (1, 14, 2, 100, 100, 128, True, None),
     (1, 2, 1, 64, 16, 32, True, 8),
 ]
+# the edges of the bf16 kernel's 128-row tiles and 64-column boxes (card
+# only): Sq and Sk of 1, 127, 128, 129 and 4,100; Sq != Sk, causal and not;
+# D of 8, 64, 72, 120 and 128; a group of 7; a window whose rows lie wholly
+# past Sk; B * Hq * q tiles above 1,000 blocks
+CUDA_EDGES = [
+    (1, 2, 2, 1, 1, 64, True, None),
+    (1, 2, 2, 127, 127, 128, True, None),
+    (1, 2, 2, 128, 128, 72, True, None),
+    (1, 4, 4, 129, 129, 8, True, None),
+    (1, 7, 1, 4100, 4100, 128, True, None),
+    (1, 2, 2, 129, 300, 120, False, None),
+    (1, 2, 2, 300, 129, 64, True, None),
+    (1, 2, 2, 127, 4100, 128, False, None),
+    (1, 14, 2, 1, 4100, 128, False, None),
+    (1, 2, 2, 4100, 129, 64, True, None),
+    (1, 2, 1, 200, 60, 64, True, 16),
+    (2, 600, 600, 16, 16, 64, True, None),
+]
+
+
+# scales that are not the default 1/sqrt(D): negative, zero and large, on a
+# shape with a window (masked keys on both sides) and an edge tile
+SCALES = [-0.25, 0.0]
+SCALE_SHAPE = (1, 4, 2, 48, 40, 32, True, 12)
+CUDA_SCALES = SCALES + [2.0]
+CUDA_SCALE_SHAPES = [SCALE_SHAPE, (1, 4, 1, 300, 300, 128, True, 130)]
 
 
 def _inputs(shape, seed):
@@ -94,6 +123,60 @@ def test_group_seven_and_fully_masked_rows(B, Hq, Hkv, Sq, Sk, D, causal, window
     _close(got[:, :, ~dead], to_np(want[:, :, ~dead].float()), dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sm_scale", SCALES)
+def test_plain_version_takes_any_sm_scale(sm_scale, dtype):
+    """A negative or zero scale, as ``repro``'s attention takes it."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from repro.kernels.flash_attention import attention as j_attention
+    from repro.kernels.flash_attention import mha_reference as j_reference
+
+    B, Hq, Hkv, Sq, Sk, D, causal, window = SCALE_SHAPE
+    q, k, v = _inputs(SCALE_SHAPE, seed=17)
+    jd = getattr(jnp, dtype)
+    jq, jk, jv = (jnp.asarray(a).astype(jd) for a in (q, k, v))
+    tq, tk, tv = (torch.as_tensor(a).to(T_DTYPES[dtype]) for a in (q, k, v))
+    kw = dict(causal=causal, window=window, sm_scale=sm_scale)
+    want = np.asarray(j_reference(jq, jk, jv, **kw).astype(jnp.float32))
+    interp = j_attention(jq, jk, jv, impl="kernel_interpret", block_q=16, block_k=16, **kw)
+    interp = np.asarray(jax.device_get(interp.astype(jnp.float32)))
+    got = attention(tq, tk, tv, block_q=16, block_k=16, **kw)
+    _close(got, want, dtype)
+    _close(got, interp, dtype)
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_block_gate_fails_a_stale_tile():
+    """``chip_smoke.py``'s per-block limit on the bf16 kernel passes what a
+    right kernel gives (P rounded once to bf16, the output rounded once) and
+    fails a kernel whose last q tile read one KV tile's K/V from the tile
+    before it, as a wrong stage of the ring would."""
+    smoke = _chip_smoke()
+    S, D, t = 1024, 128, smoke.FLASH_BLOCK_ROWS
+    q, k, v = (torch.as_tensor(a).bfloat16() for a in _inputs((1, 4, 4, S, S, D), seed=23))
+    want = attention(q, k, v, causal=True, impl="reference")
+    causal = torch.ones(S, S, dtype=torch.bool).triu(1)
+    s = (q.float() @ k.float().transpose(-1, -2) * D ** -0.5).masked_fill(causal, float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    right = (p.bfloat16().float() @ v.float() / p.sum(-1, keepdim=True)).bfloat16()
+    assert smoke.require_block_rel_l2("right", right, want) <= smoke.FLASH_BLOCK_REL_TOL
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, 5 * t:6 * t], v2[:, :, 5 * t:6 * t] = k[:, :, 4 * t:5 * t], v[:, :, 4 * t:5 * t]
+    stale = want.clone()
+    stale[:, :, S - t:] = mha_reference(q, k2, v2, causal=True)[:, :, S - t:]
+    with pytest.raises(SystemExit, match="relative L2"):
+        smoke.require_block_rel_l2("stale", stale, want)
+
+
 def test_chunked_defaults_to_right_aligned_causal():
     """``mha_chunked`` keeps the reference's ``q_offset = Sk - Sq`` default;
     ``attention`` counts both from 0, as the kernel does."""
@@ -115,7 +198,7 @@ def test_kernel_wrapper_checks_its_inputs():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window", SWEEP + EXTRA)
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window", SWEEP + EXTRA + CUDA_EDGES)
 def test_cuda_kernel_matches_plain(cuda_device, B, Hq, Hkv, Sq, Sk, D, causal, window, dtype):
     q, k, v = (torch.as_tensor(a, device=cuda_device).to(T_DTYPES[dtype])
                for a in _inputs((B, Hq, Hkv, Sq, Sk, D), seed=11))
@@ -125,6 +208,39 @@ def test_cuda_kernel_matches_plain(cuda_device, B, Hq, Hkv, Sq, Sk, D, causal, w
     assert flash_kernel.flash_attention.launches == before + 1
     want = attention(q, k, v, causal=causal, window=window, impl="reference")
     assert not torch.isnan(got).any()
+    _close(got, to_np(want.float()), dtype)
+    if dtype == "bfloat16" and Sq >= 1024:  # late rows are small: hold each q tile too
+        smoke = _chip_smoke()
+        assert smoke.require_block_rel_l2("kernel", got, want) <= smoke.FLASH_BLOCK_REL_TOL
+    if window is not None and Sq - window >= Sk:  # rows that see no key give exactly 0
+        dead = torch.arange(Sq, device=cuda_device) - window + 1 > Sk - 1
+        assert torch.equal(got[:, :, dead], torch.zeros_like(got[:, :, dead]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D", [(2, 28, 4, 1000, 1000, 128), (1, 32, 32, 700, 700, 64)])
+def test_cuda_bf16_kernel_is_deterministic(cuda_device, B, Hq, Hkv, Sq, Sk, D):
+    """The same inputs twice give the same bytes: no race on the stage ring."""
+    q, k, v = (torch.as_tensor(a, device=cuda_device).bfloat16()
+               for a in _inputs((B, Hq, Hkv, Sq, Sk, D), seed=13))
+    first = flash_kernel.flash_attention(q, k, v, causal=True)
+    second = flash_kernel.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sm_scale", CUDA_SCALES)
+@pytest.mark.parametrize("shape", CUDA_SCALE_SHAPES)
+def test_cuda_kernel_takes_any_sm_scale(cuda_device, shape, sm_scale, dtype):
+    q, k, v = (torch.as_tensor(a, device=cuda_device).to(T_DTYPES[dtype])
+               for a in _inputs(shape, seed=19))
+    causal, window = shape[6:]
+    got = attention(q, k, v, causal=causal, window=window, sm_scale=sm_scale)
+    want = attention(q, k, v, causal=causal, window=window, sm_scale=sm_scale, impl="reference")
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
     _close(got, to_np(want.float()), dtype)
 
 

@@ -184,16 +184,42 @@ def test_hash_probe_kernel_matches_plain(cuda_device, cap, n, dup):
         np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
 
 
+# beyond the first three: the one-pass kernel's 4,096-lane tiles, N of 1,
+# one tile -1 and +1, and 2^23 + 17 (2,049 tiles, so the look-back crosses
+# many), at densities 0, 0.01, 0.5 and 1 and R of 1 and 6
+COMPACT_TILE_CASES = [(r, n, d) for n in (1, 4095, 4097, (1 << 23) + 17)
+                      for d in (0.0, 0.01, 0.5, 1.0) for r in (1, 6)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,N,density", [(6, 4096, 0.8), (2, 1000, 0.0), (3, 100_003, 0.3)])
+@pytest.mark.parametrize("R,N,density", [(6, 4096, 0.8), (2, 1000, 0.0), (3, 100_003, 0.3)]
+                         + COMPACT_TILE_CASES)
 def test_masked_compact_kernel_matches_plain(cuda_device, R, N, density):
     rng = np.random.default_rng(N)
     vals, mask = _cuda(rng.integers(-5, 1000, (R, N)).astype(np.int32),
                        rng.random(N) < density, device=cuda_device)
+    before = compact_kernel.masked_compact.launches
     out, count = compact_kernel.masked_compact(vals, mask, fill=-1)
+    assert compact_kernel.masked_compact.launches == before + 1
     ref, rcount = masked_compact(vals, mask, fill=-1, impl="reference")
     np.testing.assert_array_equal(out.cpu().numpy(), ref.cpu().numpy())
     assert int(count) == int(rcount)
+
+
+@pytest.mark.cuda
+def test_masked_compact_kernel_repeats_exactly(cuda_device):
+    """20 calls on one input: each equals the plain version (the look-back
+    and the tile counter are reset every call), one launch each."""
+    rng = np.random.default_rng(5)
+    n = (1 << 20) + 3
+    vals, mask = _cuda(rng.integers(-5, 1000, (4, n)).astype(np.int32), rng.random(n) < 0.36,
+                       device=cuda_device)
+    ref, rcount = masked_compact(vals, mask, fill=-1, impl="reference")
+    for _ in range(20):
+        before = compact_kernel.masked_compact.launches
+        out, count = compact_kernel.masked_compact(vals, mask, fill=-1)
+        assert compact_kernel.masked_compact.launches == before + 1
+        assert torch.equal(out, ref) and int(count) == int(rcount)
 
 
 @pytest.mark.cuda
