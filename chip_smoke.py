@@ -12,7 +12,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 1. The card: its name and power limit, and the build of the CUDA kernels
    from ``src/repro_torch/csrc`` (timed); the bf16 attention kernels' SASS
    must hold wgmma (``HGMMA``) and TMA (``UTMALDG``) and no ``mma.sync``,
-   reported with ptxas's registers and spills.
+   and every bf16 chunk-state and chunk-output kernel of ``ssd_scan`` the
+   tensor cores' ``mma.sync`` (``HMMA``), each reported with ptxas's
+   registers and spills.
 2. The key hashes on the card against their numpy twins, and each graph
    kernel against its plain PyTorch version on small adversarial inputs
    (duplicates, contention, an all-false mask, sizes off every block size,
@@ -33,7 +35,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    on the main path's own tables, with CUDA-event times taken with the L2
    cache flushed before each run, the kernel's bound (the bytes and
    operations this run's data needs) and the time of one PyTorch call
-   computing the same function where there is one.
+   computing the same function where there is one; ``probe_place``'s row
+   gives its calls and claim rounds on the main path (three launches a
+   round) and the rounds of the timed call.
 5. ``flash_attention`` against its plain version on adversarial small
    shapes (MHA, GQA, MQA, window, Sq != Sk both ways, Sq and Sk of 1, 127,
    128, 129 and 4,100, D of 8 to 128, a GQA group of 7, rows whose keys
@@ -96,7 +100,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    64, bf16, strict, per-channel, chunk 64; zamba2: B 2, H 64, the same S,
    K, V, bf16, scalar, one decay a step), timed as in phase 4 beside its
    plain version and its bound (the least the function needs, whatever the
-   chunk); no single PyTorch call computes it.
+   chunk), with each of its three passes timed alone the same way (one
+   launch each), the bytes of the scratch it allocates, and its calls beside
+   its launches on the model's path (three a call); no single PyTorch call
+   computes it.  How close y and the final state came to the limit (the
+   largest share of it, and the relative L2) is reported beside the same
+   readings for the f32 kernel on the same values with y rounded once to
+   bf16 (f32 arithmetic throughout); phases 9 and 10 report them for the
+   layers' own scans.
 12. ``paged_attention`` against its plain version on small shapes (the
    reference sweep's, a GQA group of 7 at D 128, a group of 1 at D 64, long
    sequences over many splits; lengths 0, 1, a page boundary and the full
@@ -173,7 +184,7 @@ from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models.module import tree_leaves, tree_map  # noqa: E402
 from repro_torch.serving import PagedKVManager, Request, ServingEngine  # noqa: E402
 
-# the kernel wrappers, whose launch counts the main paths are read by
+# the kernel wrappers, whose launch and call counts the main paths are read by
 WRAPPERS = {
     "hash_probe": hk.hash_probe, "masked_compact": ck.masked_compact,
     "probe_place": ck.probe_place, "frontier_expand": fk.frontier_expand,
@@ -253,7 +264,8 @@ SERVE_ALONE = (0, 2)        # greedy requests admitted at tick 0, in slots 0 and
 PROFILE_TICKS = 6
 
 # ssd_scan against its plain version: tests/test_kernels.py's sweep and
-# tolerances, plus K = V = 128, S = 100 (chunk 4) and an odd S (chunk 1)
+# tolerances, plus K = V = 128, S = 100 (chunk 4), an odd S (chunk 1) and S
+# of one chunk (no state carried between chunks)
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 SSD_SHAPES = [  # (B, H, S, K, V, chunk)
     (1, 2, 64, 8, 8, 16),
@@ -263,6 +275,7 @@ SSD_SHAPES = [  # (B, H, S, K, V, chunk)
     (1, 2, 128, 128, 128, 64),
     (2, 2, 100, 16, 16, 4),
     (1, 3, 37, 8, 24, 1),
+    (2, 2, 64, 64, 64, 64),
 ]
 
 # paged_attention against its plain version: tests/test_kernels.py's sweep
@@ -632,7 +645,7 @@ def _probe_sectors(home, steps, cap) -> int:
     return torch.unique(torch.cat(touched)).numel()
 
 
-def full_shape_kernels(g, sources, launches, dev) -> list:
+def full_shape_kernels(g, sources, launches, place_calls, dev) -> list:
     rng = np.random.default_rng(2)
     state = g.state
     csr = g.traversal_csr()
@@ -697,6 +710,14 @@ def full_shape_kernels(g, sources, launches, dev) -> list:
                                          impl="reference"), 2),
            _bound(9 * m + 1, 12 * place_steps + 8 * int(placed.sum())),
            None)
+    # its ms is one call, every claim round of it (three launches a round)
+    with uncounted():
+        before = ck.probe_place.launches
+        ck.probe_place(home, active, capacity=pcap, max_probes=MAX_PROBES)
+        timed_rounds = (ck.probe_place.launches - before) // ck.LAUNCHES_PER_ROUND
+    place_row = rows[-1]
+    place_row.update(calls=place_calls, rounds=launches["probe_place"] // ck.LAUNCHES_PER_ROUND,
+                     rounds_in_timed_call=timed_rounds)
 
     # frontier_expand: 16 BFS frontiers one level deep in the final snapshot
     src_keys = torch.as_tensor(sources.astype(np.int32), device=dev)
@@ -722,7 +743,9 @@ def full_shape_kernels(g, sources, launches, dev) -> list:
     log(f"phase 4: every kernel equals its plain version at the main path's shapes "
         f"(hash_probe table {cap} / queries {q.numel()}, {sectors} table sectors "
         f"touched, {probe_steps} probe steps; masked_compact {r} x {n}; "
-        f"probe_place {m} into {pcap}, {int(placed.sum())} keys in {place_steps} steps; "
+        f"probe_place {m} into {pcap}, {int(placed.sum())} keys in {place_steps} steps, "
+        f"{timed_rounds} claim rounds a call, {place_calls} calls and "
+        f"{place_row['rounds']} rounds on the main path; "
         f"frontier_expand S={s_n} C={c} Ce={ce}, depth {depth})")
     return rows
 
@@ -742,6 +765,13 @@ def require_close(name: str, got, want, tol: float) -> float:
         raise SystemExit(f"{name}: kernel disagrees with its plain version "
                          f"(max abs err {(g - w).abs().max().item()})")
     return (g - w).abs().max().item()
+
+
+def limit_share(got, want, tol: float) -> float:
+    """How close ``got`` came to :func:`require_close`'s limit: the largest
+    |got - want| / (tol + tol |want|), 1 at the limit."""
+    g, w = got.float(), want.float()
+    return ((g - w).abs() / (tol + tol * w.abs())).max().item()
 
 
 def require_block_rel_l2(name: str, got, want, tol: float = FLASH_BLOCK_REL_TOL) -> float:
@@ -907,10 +937,19 @@ def _scan_inputs_of(calls):
         ssd_ops.ssd_scan = real
 
 
+def _scan_margin(got, hT, want, want_h, tol: float) -> dict:
+    """For a scan's y and final state: the share of the element limit it
+    reached (:func:`limit_share`) and its relative L2 against the plain
+    version."""
+    return {name: {"limit_share": limit_share(a, b, tol), "rel_l2": _rel_l2(a.float(), b.float())}
+            for name, a, b in (("y", got, want), ("final_state", hT, want_h))}
+
+
 def _layer_scan_gate(kept) -> dict:
     """``ssd_scan`` on the kept inputs of model layers (bf16, as the prefill
     gave them) against its plain version, outputs and final states within
-    the bf16 tolerance of phase 8; the max abs error per scan call."""
+    the bf16 tolerance of phase 8; per scan call the max abs error and
+    :func:`_scan_margin`."""
     tol, out = SSD_TOL[torch.bfloat16], {}
     with uncounted():
         for i, (args, kw) in sorted(kept.items()):
@@ -919,8 +958,10 @@ def _layer_scan_gate(kept) -> dict:
             got, hT = ssk.ssd_scan(*args, **kw)
             want, want_h = ssd_scan(*args, **kw, impl="reference")
             what = f"ssd_scan on the inputs of scan call {i} of the bf16 prefill"
-            out[f"call {i}"] = max(require_close(what, got, want, tol),
-                                   require_close(what + ", final state", hT, want_h, tol))
+            out[f"call {i}"] = {
+                "max_abs_err": max(require_close(what, got, want, tol),
+                                   require_close(what + ", final state", hT, want_h, tol)),
+                **_scan_margin(got, hT, want, want_h, tol)}
     return out
 
 
@@ -987,7 +1028,7 @@ def _paged_drain_summary(phase: int, checks: list, reusable: set) -> dict:
 def lm_serve_path(arch: str, phase: int, seed: int, dev, *, plain_run: dict,
                   per_prefill: dict, handoff=None, gate_f32: bool = False,
                   scan_calls=()) -> dict:
-    """One LM at full width: the prefill through the kernels (each launched
+    """One LM at full width: the prefill through the kernels (each called
     ``per_prefill[name]`` times), held against the prefill with ``plain_run``
     forcing a plain version, the prefill-to-decode ``handoff`` where the
     model has recurrent states, and continuous-batching serving.
@@ -1020,12 +1061,13 @@ def lm_serve_path(arch: str, phase: int, seed: int, dev, *, plain_run: dict,
     prefill, _, _ = build_prefill_step(cfg, device=dev)
     plain, _, _ = build_prefill_step(cfg, device=dev, run_overrides=plain_run)
     torch.cuda.reset_peak_memory_stats()
-    before = {name: WRAPPERS[name].launches for name in per_prefill}
+    before = {name: (WRAPPERS[name].calls, WRAPPERS[name].launches) for name in per_prefill}
     with _scan_inputs_of(scan_calls) as kept:
         logits, warm_s = wall_s(lambda: prefill(params, batch))
-    counts = {name: WRAPPERS[name].launches - before[name] for name in per_prefill}
+    counts = {name: WRAPPERS[name].calls - before[name][0] for name in per_prefill}
+    launched = {name: WRAPPERS[name].launches - before[name][1] for name in per_prefill}
     if counts != per_prefill:
-        raise SystemExit(f"prefill launched {counts}, not {per_prefill}")
+        raise SystemExit(f"prefill called {counts}, not {per_prefill}")
     times = [wall_s(lambda: prefill(params, batch))[1] for _ in range(PREFILL_RUNS)]
     peak = torch.cuda.max_memory_allocated()
     _, prof = profile_window(lambda: prefill(params, batch), 1, "prefill")
@@ -1042,23 +1084,23 @@ def lm_serve_path(arch: str, phase: int, seed: int, dev, *, plain_run: dict,
         "batch": PREFILL_BATCH, "prompt_len": PREFILL_LEN, "warmup_s": warm_s,
         "s": times, "median_s": med, "prompt_tokens_per_s": n_tok / med,
         "plain_s": plain_s, "plain_run": plain_run, "peak_bytes": peak,
-        "launches_per_prefill": counts,
+        "calls_per_prefill": counts, "launches_per_prefill": launched,
         "logits_rel_l2": rel, "top1_agree": top1, "profile": prof,
     }
     del logits, want
     if scan_calls:
-        out["prefill"]["layer_scan_max_abs_err"] = _layer_scan_gate(kept)
+        out["prefill"]["layer_scan_gate"] = _layer_scan_gate(kept)
     del kept
     log(f"phase {phase}: prefill {PREFILL_BATCH} x {PREFILL_LEN}: median {med:.4f} s of "
         f"{PREFILL_RUNS} ({n_tok / med:.0f} prompt tokens/s), warm-up {warm_s:.3f} s, "
-        f"with {plain_run} {plain_s:.3f} s; peak {peak / 1e9:.2f} GB; kernel launches per "
-        f"prefill {counts}; last-token logits within {rel:.3e} relative L2 of the plain "
-        f"run's, top-1 agreeing {top1}")
+        f"with {plain_run} {plain_s:.3f} s; peak {peak / 1e9:.2f} GB; kernel calls per "
+        f"prefill {counts}, launches {launched}; last-token logits within {rel:.3e} "
+        f"relative L2 of the plain run's, top-1 agreeing {top1}")
     if scan_calls:
         log(f"phase {phase}: ssd_scan on the bf16 inputs of the prefill's scan calls "
             f"{list(scan_calls)} (first and last layer) equals its plain version within "
-            f"{SSD_TOL[torch.bfloat16]}, outputs and final states: max abs err "
-            f"{json.dumps(out['prefill']['layer_scan_max_abs_err'])}")
+            f"{SSD_TOL[torch.bfloat16]}, outputs and final states: "
+            f"{json.dumps(out['prefill']['layer_scan_gate'])}")
     gate_model, gate_params, gated = model, params, "bf16"
     if gate_f32:
         cfg32 = cfg.scaled(dtype="float32")
@@ -1298,9 +1340,10 @@ def _ssd_bound(b, h, s, k, v, scalar, strict, elt_bytes):
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
-def ssd_full_shape(arch, cfg, scalar, strict, launches, dev) -> dict:
+def ssd_full_shape(arch, cfg, scalar, strict, path, dev) -> dict:
     """``ssd_scan`` at a prefill's shape, as the model's block calls it
-    (an f32 initial state in, the final state out)."""
+    (an f32 initial state in, the final state out); ``path`` has the
+    launches and calls of the model's run."""
     if scalar:
         _, hds, hd, n_state = model_blocks._mamba_dims(cfg)
         k_dim, v_dim = n_state, hd
@@ -1319,21 +1362,37 @@ def ssd_full_shape(arch, cfg, scalar, strict, launches, dev) -> dict:
     tol = SSD_TOL[torch.bfloat16]
     err = max(require_close(f"ssd_scan at the {arch} prefill shape", got, want, tol),
               require_close(f"ssd_scan final state at the {arch} prefill shape", hT, want_h, tol))
+    margin = _scan_margin(got, hT, want, want_h, tol)
+    # f32 arithmetic throughout: the f32 kernel on the same values, y rounded once to bf16
+    got32, hT32 = ssk.ssd_scan(*(t.float() for t in (q, k, v, w)), scalar_decay=scalar, **kw)
+    f32_margin = _scan_margin(got32.to(torch.bfloat16), hT32, want, want_h, tol)
+    del got32, hT32
     bound = _ssd_bound(b, hds, s, k_dim, v_dim, scalar, strict, 2)
+    # each pass alone (its own launch), timed as the call is
+    _, _, scratch, launches = ssk.prepare(q, k, v, w, scalar_decay=scalar, **kw)
+    passes = {name: cuda_ms(launch, 10) for name, launch in zip(ssk.PASSES, launches)}
     row = {
         "name": f"ssd_scan[{arch}]", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:97",
-        "launches": launches["ssd_scan"], "max_abs_err": err,
+        "launches": path["launches"]["ssd_scan"], "calls": path["calls"]["ssd_scan"],
+        "max_abs_err": err, "margin": margin, "f32_rounded_margin": f32_margin,
         "ms": cuda_ms(lambda: ssk.ssd_scan(q, k, v, w, scalar_decay=scalar, **kw), 10),
         "plain_ms": cuda_ms(lambda: ssd_scan(q, k, v, w, impl="reference", **kw), 3),
         "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
         "shape": {"B": b, "H": hds, "S": s, "K": k_dim, "V": v_dim, "chunk": chunk,
                   "dtype": "bfloat16", "strict": strict, "scalar_decay": scalar},
+        "pass_ms": passes,
+        "scratch_bytes": scratch.numel() * scratch.element_size(),
     }
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
     log(f"phase 11: ssd_scan at the {arch} prefill shape (B={b} H={hds} S={s} K={k_dim} "
         f"V={v_dim} chunk {chunk} bf16 strict={strict} scalar={scalar}): {row['ms']:.4f} ms "
         f"(plain {row['plain_ms']:.3f} ms; no single PyTorch call computes it), bound "
-        f"{row['bound_ms']:.4f} ms by {row['bound_by']}, max abs err {err}")
+        f"{row['bound_ms']:.4f} ms by {row['bound_by']} ({row['share_of_bound']:.1%} of it), max "
+        f"abs err {err}, margin {json.dumps(margin)} (the f32 kernel's, y rounded to bf16: "
+        f"{json.dumps(f32_margin)}); ms by pass {json.dumps(passes)}; scratch "
+        f"{row['scratch_bytes']} bytes; {row['calls']} calls, {row['launches']} launches on "
+        f"the model's path")
     return row
 
 
@@ -1525,7 +1584,8 @@ def hopper_sass(so: Path) -> dict:
     """The bf16 attention kernels' machine code: each must hold wgmma
     (``HGMMA``) and TMA loads (``UTMALDG``) and no ``mma.sync`` (``HMMA``);
     the highest register its SASS names, and ptxas's register and spill
-    report of each, from the build's log."""
+    report of each, from the build's log; then the ssd_scan kernels'
+    (:func:`ssd_sass`)."""
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
@@ -1549,17 +1609,56 @@ def hopper_sass(so: Path) -> dict:
             out[key]["ptxas"] = "; ".join(x.split(":", 1)[-1].strip() for x in report[i + 1:i + 4]
                                           if "Used" in x or "spill" in x)
     log(f"phase 1: flash_attention's bf16 kernels in SASS: {json.dumps(out)}")
+    out["ssd_scan"] = ssd_sass(sass, so.parent / "ssd_scan.nvcc.log")
+    return out
+
+
+def _ssd_key(mangled: str):
+    """``pass<dtype, strict, scalar>`` for an ssd_scan kernel's mangled name,
+    or None for another kernel."""
+    m = re.search(r"(ssd_chunk_state_kernel|ssd_state_pass_kernel|ssd_chunk_out_kernel)I(.*)",
+                  mangled)
+    if not m:
+        return None
+    args = m.group(2)
+    dtype = "bf16" if args.startswith("13__nv_bfloat16") else (
+        "f32" if args.startswith("f") else "")
+    flags = ",".join(re.findall(r"Lb([01])E", args))
+    return f"{m.group(1)}<{','.join(x for x in (dtype, flags) if x)}>"
+
+
+def ssd_sass(sass: str, report: Path) -> dict:
+    """The ssd_scan kernels' machine code: the tensor-core instruction
+    (``HMMA``) in every bf16 instantiation of the chunk-state and
+    chunk-output passes, and ptxas's registers and spills of each kernel."""
+    out = {}
+    for func in sass.split("Function : ")[1:]:
+        key = _ssd_key(func.split(None, 1)[0])
+        if key:
+            out[key] = {"HMMA": len(re.findall(r"\bHMMA\b", func))}
+    lines = report.read_text().splitlines()
+    for i, line in enumerate(lines):
+        key = _ssd_key(line) if "Compiling entry" in line else None
+        if key in out:
+            out[key]["ptxas"] = "; ".join(x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
+                                          if "Used" in x or "spill" in x)
+    bf16 = [k for k in out if "<bf16" in k and "state_pass" not in k]
+    if len(out) != 14 or len(bf16) != 6 or any(not out[k]["HMMA"] for k in bf16):
+        raise SystemExit(f"phase 1: the ssd_scan kernels are not all built, or a bf16 one "
+                         f"is not on the tensor cores: {out}")
+    log(f"phase 1: ssd_scan's kernels in SASS (HMMA count) and ptxas: {json.dumps(out)}")
     return out
 
 
 def run_counted(path, fn):
-    """Run one main path with every launch count set to 0 just before it;
-    exits if a kernel of ``path`` was launched no time in it."""
+    """Run one main path with every launch (and call) count set to 0 just
+    before it; exits if a kernel of ``path`` was launched no time in it."""
     for w in WRAPPERS.values():
-        w.launches = 0
+        w.launches = w.calls = 0
     out = fn()
     counts = {name: w.launches for name, w in WRAPPERS.items()}
-    log(f"kernel launches on the path: {json.dumps(counts)}")
+    log(f"kernel launches on the path: {json.dumps(counts)}; calls: "
+        f"{json.dumps({name: w.calls for name, w in WRAPPERS.items()})}")
     missing = [name for name in path if counts[name] == 0]
     if missing:
         raise SystemExit(f"the main path never launched: {missing}")
@@ -1570,12 +1669,12 @@ def run_counted(path, fn):
 def uncounted():
     """Launches made to compare a kernel with its plain version: every
     launch count is put back as it was when the block ends."""
-    saved = {name: w.launches for name, w in WRAPPERS.items()}
+    saved = {name: (w.launches, w.calls) for name, w in WRAPPERS.items()}
     try:
         yield
     finally:
         for name, w in WRAPPERS.items():
-            w.launches = saved[name]
+            w.launches, w.calls = saved[name]
 
 
 def main(argv=None) -> int:
@@ -1603,14 +1702,14 @@ def main(argv=None) -> int:
     log(f"phase 1: card {torch.cuda.get_device_name(0)} ({smi}); kernels built from "
         f"src/repro_torch/csrc in {time.perf_counter() - t0:.1f} s; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
-    flash_sass = hopper_sass(Path(lib._name))
+    sass = hopper_sass(Path(lib._name))
 
     small_kernel_checks(dev)
 
     # phase 3: the graph's main path, with every launch count read around it
     summary, g, sources = run_counted(GRAPH_PATH, lambda: main_path(args.seed))
     launches = {name: fn.launches for name, fn in WRAPPERS.items()}
-    rows = full_shape_kernels(g, sources, launches, dev)
+    rows = full_shape_kernels(g, sources, launches, ck.probe_place.calls, dev)
     del g
 
     flash_small_checks(dev)
@@ -1643,6 +1742,7 @@ def main(argv=None) -> int:
         per_prefill={"ssd_scan": ssm_cfg.n_layers}, handoff=_model_handoff, gate_f32=True,
         scan_calls=(0, ssm_cfg.n_layers - 1)))
     summary["ssm"]["launches"] = {name: fn.launches for name, fn in WRAPPERS.items()}
+    summary["ssm"]["calls"] = {name: fn.calls for name, fn in WRAPPERS.items()}
     phase_s["9"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     summary["hybrid"] = run_counted(ZAMBA_PATH, lambda: lm_serve_path(
@@ -1651,13 +1751,13 @@ def main(argv=None) -> int:
                      "flash_attention": hyb_cfg.n_layers // hyb_cfg.shared_attn_every},
         handoff=_block_handoff, gate_f32=True, scan_calls=(0, hyb_cfg.n_layers - 1)))
     summary["hybrid"]["launches"] = {name: fn.launches for name, fn in WRAPPERS.items()}
+    summary["hybrid"]["calls"] = {name: fn.calls for name, fn in WRAPPERS.items()}
     hyb_flash["launches"] = summary["hybrid"]["launches"]["flash_attention"]
     phase_s["10"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    rows.append(ssd_full_shape(SSM_ARCH, ssm_cfg, False, True, summary["ssm"]["launches"], dev))
-    rows.append(ssd_full_shape(HYBRID_ARCH, hyb_cfg, True, False,
-                               summary["hybrid"]["launches"], dev))
+    rows.append(ssd_full_shape(SSM_ARCH, ssm_cfg, False, True, summary["ssm"], dev))
+    rows.append(ssd_full_shape(HYBRID_ARCH, hyb_cfg, True, False, summary["hybrid"], dev))
     phase_s["11"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -1670,7 +1770,7 @@ def main(argv=None) -> int:
     phase_s["13"] = time.perf_counter() - t0
 
     summary["card"] = smi
-    summary["flash_sass"] = flash_sass
+    summary["sass"] = sass
     summary["seconds"] = time.perf_counter() - t_start
     summary["phase_seconds"] = phase_s
     log(f"wall seconds by phase: {json.dumps(phase_s)}; total {summary['seconds']:.1f}")

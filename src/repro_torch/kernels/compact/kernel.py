@@ -3,8 +3,8 @@
 Replace the Pallas kernels ``repro/kernels/compact/kernel.py::masked_compact``
 and ``::probe_place``.  ``masked_compact`` is one launch (a decoupled
 look-back over 4,096-lane tiles, the tail filled by reverse rank) after one
-memset of its scratch; ``probe_place`` is three launches a claim round.  The
-notes on what bounds each and how it is laid out are in the CUDA source.
+memset of its scratch; ``probe_place`` is three launches a claim round.
+The notes on what bounds each and how it is laid out are in the CUDA source.
 """
 
 from __future__ import annotations
@@ -44,10 +44,12 @@ def masked_compact(
     )
     _build.check(code, "rt_masked_compact")
     masked_compact.launches += 1
+    masked_compact.calls += 1
     return out, count
 
 
 masked_compact.launches = 0
+masked_compact.calls = 0
 
 
 def probe_place(
@@ -81,12 +83,15 @@ def probe_place(
             counters.data_ptr(), stream,
         )
         _build.check(code, "rt_probe_place_round")
-        probe_place.launches += 3  # claim, settle, reset
+        probe_place.launches += LAUNCHES_PER_ROUND
         rounds += 1
         n_has, n_pending = counters.tolist()
         if n_has == 0 or n_pending == 0:
             break
+    probe_place.calls += 1
     return slots, pending.any()
 
 
+LAUNCHES_PER_ROUND = 3  # claim, settle, reset
 probe_place.launches = 0
+probe_place.calls = 0

@@ -50,7 +50,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     )
     _build.check(code, "rt_flash_attention")
     flash_attention.launches += 1
+    flash_attention.calls += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.calls = 0

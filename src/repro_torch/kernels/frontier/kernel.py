@@ -30,7 +30,9 @@ def frontier_expand(
     )
     _build.check(code, "rt_frontier_expand")
     frontier_expand.launches += 1
+    frontier_expand.calls += 1
     return out
 
 
 frontier_expand.launches = 0
+frontier_expand.calls = 0

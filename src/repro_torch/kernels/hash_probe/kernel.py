@@ -29,7 +29,9 @@ def hash_probe(table_keys: torch.Tensor, query_keys: torch.Tensor):
     )
     _build.check(code, "rt_hash_probe")
     hash_probe.launches += 1
+    hash_probe.calls += 1
     return found, empty
 
 
 hash_probe.launches = 0
+hash_probe.calls = 0

@@ -107,7 +107,9 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     )
     _build.check(code, "rt_paged_attention")
     paged_attention.launches += 1
+    paged_attention.calls += 1
     return out
 
 
 paged_attention.launches = 0
+paged_attention.calls = 0

@@ -2,10 +2,14 @@
 (``csrc/ssd_scan.cu``).
 
 Replaces the Pallas kernel ``repro/kernels/ssd_scan/kernel.py::ssd_scan``.
-The note on what bounds it and how it is laid out is in the CUDA source.
+A call is three launches (chunk states, the state pass, chunk outputs) over
+an f32 scratch of the chunks' states that the wrapper allocates; the note on
+what bounds it and how it is laid out is in the CUDA source.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -17,15 +21,16 @@ _MAX_CHUNK = 64
 _INT_MAX = 2**31 - 1
 
 
-def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor, *,
-             chunk: int = 64, scalar_decay: bool = False, strict: bool = False,
-             h0: torch.Tensor | None = None, return_state: bool = False):
-    """The scan over contiguous CUDA tensors q, k, w (B, H, S, K) and v
-    (B, H, S, V) of one dtype, f32 or bf16; y (B, H, S, V) in that dtype.
-    With ``scalar_decay`` w may be (B, H, S, 1), and only its column 0 is
-    read.
-    ``h0`` is an optional f32 (B, H, K, V) initial state; with
-    ``return_state`` the f32 final state comes back too, as (y, hT)."""
+PASSES = ("chunk states", "state pass", "chunk outputs")  # one launch each, a call
+
+
+def prepare(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor, *,
+            chunk: int = 64, scalar_decay: bool = False, strict: bool = False,
+            h0: torch.Tensor | None = None, return_state: bool = False):
+    """Checks the inputs of :func:`ssd_scan` and allocates its outputs and
+    scratch: (y, hT or None, scratch, launches), where ``launches`` holds one callable
+    a pass, in the order of ``PASSES``, each one CUDA launch on the current
+    stream; running them in order is the scan."""
     _build.require_cuda("ssd_scan", q, k, v, w, *(() if h0 is None else (h0,)))
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in (k, v, w)):
         raise TypeError("ssd_scan: q, k, v, w must share one dtype, float32 or bfloat16")
@@ -43,17 +48,45 @@ def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"ssd_scan: shape {tuple(q.shape)} out of range")
     if h0 is not None and (h0.dtype != torch.float32 or h0.shape != (B, H, K, V)):
         raise ValueError("ssd_scan: h0 must be float32 (B, H, K, V)")
+    n_chunks = S // chunk
+    if B * H * n_chunks > _INT_MAX:
+        raise ValueError(f"ssd_scan: {B * H * n_chunks} chunks out of range")
     y = torch.empty_like(v)
     hT = torch.empty(B, H, K, V, dtype=torch.float32, device=q.device) if return_state else None
-    code = _build.library().rt_ssd_scan(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), y.data_ptr(),
-        None if h0 is None else h0.data_ptr(), None if hT is None else hT.data_ptr(),
-        B * H, S, K, V, chunk, w.shape[3], int(strict), int(scalar_decay), _DTYPES[q.dtype],
-        _build.stream_ptr(q),
-    )
-    _build.check(code, "rt_ssd_scan")
-    ssd_scan.launches += 1
+    # each chunk's f32 K x V state, then its decays e^{L_C} (one a chunk when scalar)
+    scratch = torch.empty(B * H * n_chunks * (K * V + (1 if scalar_decay else K)),
+                          dtype=torch.float32, device=q.device)
+    lib = _build.library()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), y.data_ptr(),
+            None if h0 is None else h0.data_ptr(), None if hT is None else hT.data_ptr(),
+            scratch.data_ptr(), B * H, S, K, V, chunk, w.shape[3], int(strict),
+            int(scalar_decay), _DTYPES[q.dtype])
+
+    keep = (q, k, v, w, h0, scratch)  # alive as long as the launches are
+
+    def launch(pass_no: int):
+        _build.check(lib.rt_ssd_scan(pass_no, *args, _build.stream_ptr(keep[0])), "rt_ssd_scan")
+
+    return y, hT, scratch, [functools.partial(launch, p) for p in range(len(PASSES))]
+
+
+def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor, *,
+             chunk: int = 64, scalar_decay: bool = False, strict: bool = False,
+             h0: torch.Tensor | None = None, return_state: bool = False):
+    """The scan over contiguous CUDA tensors q, k, w (B, H, S, K) and v
+    (B, H, S, V) of one dtype, f32 or bf16; y (B, H, S, V) in that dtype.
+    With ``scalar_decay`` w may be (B, H, S, 1), and only its column 0 is
+    read.
+    ``h0`` is an optional f32 (B, H, K, V) initial state; with
+    ``return_state`` the f32 final state comes back too, as (y, hT)."""
+    y, hT, _, launches = prepare(q, k, v, w, chunk=chunk, scalar_decay=scalar_decay, strict=strict,
+                              h0=h0, return_state=return_state)
+    for launch in launches:
+        launch()
+        ssd_scan.launches += 1
+    ssd_scan.calls += 1
     return (y, hT) if return_state else y
 
 
 ssd_scan.launches = 0
+ssd_scan.calls = 0

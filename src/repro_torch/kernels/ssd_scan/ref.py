@@ -13,6 +13,10 @@ per-channel decay w_t in (0, 1]^K:
   chunk body in ``jax.checkpoint`` for training; the port is inference only
   and loops over the chunks in Python.
 * :func:`linear_scan_step` is the O(1) decode step.
+* :func:`linear_scan_passes` is the CUDA kernel's decomposition of the
+  chunked form (chunk states, a state pass, chunk outputs, and the
+  per-channel intra-chunk term on sub-chunks of 16); no path calls it, the
+  tests hold its algebra to the reference on the CPU.
 
 q, k, w are (B, H, S, K) and v (B, H, S, V); ``h0`` and the returned state
 are f32 (B, H, K, V); y comes back in q's dtype.  Mamba-2's scalar decay is
@@ -88,3 +92,102 @@ def linear_scan_chunked(q, k, v, w, h0=None, *, chunk: int = 64, strict: bool = 
         k_out = kt * torch.exp(Lc - L)
         h = h * torch.exp(Lc[:, :, 0, :, None]) + torch.einsum("bhck,bhcv->bhkv", k_out, vt)
     return torch.cat(ys, dim=2).to(q.dtype), h
+
+
+SUB = 16  # the sub-chunk of the per-channel intra-chunk term (the kernel's mma tile rows)
+
+
+def _subchunk_scores(q, k, L, Lq):
+    """The per-channel scores S[t, s] = Σ_k q_t k_s e^{Lq_t - L_s} of chunks
+    q, k (..., C, K) with log-decays L, Lq -> (..., C, C), for s in the
+    sub-chunk of t or before it (the caller masks s > t, or s ≥ t under
+    ``strict``).  Sub-chunks are 16 steps (a chunk of 16 or less is its
+    own).  On a diagonal block the pairwise exponents stay; for t in
+    sub-chunk i and s in an earlier sub-chunk j, with b_i the step before
+    sub-chunk i and e_j the last step of sub-chunk j,
+
+      e^{Lq_t - L_s} = e^{Lq_t - L_{b_i}} · e^{L_{b_i} - L_{e_j}} · e^{L_{e_j} - L_s},
+
+    each exponent ≤ 0: q̃_t and k̃_s take one scaling each and the pair (i, j)
+    one K-vector of decays, so the block is a product (q̃ ⊙ d_ij) · k̃ᵀ."""
+    C = q.shape[-2]
+    starts = list(range(0, C, SUB))
+    s = q.new_zeros(*q.shape[:-1], C)
+    zero = torch.zeros_like(L[..., :1, :])
+    bnd = [zero if i0 == 0 else L[..., i0 - 1:i0, :] for i0 in starts]  # L_{b_i}
+    for i, i0 in enumerate(starts):
+        i1 = min(i0 + SUB, C)
+        qi, lqi = q[..., i0:i1, :], Lq[..., i0:i1, :]
+        diff = torch.clamp(lqi[..., :, None, :] - L[..., None, i0:i1, :], max=0.0)
+        s[..., i0:i1, i0:i1] = torch.einsum("...tk,...sk,...tsk->...ts", qi, k[..., i0:i1, :],
+                                            _exp(diff))
+        q_t = qi * _exp(torch.clamp(lqi - bnd[i], max=0.0))
+        for j0 in starts[:i]:
+            j1 = j0 + SUB
+            last = L[..., j1 - 1:j1, :]                                   # L_{e_j}
+            k_t = k[..., j0:j1, :] * _exp(last - L[..., j0:j1, :])
+            s[..., i0:i1, j0:j1] = torch.einsum("...tk,...sk->...ts",
+                                                q_t * _exp(bnd[i] - last), k_t)
+    return s
+
+
+def _exp(x):
+    """e^x of float64 log-decays, as f32."""
+    return torch.exp(x).to(F32)
+
+
+def linear_scan_passes(q, k, v, w, h0=None, *, chunk: int = 64, strict: bool = False,
+                       scalar_decay: bool = False):
+    """:func:`linear_scan_chunked` as the CUDA kernel decomposes it (the
+    three passes of Mamba-2's SSD, arXiv:2405.21060), in plain PyTorch:
+
+    1. chunk states: per chunk c, ΔH_c = Σ_t (k_t ⊙ e^{L_C - L_t}) v_tᵀ and
+       its decay e^{L_C};
+    2. state pass: H_in[c] = H, then H = e^{L_C[c]} ⊙ H + ΔH_c, from ``h0``
+       (or 0); the last H is the final state;
+    3. chunk outputs: y = (q ⊙ e^{Lq}) · H_in[c] + the intra-chunk term,
+       (q·kᵀ ⊙ D) · v with D[t, s] = e^{min(Lq_t - L_s, 0)} under
+       ``scalar_decay`` (w's column 0), else :func:`_subchunk_scores` · v.
+
+    Every exponent is ≤ 0.  The log-decays are summed in float64, so that
+    with decays of 1e-30 (L near -650 after ten of them) the exponents' f32
+    rounding does not hide the algebra; every product is f32.  Returns (y
+    in q's dtype, the f32 final state)."""
+    B, H, S, K = q.shape
+    V = v.shape[-1]
+    if S % chunk:
+        raise ValueError(f"sequence length {S} is not a multiple of the chunk {chunk}")
+    nc = S // chunk
+    dev = q.device
+
+    def chunks(x):
+        return x.to(F32).reshape(B, H, nc, chunk, x.shape[-1])
+
+    qc, kc, vc = chunks(q), chunks(k), chunks(v)
+    logw = torch.log(torch.clamp(chunks(w[..., :1] if scalar_decay else w).double(),
+                                 min=1e-30))
+    L = torch.cumsum(logw, dim=3)                                   # (B, H, nc, C, K or 1)
+    Lq = (L - logw) if strict else L
+    Lc = L[:, :, :, -1:]
+    # 1. chunk states
+    dH = torch.einsum("bhnck,bhncv->bhnkv", kc * _exp(Lc - L), vc)
+    dec = _exp(Lc[:, :, :, 0, :, None])                             # (B, H, nc, K or 1, 1)
+    # 2. the state pass
+    h = torch.zeros(B, H, K, V, dtype=F32, device=dev) if h0 is None else h0
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = dec[:, :, c] * h + dH[:, :, c]
+    h_in = torch.stack(h_in, dim=2)
+    # 3. chunk outputs
+    y = torch.einsum("bhnck,bhnkv->bhncv", qc * _exp(Lq), h_in)
+    if scalar_decay:
+        dd = _exp(torch.clamp(Lq[..., :, None, 0] - L[..., None, :, 0], max=0.0))
+        scores = torch.einsum("bhntk,bhnsk->bhnts", qc, kc) * dd
+    else:
+        scores = _subchunk_scores(qc, kc, L, Lq)
+    mask = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool, device=dev),
+                      diagonal=-1 if strict else 0)
+    scores = torch.where(mask, scores, torch.zeros((), dtype=F32, device=dev))
+    y = y + torch.einsum("bhnts,bhnsv->bhntv", scores, vc)
+    return y.reshape(B, H, S, V).to(q.dtype), h

@@ -7,9 +7,13 @@ both ``scalar_decay`` modes and ``strict`` both ways, in f32 within 1e-4
 and bf16 within 5e-2 (that sweep's tolerances).  The initial state ``h0``
 and the final state, the decode step continuing a chunked state, and the
 chunk-1 case of odd lengths are held against the reference's functions at
-1e-4 in f32.  Inputs are made with numpy and rounded to the working type by
-each package.  The ``cuda``-marked tests hold the CUDA kernel against the
-plain version and run only where there is a card.
+1e-4 in f32.  ``linear_scan_passes``, the plain mirror of the CUDA
+kernel's decomposition (chunk states, the state pass, chunk outputs, the
+per-channel sub-chunks of 16), is held to ``repro``'s sequential reference
+and interpret-mode kernel at 1e-4 in f32.  Inputs are made with numpy and
+rounded to the working type by each package.  The ``cuda``-marked tests hold
+the CUDA kernel against the plain version and run only where there is a
+card.
 """
 
 import subprocess
@@ -25,6 +29,7 @@ from repro_torch.kernels.ssd_scan import (
     linear_scan_chunked, linear_scan_reference, linear_scan_step, ssd_scan,
 )
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+from repro_torch.kernels.ssd_scan.ref import linear_scan_passes
 
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 T_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -41,6 +46,15 @@ EXTRA = [
     (1, 2, 128, 128, 128, 64, False),
     (2, 2, 100, 16, 16, 4, False),
     (1, 3, 37, 8, 24, 1, True),
+]
+
+
+# beyond those, for the card: S of one chunk (no state carried between chunks),
+# a one-chunk scalar scan, and chunk 32 (two sub-chunks) at V 24
+CUDA_EXTRA = [
+    (2, 2, 64, 64, 64, 64, False),
+    (1, 2, 64, 64, 64, 64, True),
+    (1, 2, 96, 16, 24, 32, False),
 ]
 
 
@@ -176,6 +190,88 @@ def test_one_column_scalar_decay(B, H, S, K, V, chunk, strict):
     _close(h1, np.asarray(jh), "float32")
 
 
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("strict", [False, True])
+@pytest.mark.parametrize("scalar", [False, True])
+@pytest.mark.parametrize("B,H,S,K,V,chunk", [c[:6] for c in SWEEP + EXTRA])
+def test_passes_match_repro(B, H, S, K, V, chunk, scalar, strict, with_h0):
+    """The kernel's three-pass decomposition, in plain PyTorch, against
+    ``repro``'s sequential reference (outputs and final state) and, without
+    ``h0`` (which ``repro``'s kernel does not take), its Pallas kernel in
+    interpret mode; f32 within 1e-4."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from repro.kernels.ssd_scan import linear_scan_reference as j_reference
+    from repro.kernels.ssd_scan import ssd_scan as j_ssd_scan
+
+    arrs = _inputs(B, H, S, K, V, scalar, seed=S * 100 + K + V + scalar)
+    h0 = np.random.default_rng(3).standard_normal((B, H, K, V)).astype(np.float32) \
+        if with_h0 else None
+    y, hT = linear_scan_passes(*(torch.as_tensor(a) for a in arrs),
+                               None if h0 is None else torch.as_tensor(h0), chunk=chunk,
+                               strict=strict, scalar_decay=scalar)
+    jy, jh = j_reference(*(jnp.asarray(a) for a in arrs),
+                         h0=None if h0 is None else jnp.asarray(h0), strict=strict)
+    _close(y, np.asarray(jy), "float32")
+    _close(hT, np.asarray(jh), "float32")
+    if h0 is None:
+        interp = j_ssd_scan(*(jnp.asarray(a) for a in arrs), chunk=chunk, scalar_decay=scalar,
+                            strict=strict, impl="kernel_interpret")
+        _close(y, np.asarray(interp), "float32")
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("strict", [False, True])
+@pytest.mark.parametrize("scalar", [False, True])
+@pytest.mark.parametrize("B,H,S,K,V,chunk", [c[:6] for c in SWEEP + EXTRA])
+def test_passes_match_repro_on_decay_edges(B, H, S, K, V, chunk, scalar, strict, with_h0):
+    """As above on decays that include 1, 0 and 1e-30 in every channel,
+    against ``repro``'s sequential reference (f32, 1e-4).  (There the
+    chunked forms that sum the log-decays in f32, ``repro``'s chunked
+    function and Pallas kernel among them, depart from the recurrence by
+    more than 1e-4 once K is 32 or more: L falls to about -650 after ten
+    steps of 1e-30, and its rounding moves the exponents.)"""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from repro.kernels.ssd_scan import linear_scan_reference as j_reference
+
+    arrs = _inputs(B, H, S, K, V, scalar, seed=S * 100 + K + V + scalar, edges=True)
+    h0 = np.random.default_rng(3).standard_normal((B, H, K, V)).astype(np.float32) \
+        if with_h0 else None
+    y, hT = linear_scan_passes(*(torch.as_tensor(a) for a in arrs),
+                               None if h0 is None else torch.as_tensor(h0), chunk=chunk,
+                               strict=strict, scalar_decay=scalar)
+    jy, jh = j_reference(*(jnp.asarray(a) for a in arrs),
+                         h0=None if h0 is None else jnp.asarray(h0), strict=strict)
+    _close(y, np.asarray(jy), "float32")
+    _close(hT, np.asarray(jh), "float32")
+
+
+@pytest.mark.parametrize("strict", [False, True])
+@pytest.mark.parametrize("chunk", [16, 64])
+def test_passes_stay_finite_at_tiny_decays(chunk, strict):
+    """64 steps of decay 1e-30 in every channel: L falls to about -4,400
+    within a chunk of 64, so a factorisation that divided by e^{L_s} would
+    overflow; the decomposition stays finite and equals ``repro``'s
+    sequential reference (f32, 1e-4)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from repro.kernels.ssd_scan import linear_scan_reference as j_reference
+
+    rng = np.random.default_rng(9)
+    q, k, v = ((rng.standard_normal((1, 2, 64, 16)) * 0.5).astype(np.float32) for _ in range(3))
+    w = np.full((1, 2, 64, 16), 1e-30, np.float32)
+    y, hT = linear_scan_passes(*(torch.as_tensor(a) for a in (q, k, v, w)), chunk=chunk,
+                               strict=strict)
+    assert torch.isfinite(y).all() and torch.isfinite(hT).all()
+    jy, jh = j_reference(*(jnp.asarray(a) for a in (q, k, v, w)), strict=strict)
+    _close(y, np.asarray(jy), "float32")
+    _close(hT, np.asarray(jh), "float32")
+
+
 def test_wrapper_checks_its_inputs():
     q = torch.zeros(1, 2, 8, 4)
     with pytest.raises(ValueError, match="CUDA"):
@@ -202,23 +298,32 @@ def test_package_imports_without_jax_or_repro():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("states", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("strict", [False, True])
-@pytest.mark.parametrize("B,H,S,K,V,chunk,scalar", SWEEP + EXTRA)
-def test_cuda_kernel_matches_plain(cuda_device, B, H, S, K, V, chunk, scalar, strict, dtype):
+@pytest.mark.parametrize("B,H,S,K,V,chunk,scalar", SWEEP + EXTRA + CUDA_EXTRA)
+def test_cuda_kernel_matches_plain(cuda_device, B, H, S, K, V, chunk, scalar, strict, dtype,
+                                   states):
+    """The kernel against the plain version, with an initial state and the
+    final state (``states``), or with neither."""
     arrs = _inputs(B, H, S, K, V, scalar, seed=11 + S, edges=True)
     q, k, v, w = (torch.as_tensor(a, device=cuda_device).to(T_DTYPES[dtype]) for a in arrs)
     h0 = torch.randn(B, H, K, V, device=cuda_device, generator=torch.Generator(
-        device=cuda_device).manual_seed(1))
-    before = ssd_kernel.ssd_scan.launches
-    got, hT = ssd_scan(q, k, v, w, chunk=chunk, scalar_decay=scalar, strict=strict, h0=h0,
-                       return_state=True)
+        device=cuda_device).manual_seed(1)) if states else None
+    before = (ssd_kernel.ssd_scan.launches, ssd_kernel.ssd_scan.calls)
+    out = ssd_scan(q, k, v, w, chunk=chunk, scalar_decay=scalar, strict=strict, h0=h0,
+                   return_state=states)
     torch.cuda.synchronize()
-    assert ssd_kernel.ssd_scan.launches == before + 1
+    assert (ssd_kernel.ssd_scan.launches, ssd_kernel.ssd_scan.calls) == (
+        before[0] + len(ssd_kernel.PASSES), before[1] + 1)
     want, want_h = ssd_scan(q, k, v, w, chunk=chunk, strict=strict, h0=h0, return_state=True,
                             impl="reference")
-    assert torch.isfinite(got.float()).all() and torch.isfinite(hT).all()
+    got, hT = out if states else (out, None)
+    assert torch.isfinite(got.float()).all()
     _close(got, to_np(want.float()), dtype)
+    if not states:
+        return
+    assert torch.isfinite(hT).all()
     _close(hT, to_np(want_h), dtype)
     if scalar:  # one decay a step, as the mamba2 block passes it: the same result
         got1, hT1 = ssd_scan(q, k, v, w[..., :1].contiguous(), chunk=chunk, scalar_decay=True,
