@@ -19,7 +19,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    kernel against its plain PyTorch version on small adversarial inputs
    (duplicates, contention, an all-false mask, sizes off every block size,
    the placement overflow, a compaction across thousands of 4,096-lane
-   tiles), exact equality; ``masked_compact`` must be one launch a call.
+   tiles; ``probe_place`` at m of 1, 515 and 2^20 + 3 and with every lane
+   contending for 4 homes, 20 times in a row on one input, its claim rounds
+   equal to those of the plain mirror of its rounds; ``frontier_expand`` at
+   S of 33 and 256, with no edges, unsorted sources and the sentinel
+   column), exact equality; ``masked_compact`` and ``probe_place`` must be
+   one launch a call, ``frontier_expand`` two.
 3. The graph's main path at the scale of the SNAP com-Youtube graph
    (1,134,890 vertices, 2,987,624 edges;
    snap.stanford.edu/data/com-Youtube.html) with synthetic uniform keys from
@@ -36,8 +41,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    cache flushed before each run, the kernel's bound (the bytes and
    operations this run's data needs) and the time of one PyTorch call
    computing the same function where there is one; ``probe_place``'s row
-   gives its calls and claim rounds on the main path (three launches a
-   round) and the rounds of the timed call.
+   gives its calls and claim rounds on the main path and the rounds of the
+   timed call (read from its device counter, outside the timed window), and
+   the time of a launch stopped after round 1 beside the whole call;
+   ``frontier_expand`` has a row at S 16 (16 BFS sources) and one at
+   ``reachable``'s S 256 (the 256 sources of phase 3's pairs), each with
+   its atomics (the set bits of the edges' source columns) and the time of
+   each of its two launches alone.
 5. ``flash_attention`` against its plain version on adversarial small
    shapes (MHA, GQA, MQA, window, Sq != Sk both ways, Sq and Sk of 1, 127,
    128, 129 and 4,100, D of 8 to 128, a GQA group of 7, rows whose keys
@@ -166,6 +176,7 @@ from repro_torch.core.workloads import sample_batch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.compact import kernel as ck  # noqa: E402
 from repro_torch.kernels.compact import masked_compact, probe_place  # noqa: E402
+from repro_torch.kernels.compact.ref import probe_place_device_rounds  # noqa: E402
 from repro_torch.kernels.flash_attention import attention  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fak  # noqa: E402
 from repro_torch.kernels.frontier import frontier_expand  # noqa: E402
@@ -214,6 +225,7 @@ TRAVERSAL_BATCHES = 80
 TIMED_BATCHES = 10
 FIG4_MIXES = ("lookup", "balanced", "update")
 PLACE_M, PLACE_CAP = 1 << 21, 1 << 22  # the vertex rehash from 2^21 to 2^22 slots
+FRONTIER_DEPTH = 3           # phase 4's frontiers: the BFS level 3 of their sources
 L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
 SECTOR_BYTES = 32           # the unit a gather moves from device memory
 
@@ -253,6 +265,13 @@ FLASH_BLOCK_REL_TOL = 1e-2
 FLASH_BLOCK_ROWS = 128
 # masked_compact across many of the kernel's 4,096-lane tiles (the look-back)
 COMPACT_MANY_TILES = [(1, (1 << 23) + 17, 0.5), (6, 4097, 0.01), (1, 4095, 1.0), (6, 1, 1.0)]
+# probe_place's adversarial cases (cap, m, homes, max_probes, active share):
+# contention over 4 homes, partial activity, the overflow at 2 probes, m off
+# every block size, m of 1, 2^20 + 3 lanes (called 20 times in a row)
+PLACE_SMALL = [(1024, 500, None, 32, 0.9), (256, 60, 4, 32, 0.9), (32, 40, None, 2, 1.0),
+               (1024, 515, None, 32, 0.9), (64, 1, None, 32, 1.0), (256, 256, 4, 32, 1.0),
+               (1 << 21, (1 << 20) + 3, None, 32, 0.9)]
+PLACE_REPEAT_M, PLACE_REPEATS = (1 << 20) + 3, 20
 
 LM_ARCH = "qwen2-7b"
 SSM_ARCH, HYBRID_ARCH = "rwkv6-3b", "zamba2-1.2b"
@@ -413,27 +432,46 @@ def small_kernel_checks(dev) -> None:
         if ck.masked_compact.launches != before + 1:
             raise SystemExit("masked_compact: not one launch a call")
 
-    # probe_place: contended homes, partial activity, the overflow case
-    for cap, m, contended, probes in ((1024, 500, False, 32), (256, 60, True, 32),
-                                      (32, 40, False, 2)):
-        keys = torch.as_tensor(rng.choice(100_000, m, replace=False).astype(np.int32), device=dev)
+    # probe_place: contended homes, partial activity, the overflow case, m
+    # off every block size and of 1; one launch a call, its rounds those of
+    # the plain mirror of its rounds
+    for cap, m, homes, probes, density in PLACE_SMALL:
+        keys = torch.as_tensor(rng.choice(max(100_000, 4 * m), m, replace=False)
+                               .astype(np.int32), device=dev)
         home = hash_vertex(keys, cap)
-        if contended:
-            home = home % 4
-        active = torch.as_tensor(rng.random(m) < (1.0 if probes == 2 else 0.9), device=dev)
-        got = ck.probe_place(home, active, capacity=cap, max_probes=probes)
+        if homes:
+            home = home % homes
+        active = torch.as_tensor(rng.random(m) < density, device=dev)
         want = probe_place(home, active, capacity=cap, max_probes=probes, impl="reference")
-        require_equal("probe_place", (got[0], got[1]), (want[0], want[1]))
+        rounds = probe_place_device_rounds(home, active, capacity=cap, max_probes=probes)[2]
+        for _ in range(PLACE_REPEATS if m == PLACE_REPEAT_M else 1):
+            before = ck.probe_place.launches
+            r0 = place_rounds()
+            got = ck.probe_place(home, active, capacity=cap, max_probes=probes)
+            require_equal("probe_place", (got[0], got[1]), (want[0], want[1]))
+            if ck.probe_place.launches != before + 1:
+                raise SystemExit("probe_place: not one launch a call")
+            if place_rounds() - r0 != rounds:
+                raise SystemExit(f"probe_place: {place_rounds() - r0} claim rounds, the "
+                                 f"plain mirror's {rounds}")
         if probes == 2 and not bool(got[1]):
             raise SystemExit("probe_place: overflow not flagged")
 
-    # frontier_expand: one edge, a 65-column frontier, random sweeps
-    for s, c, ce in ((3, 65, 1), (16, 512, 4096), (8, 130, 1024)):
+    # frontier_expand: one edge, a 65-column frontier, random sweeps; S of 33
+    # and 256 (words of 32 sources), no edges, unsorted sources, the sentinel
+    # column C - 1 on the frontier and on edges; two launches a call
+    for s, c, ce in ((3, 65, 1), (16, 512, 4096), (8, 130, 1024), (33, 4099, 50_000),
+                     (256, 4099, 50_000), (256, 70, 0), (33, 1, 7)):
         fr = torch.as_tensor(rng.random((s, c)) < 0.2, device=dev)
+        fr[::3, c - 1] = True
         src = torch.as_tensor(rng.integers(0, c, ce).astype(np.int32), device=dev)
         dst = torch.as_tensor(rng.integers(0, c, ce).astype(np.int32), device=dev)
+        src[::7], dst[::5] = c - 1, c - 1
+        before = fk.frontier_expand.launches
         require_equal("frontier_expand", (fk.frontier_expand(fr, src, dst),),
                       (frontier_expand(fr, src, dst, impl="reference"),))
+        if fk.frontier_expand.launches != before + 2:
+            raise SystemExit("frontier_expand: not two launches a call")
     sync()
     log("phase 2: the hashes on the card equal their numpy twins; every kernel equals "
         "its plain version on the adversarial inputs")
@@ -615,7 +653,7 @@ def main_path(seed: int):
         f"{out['reachable_256_ms']:.3f} ms; bfs_batch on 16 sources {out['bfs_batch_16_ms']:.3f} ms "
         f"(mean {out['bfs_reached_mean']:.0f} vertices reached); get_path_batch on 16 pairs "
         f"{out['get_path_batch_16_ms']:.3f} ms; 4 BFS maps, 32 pairs and 16 paths equal to the oracle")
-    return out, g, sources
+    return out, g, (sources, r_us)
 
 
 # ---------------------------------------------------------------------------
@@ -645,7 +683,7 @@ def _probe_sectors(home, steps, cap) -> int:
     return torch.unique(torch.cat(touched)).numel()
 
 
-def full_shape_kernels(g, sources, launches, place_calls, dev) -> list:
+def full_shape_kernels(g, sources, launches, calls, place_rounds_main, dev) -> list:
     rng = np.random.default_rng(2)
     state = g.state
     csr = g.traversal_csr()
@@ -705,48 +743,77 @@ def full_shape_kernels(g, sources, launches, place_calls, dev) -> list:
     record("probe_place", "src/repro_torch/csrc/compact.cu",
            "src/repro/kernels/compact/kernel.py:106", got, want,
            cuda_ms(lambda: ck.probe_place(home, active, capacity=pcap,
-                                                max_probes=MAX_PROBES), 5),
+                                                max_probes=MAX_PROBES), 20),
            cuda_ms(lambda: probe_place(home, active, capacity=pcap, max_probes=MAX_PROBES,
                                          impl="reference"), 2),
            _bound(9 * m + 1, 12 * place_steps + 8 * int(placed.sum())),
            None)
-    # its ms is one call, every claim round of it (three launches a round)
-    with uncounted():
-        before = ck.probe_place.launches
-        ck.probe_place(home, active, capacity=pcap, max_probes=MAX_PROBES)
-        timed_rounds = (ck.probe_place.launches - before) // ck.LAUNCHES_PER_ROUND
     place_row = rows[-1]
-    place_row.update(calls=place_calls, rounds=launches["probe_place"] // ck.LAUNCHES_PER_ROUND,
-                     rounds_in_timed_call=timed_rounds)
+    # its ms is one call, every claim round of it; the rounds come from its
+    # device counter, read outside the timed windows
+    with uncounted():
+        before = place_rounds()
+        ck.probe_place(home, active, capacity=pcap, max_probes=MAX_PROBES)
+        timed_rounds = place_rounds() - before
+        # the launch alone, its buffers made beforehand: whole, and stopped
+        # after round 1 (the fill and round 1)
+        _, _, launch = ck.prepare_place(home, active, capacity=pcap, max_probes=MAX_PROBES)
+        launch_ms = cuda_ms(lambda: launch(m), 20)
+        first_ms = cuda_ms(lambda: launch(1), 20)
+    place_row.update(calls=calls["probe_place"], rounds=place_rounds_main,
+                     rounds_in_timed_call=timed_rounds, launch_ms=launch_ms,
+                     pass_ms={"fill and round 1": first_ms,
+                              "later rounds": launch_ms - first_ms})
 
-    # frontier_expand: 16 BFS frontiers one level deep in the final snapshot
-    src_keys = torch.as_tensor(sources.astype(np.int32), device=dev)
-    lv = bfs_levels(csr, src_keys)
-    depth = 3
-    frontier = torch.zeros((16, csr.v_capacity + 1), dtype=torch.bool, device=dev)
-    frontier[:, : csr.v_capacity] = lv == depth
-    s_n, c = frontier.shape
+    # frontier_expand: 16 BFS frontiers three levels deep in the final
+    # snapshot, then reachable's 256 (the sources of phase 3's pairs)
+    bfs_src, reach_src = sources
     ce = csr.src.numel()
-    got = (fk.frontier_expand(frontier, csr.src, csr.dst),)
-    want = (frontier_expand(frontier, csr.src, csr.dst, impl="reference"),)
-    idx = csr.dst.long()[None, :].expand(s_n, -1)
-    cand = torch.where(frontier[:, csr.src.long()], csr.src[None, :], 2**31 - 1)
-    base = torch.full((s_n, c), 2**31 - 1, dtype=torch.int32, device=dev)
-    lib_ms = cuda_ms(lambda out: out.scatter_reduce_(1, idx, cand, "amin"), 10,
-                     setup=lambda: (base.clone(),))
-    record("frontier_expand", "src/repro_torch/csrc/frontier.cu",
-           "src/repro/kernels/frontier/kernel.py:61", got, want,
-           cuda_ms(lambda: fk.frontier_expand(frontier, csr.src, csr.dst), 20),
-           cuda_ms(lambda: frontier_expand(frontier, csr.src, csr.dst, impl="reference"), 5),
-           _bound(s_n * c + 8 * ce + 4 * s_n * c, 3 * s_n * ce),
-           lib_ms)
+    frontier_rows = []
+    for what, keys_np in (("bfs_batch", bfs_src), ("reachable", reach_src)):
+        src_keys = torch.as_tensor(keys_np.astype(np.int32), device=dev)
+        lv = bfs_levels(csr, src_keys)
+        frontier = torch.zeros((len(keys_np), csr.v_capacity + 1), dtype=torch.bool, device=dev)
+        frontier[:, : csr.v_capacity] = lv == FRONTIER_DEPTH
+        del lv
+        s_n, c = frontier.shape
+        atomics = int(frontier.sum(0, dtype=torch.int64)[csr.src.long()].sum())
+        want = (frontier_expand(frontier, csr.src, csr.dst, impl="reference"),)
+        got = (fk.frontier_expand(frontier, csr.src, csr.dst),)
+        err = require_equal("frontier_expand", got, want)
+        del got, want
+        idx = csr.dst.long()[None, :].expand(s_n, -1)
+        cand = torch.where(frontier[:, csr.src.long()], csr.src[None, :], 2**31 - 1)
+        lib_ms = cuda_ms(lambda out: out.scatter_reduce_(1, idx, cand, "amin"), 5,
+                         setup=lambda: (torch.full((s_n, c), 2**31 - 1, dtype=torch.int32,
+                                                   device=dev),))
+        del cand
+        with uncounted():
+            _, _, passes = fk.prepare(frontier, csr.src, csr.dst)
+            pass_ms = {name: cuda_ms(fn, 10) for name, fn in zip(fk.PASSES, passes)}
+            del passes
+        bound = _bound(s_n * c + 8 * ce + 4 * s_n * c, 3 * s_n * ce)
+        rows.append({
+            "name": "frontier_expand", "route": "cuda",
+            "source": "src/repro_torch/csrc/frontier.cu",
+            "replaces": "src/repro/kernels/frontier/kernel.py:61",
+            "launches": launches["frontier_expand"], "max_abs_err": err,
+            "ms": cuda_ms(lambda: fk.frontier_expand(frontier, csr.src, csr.dst), 10),
+            "plain_ms": cuda_ms(lambda: frontier_expand(frontier, csr.src, csr.dst,
+                                                        impl="reference"), 2),
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib_ms,
+            "calls": calls["frontier_expand"], "shape": f"{what}: S {s_n}, C {c}, Ce {ce}",
+            "atomics": atomics, "pass_ms": pass_ms,
+        })
+        frontier_rows.append(f"S={s_n} ({what}, {atomics} atomics)")
+        del frontier
     log(f"phase 4: every kernel equals its plain version at the main path's shapes "
         f"(hash_probe table {cap} / queries {q.numel()}, {sectors} table sectors "
         f"touched, {probe_steps} probe steps; masked_compact {r} x {n}; "
         f"probe_place {m} into {pcap}, {int(placed.sum())} keys in {place_steps} steps, "
-        f"{timed_rounds} claim rounds a call, {place_calls} calls and "
+        f"{timed_rounds} claim rounds a call, {calls['probe_place']} calls and "
         f"{place_row['rounds']} rounds on the main path; "
-        f"frontier_expand S={s_n} C={c} Ce={ce}, depth {depth})")
+        f"frontier_expand C={c} Ce={ce}, depth {FRONTIER_DEPTH}, {', '.join(frontier_rows)})")
     return rows
 
 
@@ -1655,6 +1722,7 @@ def run_counted(path, fn):
     before it; exits if a kernel of ``path`` was launched no time in it."""
     for w in WRAPPERS.values():
         w.launches = w.calls = 0
+    ck.probe_place.rounds = None  # the next call makes a counter at 0
     out = fn()
     counts = {name: w.launches for name, w in WRAPPERS.items()}
     log(f"kernel launches on the path: {json.dumps(counts)}; calls: "
@@ -1670,11 +1738,21 @@ def uncounted():
     """Launches made to compare a kernel with its plain version: every
     launch count is put back as it was when the block ends."""
     saved = {name: (w.launches, w.calls) for name, w in WRAPPERS.items()}
+    rounds = ck.probe_place.rounds
+    saved_rounds = None if rounds is None else rounds.clone()
     try:
         yield
     finally:
         for name, w in WRAPPERS.items():
             w.launches, w.calls = saved[name]
+        ck.probe_place.rounds = saved_rounds
+
+
+def place_rounds() -> int:
+    """Claim rounds ``probe_place`` ran since its device counter was made
+    (one read of that counter)."""
+    rounds = ck.probe_place.rounds
+    return 0 if rounds is None else int(rounds)
 
 
 def main(argv=None) -> int:
@@ -1709,7 +1787,8 @@ def main(argv=None) -> int:
     # phase 3: the graph's main path, with every launch count read around it
     summary, g, sources = run_counted(GRAPH_PATH, lambda: main_path(args.seed))
     launches = {name: fn.launches for name, fn in WRAPPERS.items()}
-    rows = full_shape_kernels(g, sources, launches, ck.probe_place.calls, dev)
+    calls = {name: fn.calls for name, fn in WRAPPERS.items()}
+    rows = full_shape_kernels(g, sources, launches, calls, place_rounds(), dev)
     del g
 
     flash_small_checks(dev)

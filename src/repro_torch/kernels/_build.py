@@ -42,8 +42,8 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "rt_hash_probe": [_P, _I, _P, _I, _P, _P, _P],
     "rt_masked_compact": [_P, _P, _I, _L, _I, _P, _P, _P, _I, _P],
-    "rt_probe_place_round": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
-    "rt_frontier_expand": [_P, _I, _L, _P, _P, _L, _P, _P],
+    "rt_probe_place": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "rt_frontier_expand": [_I, _P, _I, _L, _P, _P, _L, _P, _P, _P],
     "rt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
                            _I, _I, _I, _I, _P],
     "rt_ssd_scan": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -1,1 +1,2 @@
-"""Entry points of the port's LM half: step builders and the serving command."""
+"""Entry points of the port: the LM half's step builders and serving command,
+and ``kernel_ab``, which times the graph kernels of two checkouts in turns."""
