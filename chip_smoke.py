@@ -12,9 +12,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 1. The card: its name and power limit, and the build of the CUDA kernels
    from ``src/repro_torch/csrc`` (timed); the bf16 attention kernels' SASS
    must hold wgmma (``HGMMA``) and TMA (``UTMALDG``) and no ``mma.sync``,
-   and every bf16 chunk-state and chunk-output kernel of ``ssd_scan`` the
-   tensor cores' ``mma.sync`` (``HMMA``), each reported with ptxas's
-   registers and spills.
+   every bf16 chunk-state and chunk-output kernel of ``ssd_scan`` the
+   tensor cores' ``mma.sync`` (``HMMA``), and the bf16 ``paged_attention``
+   kernel at D 64 and 128 ``HMMA`` and cp.async (``LDGSTS``), each reported
+   with ptxas's registers and spills.
 2. The key hashes on the card against their numpy twins, and each graph
    kernel against its plain PyTorch version on small adversarial inputs
    (duplicates, contention, an all-false mask, sizes off every block size,
@@ -47,7 +48,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``frontier_expand`` has a row at S 16 (16 BFS sources) and one at
    ``reachable``'s S 256 (the 256 sources of phase 3's pairs), each with
    its atomics (the set bits of the edges' source columns) and the time of
-   each of its two launches alone.
+   each of its two launches alone; ``hash_probe``'s row adds its time with
+   the L2 warm (the main path's case), the latency floor of its grid (an
+   empty kernel, and a key then one dependent load a thread) flushed and
+   warm, and the queries resolved at their first probe, within their home
+   slot's 32-byte sector and within probe steps 0-3 (what reading those
+   sectors in one round trip could save).
 5. ``flash_attention`` against its plain version on adversarial small
    shapes (MHA, GQA, MQA, window, Sq != Sk both ways, Sq and Sk of 1, 127,
    128, 129 and 4,100, D of 8 to 128, a GQA group of 7, rows whose keys
@@ -65,8 +71,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    alone must give the batch's tokens.  A second wave of 8 requests gets
    the pages the first wave gave back; it is profiled for 6 ticks and then
    drained by hand, and at every 8th tick (at least 4 times, pages reused)
-   ``paged_attention`` runs on the engine's own block tables: each live
-   slot's pages from ``eng.pages.block_table``, its cache rows of the first
+   ``paged_attention`` runs on the engine's own block tables, passed on the
+   host as the engine holds them: each live slot's pages from
+   ``eng.pages.block_table``, its cache rows of the first
    and last attention layer copied into those pages of a pool of random
    rows, q drawn from the seed; the kernel is held within 2e-2 (bf16) of
    the plain paged version and of the engine's dense decode attention.  The
@@ -122,16 +129,22 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    reference sweep's, a GQA group of 7 at D 128, a group of 1 at D 64, long
    sequences over many splits; lengths 0, 1, a page boundary and the full
    table, repeated page ids, zero-filled table tails), f32 within 2e-5 and
-   bf16 within 2e-2; a length of 0 gives 0; a live page id past the pool, a
-   length past the table, D 136 and a group of 17 are refused.
+   bf16 within 2e-2, and bit for bit the same with the tables on the host;
+   a length of 0 gives 0; a live page id past the pool or negative, a length
+   past the table or negative, D 136 and a group of 17 are refused with the
+   tables on the card and on the host, with nothing launched.
 13. ``paged_attention`` at one decode step at full width, bf16, pages of 16,
    16 sequences: qwen2-7b (28/4 heads of 128, lengths 4,096-32,768) and
    zamba2-1.2b's shared block (32 heads of 64, lengths 1,024-4,096), on
    block tables from a ``PagedKVManager`` on the card (24 sequences
    admitted, every third finished, then the 16 admitted into the pages
-   given back), held to its plain version in bf16 within 2e-2 and within
-   1e-2 of the largest output, and on the same tables in f32 within 2e-5;
-   timed as in phase 4 beside its plain version, its bound
+   given back), passed on the host as the manager gives them (a call under
+   sync debug mode "error" shows that none reads from the device; the same
+   tables on the card give the same output bit for bit), held to its plain
+   version in bf16 within 2e-2 and within 1e-2 of the largest output, and
+   on the same tables in f32 within 2e-5; timed as in phase 4 with host and
+   with card tables, its two kernels alone (the launch that ``prepare``
+   gives) and the wrapper's host time, beside its plain version, its bound
    (K and V of the live rows, q, out and the page ids at 3.35 TB/s) and
    ``scaled_dot_product_attention`` over the same K/V gathered into a
    contiguous cache (no PyTorch call reads paged K/V).  Its ``launches``
@@ -228,6 +241,8 @@ PLACE_M, PLACE_CAP = 1 << 21, 1 << 22  # the vertex rehash from 2^21 to 2^22 slo
 FRONTIER_DEPTH = 3           # phase 4's frontiers: the BFS level 3 of their sources
 L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
 SECTOR_BYTES = 32           # the unit a gather moves from device memory
+PROBE_SECTOR = SECTOR_BYTES // 4  # int32 slots of a sector
+HOLD_CYCLES = 400_000       # about 0.2 ms of the card's clock: longer than a wrapper's host time
 
 # flash attention against its plain version: tests/test_kernels.py's sweep
 # and tolerances, plus a GQA group of 7 at D = 128 off the 64-row tile, rows
@@ -329,19 +344,25 @@ def sync() -> None:
     torch.cuda.synchronize()
 
 
-def cuda_ms(fn, reps: int, warmup: int = 1, setup=None) -> float:
+def cuda_ms(fn, reps: int, warmup: int = 1, setup=None, flush: bool = True) -> float:
     """Median CUDA-event time of one ``fn(*setup())`` in milliseconds, with
     the L2 cache flushed before each run, so every input comes from device
     memory as the bounds assume.  The flush is still running on the card
     while the host enters ``fn``, so the window holds the device's work, not
-    the wrapper's host time."""
+    the wrapper's host time (where that is shorter than the flush).
+    ``flush=False`` keeps the L2 as the previous run left it (warm) and
+    holds the card in a spin of ``HOLD_CYCLES`` instead, which touches no
+    memory, for the same reason."""
     scrub = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn(*(setup() if setup else ()))
     times = []
     for _ in range(reps):
         args = setup() if setup else ()
-        scrub.zero_()
+        if flush:
+            scrub.zero_()
+        else:
+            torch.cuda._sleep(HOLD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -707,7 +728,8 @@ def full_shape_kernels(g, sources, launches, calls, place_rounds_main, dev) -> l
     got = hk.hash_probe(table, q)
     want = hash_probe(table, q, impl="reference")
     home = hash_vertex(q, cap)
-    steps = _probe_steps(home, torch.where(got[0] >= 0, got[0], got[1]), cap)
+    slot = torch.where(got[0] >= 0, got[0], got[1])
+    steps = _probe_steps(home, slot, cap)
     sectors, probe_steps = _probe_sectors(home, steps, cap), int(steps.sum())
     record("hash_probe", "src/repro_torch/csrc/hash_probe.cu",
            "src/repro/kernels/hash_probe/kernel.py:62", got, want,
@@ -716,6 +738,23 @@ def full_shape_kernels(g, sources, launches, calls, place_rounds_main, dev) -> l
            _bound(SECTOR_BYTES * sectors + 12 * q.numel(),
                   16 * q.numel() + 10 * probe_steps),
            None)
+    # beside the bound: the L2 warm (the main path's case: the key column
+    # fits the L2 between calls), the latency floor of the same grid (an
+    # empty kernel, and a key then one dependent load a thread, in the same
+    # window), and the queries resolved at the first probe, in home's sector
+    # and within steps 0-3
+    with uncounted():
+        rows[-1].update(
+            warm_l2_ms=cuda_ms(lambda: hk.hash_probe(table, q), 20, flush=False),
+            floor_ms={mode: {"flushed": cuda_ms(lambda: hk.latency_floor(table, q, mode), 20),
+                             "warm_l2": cuda_ms(lambda: hk.latency_floor(table, q, mode), 20,
+                                                flush=False)}
+                      for mode in hk.FLOOR_MODES},
+            resolved_at_step_0=int(((slot >= 0) & (steps <= 1)).sum()),
+            resolved_in_steps_0_3=int(((slot >= 0) & (steps <= 4)).sum()),
+            resolved_in_home_sector=int(((slot >= 0) & (
+                home % PROBE_SECTOR + (steps - 1) * steps // 2 < PROBE_SECTOR)).sum()),
+            queries=q.numel())
 
     # masked_compact: the edge rehash's compaction of the final edge table
     _, _, valid = _edge_validity(state)
@@ -807,9 +846,15 @@ def full_shape_kernels(g, sources, launches, calls, place_rounds_main, dev) -> l
         })
         frontier_rows.append(f"S={s_n} ({what}, {atomics} atomics)")
         del frontier
+    probe_row = rows[0]
     log(f"phase 4: every kernel equals its plain version at the main path's shapes "
         f"(hash_probe table {cap} / queries {q.numel()}, {sectors} table sectors "
-        f"touched, {probe_steps} probe steps; masked_compact {r} x {n}; "
+        f"touched, {probe_steps} probe steps, queries resolved at their first probe "
+        f"{probe_row['resolved_at_step_0']}, within the sector of their home slot "
+        f"{probe_row['resolved_in_home_sector']}, within steps 0-3 "
+        f"{probe_row['resolved_in_steps_0_3']}; {probe_row['ms']:.5f} ms flushed, "
+        f"{probe_row['warm_l2_ms']:.5f} ms with the L2 warm, latency floor "
+        f"{json.dumps(probe_row['floor_ms'])}; masked_compact {r} x {n}; "
         f"probe_place {m} into {pcap}, {int(placed.sum())} keys in {place_steps} steps, "
         f"{timed_rounds} claim rounds a call, {calls['probe_place']} calls and "
         f"{place_row['rounds']} rounds on the main path; "
@@ -1034,10 +1079,10 @@ def _layer_scan_gate(kept) -> dict:
 
 def _paged_drain_check(eng, key: str, gen, reusable: set, dev) -> dict:
     """``paged_attention`` on the engine's own block tables at this tick:
-    each live slot's pages from ``eng.pages.block_table``, its length
-    ``cache["len"] - cache["start"][slot]``, and its cache rows of the first
-    and last attention layer copied into those pages of a pool of random
-    rows.  The kernel (a launch of the path, so counted) is held within the
+    each live slot's pages from ``eng.pages.block_table`` and its length
+    ``cache["len"] - cache["start"][slot]``, both passed on the host, and its
+    cache rows of the first and last attention layer copied into those pages
+    of a pool of random rows.  The kernel (a launch of the path, so counted) is held within the
     working type's tolerance to the plain paged version and to the engine's
     own dense decode attention over the slot's cache."""
     cache = eng.cache
@@ -1049,8 +1094,9 @@ def _paged_drain_check(eng, key: str, gen, reusable: set, dev) -> dict:
     starts, lengths = start.tolist(), lens.tolist()
     n_pages = [-(-n // page) for n in lengths]
     pages = {int(p) for i, n in enumerate(n_pages) for p in table[i, :n]}
-    bt = torch.as_tensor(table, device=dev)
-    n_attn, err = cache[key]["k"].shape[0], 0.0
+    # the tables as the engine holds them, on the host: the call reads nothing back
+    bt, sl = torch.as_tensor(table), torch.tensor(lengths, dtype=torch.int32)
+    n_attn, err, share = cache[key]["k"].shape[0], 0.0, 0.0
     for layer in (0, n_attn - 1):
         k_all, v_all = cache[key]["k"][layer], cache[key]["v"][layer]  # (slots, Hkv, T, D)
         _, hkv, _, d = k_all.shape
@@ -1062,16 +1108,17 @@ def _paged_drain_check(eng, key: str, gen, reusable: set, dev) -> dict:
                 for dst, src in zip(pool, (k_all, v_all)):
                     dst[table[i, j], :rows] = src[slot, :, lo:lo + rows].transpose(0, 1)
         q = torch.randn(len(live), eng.cfg.n_heads, d, generator=gen, device=dev).to(k_all.dtype)
-        got = pak.paged_attention(q, *pool, bt, lens)
-        plain = paged_attention(q, *pool, bt, lens, impl="reference")
+        got = pak.paged_attention(q, *pool, bt, sl)
+        plain = paged_attention(q, *pool, bt, sl, impl="reference")
         dense = model_layers._decode_attention(q[:, :, None], k_all[live], v_all[live],
                                                cache["len"], start=start)[:, :, 0]
         what, tol = f"paged_attention at tick {eng.ticks}, attention layer {layer}", \
             PAGED_TOL[k_all.dtype]
         err = max(err, require_close(what, got, plain, tol),
                   require_close(what + ", against the dense decode attention", got, dense, tol))
+        share = max(share, limit_share(got, plain, tol), limit_share(got, dense, tol))
     return {"tick": eng.ticks, "tables": len(live), "pages": pages, "max_abs_err": err,
-            "reused": len(pages & reusable)}
+            "limit_share": share, "reused": len(pages & reusable)}
 
 
 def _paged_drain_summary(phase: int, checks: list, reusable: set) -> dict:
@@ -1083,12 +1130,14 @@ def _paged_drain_summary(phase: int, checks: list, reusable: set) -> dict:
     res = {"checks": len(checks), "ticks": [c["tick"] for c in checks],
            "block_tables": sum(c["tables"] for c in checks), "kernel_calls": 2 * len(checks),
            "distinct_pages": len(pages), "reused_pages": len(pages & reusable),
-           "max_abs_err": max(c["max_abs_err"] for c in checks)}
+           "max_abs_err": max(c["max_abs_err"] for c in checks),
+           "limit_share": max(c["limit_share"] for c in checks)}
     log(f"phase {phase}: paged decode on the engine's own block tables at ticks {res['ticks']}: "
         f"{res['block_tables']} block tables, first and last attention layer, "
         f"{res['distinct_pages']} distinct pages of which {res['reused_pages']} were granted "
         f"before to a finished sequence; the kernel equals the plain paged version and the "
-        f"dense decode attention (max abs err {res['max_abs_err']})")
+        f"dense decode attention (max abs err {res['max_abs_err']}, {res['limit_share']:.3f} of "
+        f"the limit at its worst element)")
     return res
 
 
@@ -1505,6 +1554,7 @@ def paged_small_checks(dev) -> dict:
             sync()
             worst[str(dt)] = max(worst[str(dt)], require_close(
                 f"paged_attention {shape} {dt}", got, want, tol))
+            _same_on_host_tables(got, args)
             n += 1
         # lengths 0, 1, one page, three pages, the full table and two pages
         # and 5; one page repeated through a table; zero-filled table tails
@@ -1522,23 +1572,43 @@ def paged_small_checks(dev) -> dict:
             f"paged_attention edge lengths {dt}", got, want, tol))
         if got[0].abs().max().item() != 0.0:
             raise SystemExit("paged_attention: a sequence of length 0 does not give 0")
+        _same_on_host_tables(got, (q, kp, vp, bt, sl))
         n += 1
-    # refusals: a live page id past the pool, a length past the table, D 136, g 17
+    # refusals on both routes: a live page id past the pool, a negative one,
+    # a length past the table, a negative length, D 136, g 17
     q, kp, vp, bt, sl = _paged_inputs(gen, (2, 4, 2, 16, 6, 4, 3), torch.float32, dev)
-    bad = bt.clone()
-    bad[0, 0] = kp.shape[0]
-    _refused("a live page id past the pool", lambda: pak.paged_attention(q, kp, vp, bad, sl))
-    _refused("a length past the table",
-             lambda: pak.paged_attention(q, kp, vp, bt, torch.full_like(sl, 13)))
-    for shape in ((2, 4, 2, 136, 6, 4, 3), (2, 17, 1, 16, 6, 4, 3)):
-        args = _paged_inputs(gen, shape, torch.float32, dev)
-        _refused(f"the shape {shape}", lambda: pak.paged_attention(*args))
+    past, negative = bt.clone(), bt.clone()
+    past[0, 0], negative[1, 0] = kp.shape[0], -1
+    before = pak.paged_attention.launches
+    for route, on in (("on the card", lambda t: t), ("on the host", lambda t: t.cpu())):
+        for what, tables in (("a live page id past the pool", (past, sl)),
+                             ("a negative live page id", (negative, sl)),
+                             ("a length past the table", (bt, torch.full_like(sl, 13))),
+                             ("a negative length", (bt, torch.full_like(sl, -1)))):
+            _refused(f"{what}, tables {route}",
+                     lambda: pak.paged_attention(q, kp, vp, *(on(t) for t in tables)))
+        for shape in ((2, 4, 2, 136, 6, 4, 3), (2, 17, 1, 16, 6, 4, 3)):
+            args = _paged_inputs(gen, shape, torch.float32, dev)
+            _refused(f"the shape {shape}, tables {route}",
+                     lambda: pak.paged_attention(*args[:3], on(args[3]), on(args[4])))
+    if pak.paged_attention.launches != before:
+        raise SystemExit("paged_attention launched on a call it refused")
     log(f"phase 12: paged_attention equals its plain version in {n} cases "
         f"({len(PAGED_SHAPES)} shapes and the edge lengths 0, 1, a page, the full table, "
         f"repeated page ids and zero-filled tails, in f32 and bf16; max abs err "
-        f"{json.dumps(worst)}); a length of 0 gives 0; a live page id past the pool, a "
-        f"length past the table, D 136 and a group of 17 are refused")
+        f"{json.dumps(worst)}), bit for bit the same with the tables on the host; a length "
+        f"of 0 gives 0; a live page id past the pool or negative, a length past the table "
+        f"or negative, D 136 and a group of 17 are refused with the tables on the card and "
+        f"on the host, and nothing is launched")
     return worst
+
+
+def _same_on_host_tables(got, args) -> None:
+    """Exits unless the kernel, given the same tables on the host, gives
+    ``got`` bit for bit (one plan, one kernel)."""
+    q, kp, vp, bt, sl = args
+    if not torch.equal(pak.paged_attention(q, kp, vp, bt.cpu(), sl.cpu()), got):
+        raise SystemExit("paged_attention: host tables give another output than card tables")
 
 
 def _paged_tables(arch: str, seed: int, dev):
@@ -1578,27 +1648,48 @@ def paged_full_shape(arch: str, cfg, launches, seed: int, dev) -> dict:
     q = torch.randn(b, hq, d, generator=gen, device=dev).bfloat16()
     kp = torch.randn(num_pages, page, hkv, d, generator=gen, device=dev).bfloat16()
     vp = torch.randn(num_pages, page, hkv, d, generator=gen, device=dev).bfloat16()
-    bt, sl = torch.as_tensor(table, device=dev), torch.as_tensor(lens, device=dev)
-    args = (q, kp, vp, bt, sl)
+    # the tables as PagedKVManager gives them, on the host (the main call),
+    # and the same on the card
+    host = (torch.as_tensor(table), torch.as_tensor(lens))
+    bt, sl = (t.to(dev) for t in host)
+    args = (q, kp, vp, *host)
+    card_args = (q, kp, vp, bt, sl)
     with uncounted():
         got = pak.paged_attention(*args)
+        if not torch.equal(pak.paged_attention(*card_args), got):
+            raise SystemExit(f"paged_attention at the {arch} decode shape: card tables give "
+                             f"another output than host tables")
+        sync()
+        torch.cuda.set_sync_debug_mode("error")  # a read from the device would raise
+        try:
+            pak.paged_attention(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
         want = paged_attention(*args, impl="reference")
         err = require_close(f"paged_attention at the {arch} decode shape", got, want,
                             PAGED_TOL[torch.bfloat16])
         rel_err = err / want.float().abs().max().item()
+        share = limit_share(got, want, PAGED_TOL[torch.bfloat16])
         if rel_err > PAGED_FULL_REL_TOL:
             raise SystemExit(f"paged_attention at the {arch} decode shape: max abs err {err} is "
                              f"{rel_err:.3g} of the largest output (limit {PAGED_FULL_REL_TOL})")
-        args32 = (q.float(), kp.float(), vp.float(), bt, sl)
+        args32 = (q.float(), kp.float(), vp.float(), *host)
         err32 = require_close(f"paged_attention at the {arch} decode shape, f32",
                               pak.paged_attention(*args32),
                               paged_attention(*args32, impl="reference"), PAGED_TOL[torch.float32])
         del args32
         ms = cuda_ms(lambda: pak.paged_attention(*args), 10)
+        kernel_ms = cuda_ms(pak.prepare(*args)[1], 10)  # the two kernels alone
+        card_ms = cuda_ms(lambda: pak.paged_attention(*card_args), 10)
         check_ms = cuda_ms(lambda: pak._check_values(bt, sl, num_pages, page), 10)
         plain_ms = cuda_ms(lambda: paged_attention(*args, impl="reference"), 3)
-        _, prof = profile_window(lambda: pak.paged_attention(*args), 5, "call")
-    kernel_us = sum(us for name, us in prof["top_kernels_us_per_call"].items() if "paged_" in name)
+        host_s = []  # the wrapper's host time with host tables, the device idle
+        for _ in range(10):
+            sync()
+            t0 = time.perf_counter()
+            pak.paged_attention(*args)
+            host_s.append(time.perf_counter() - t0)
+        sync()
     del want
     # the same K/V as a contiguous (B, Hkv, S_max, D) cache with a length mask
     s_max = int(lens.max())
@@ -1615,7 +1706,8 @@ def paged_full_shape(arch: str, cfg, launches, seed: int, dev) -> dict:
     live_pages = sum(-(-int(n) // page) for n in lens)
     moved = 2 * rows * hkv * d * 2 + 2 * q.numel() * 2 + 4 * live_pages + 4 * b
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = max(4 * rows * hq * d / F32_OPS_PER_S, rows * hq / EXP_PER_S) * 1e3
+    # q . k and p . v, bf16 products on the tensor cores; one exponent a score
+    t_ops = max(4 * rows * hq * d / BF16_OPS_PER_S, rows * hq / EXP_PER_S) * 1e3
     bound, by = (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
     row = {
         "name": f"paged_attention[{arch}]", "route": "cuda",
@@ -1623,9 +1715,13 @@ def paged_full_shape(arch: str, cfg, launches, seed: int, dev) -> dict:
         "replaces": "src/repro/kernels/paged_attention/kernel.py:84",
         "launches": launches["paged_attention"],
         "launched_by": "the drain checks of phases 6 and 10; the engine decodes over a dense cache",
-        "max_abs_err": err, "max_abs_err_over_max_output": rel_err, "f32_max_abs_err": err32,
+        "max_abs_err": err, "max_abs_err_over_max_output": rel_err, "limit_share": share,
+        "rel_limit_share": rel_err / PAGED_FULL_REL_TOL, "f32_max_abs_err": err32,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": None,
-        "share_of_bound": bound / ms, "kernel_device_ms": kernel_us / 1e3, "check_ms": check_ms,
+        "share_of_bound": bound / ms, "kernel_ms": kernel_ms,
+        "kernel_share_of_bound": bound / kernel_ms,
+        "card_tables_ms": card_ms, "check_ms": check_ms,
+        "host_ms": 1e3 * statistics.median(host_s),
         "contiguous_sdpa_ms": sdpa_ms, "contiguous_sdpa_max_abs_err": sdpa_err,
         "shape": {"B": b, "Hq": hq, "Hkv": hkv, "D": d, "page_size": page,
                   "pages_per_seq": table.shape[1], "pool_pages": num_pages,
@@ -1636,13 +1732,16 @@ def paged_full_shape(arch: str, cfg, launches, seed: int, dev) -> dict:
     log(f"phase 13: paged_attention at the {arch} decode shape (B={b} Hq={hq} Hkv={hkv} D={d} "
         f"bf16, pages of 16, lengths {int(lens.min())}-{s_max}, {rows} live rows in "
         f"{live_pages} pages of a {num_pages}-page pool, {scattered} of {b} tables not "
-        f"consecutive): {ms:.4f} ms by the wrapper ({kernel_us / 1e3:.4f} ms in its two kernels "
-        f"under the profiler; its length and page-id checks alone, with their read from the "
-        f"device, {check_ms:.4f} ms), plain {plain_ms:.3f} ms, bound {bound:.4f} ms by {by} "
+        f"consecutive): {ms:.4f} ms by the wrapper with host tables ({kernel_ms:.4f} ms in its "
+        f"two kernels alone, {100 * bound / kernel_ms:.1f}% of the bound; the wrapper's host time "
+        f"{row['host_ms']:.4f} ms; no read from the device under sync debug mode \"error\"), "
+        f"{card_ms:.4f} ms with the tables on the card (the checks alone, with their read from "
+        f"the device, {check_ms:.4f} ms), plain {plain_ms:.3f} ms, bound {bound:.4f} ms by {by} "
         f"({moved / 1e6:.1f} MB), {100 * bound / ms:.1f}% of the bound; no PyTorch call reads "
         f"paged K/V: scaled_dot_product_attention over the same K/V as a contiguous cache "
-        f"{sdpa_ms:.4f} ms (max abs diff {sdpa_err}); max abs err {err} ({rel_err:.3g} of the "
-        f"largest output; f32 on the same tables: {err32}); launched by the drain checks of "
+        f"{sdpa_ms:.4f} ms (max abs diff {sdpa_err}); max abs err {err} ({share:.3f} of the "
+        f"limit; {rel_err:.3g} of the largest output, {rel_err / PAGED_FULL_REL_TOL:.3f} of that "
+        f"limit; f32 on the same tables: {err32}); launched by the drain checks of "
         f"phases 6 and 10: {launches['paged_attention']}")
     return row
 
@@ -1652,7 +1751,7 @@ def hopper_sass(so: Path) -> dict:
     (``HGMMA``) and TMA loads (``UTMALDG``) and no ``mma.sync`` (``HMMA``);
     the highest register its SASS names, and ptxas's register and spill
     report of each, from the build's log; then the ssd_scan kernels'
-    (:func:`ssd_sass`)."""
+    (:func:`ssd_sass`) and the bf16 paged kernels' (:func:`paged_sass`)."""
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
@@ -1669,14 +1768,50 @@ def hopper_sass(so: Path) -> dict:
         out["D64" if "ILi64E" in name else "D128"] = counts
     if len(out) != 2:
         raise SystemExit(f"phase 1: expected the bf16 attention kernel at D 64 and 128, got {out}")
-    report = (so.parent / "flash_attention.nvcc.log").read_text().splitlines()
-    for i, line in enumerate(report):
-        if "flash_fwd_wgmma_kernel" in line and "Compiling entry" in line:
-            key = "D64" if "ILi64E" in line else "D128"
-            out[key]["ptxas"] = "; ".join(x.split(":", 1)[-1].strip() for x in report[i + 1:i + 4]
-                                          if "Used" in x or "spill" in x)
+    for key, ptxas in _ptxas_report(
+            so.parent / "flash_attention.nvcc.log",
+            lambda line: ("D64" if "ILi64E" in line else "D128")
+            if "flash_fwd_wgmma_kernel" in line else None).items():
+        out[key]["ptxas"] = ptxas
     log(f"phase 1: flash_attention's bf16 kernels in SASS: {json.dumps(out)}")
     out["ssd_scan"] = ssd_sass(sass, so.parent / "ssd_scan.nvcc.log")
+    out["paged_attention"] = paged_sass(sass, so.parent / "paged_attention.nvcc.log")
+    return out
+
+
+def _ptxas_report(report: Path, key) -> dict:
+    """ptxas's registers and spills of each kernel whose mangled name ``key``
+    maps to a name (None for the others), from the build's log."""
+    lines, out = report.read_text().splitlines(), {}
+    for i, line in enumerate(lines):
+        name = key(line) if "Compiling entry" in line else None
+        if name:
+            out[name] = "; ".join(x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
+                                  if "Used" in x or "spill" in x)
+    return out
+
+
+def _paged_key(mangled: str):
+    m = re.search(r"paged_mma_kernelILi(\d+)E", mangled)
+    return f"paged_mma_kernel<{m.group(1)}>" if m else None
+
+
+def paged_sass(sass: str, report: Path) -> dict:
+    """The bf16 paged kernel's machine code: the tensor cores' ``mma.sync``
+    (``HMMA``) and the asynchronous copies into shared memory (``LDGSTS``,
+    cp.async) at D 64 and 128, with ptxas's registers and spills of each."""
+    out = {}
+    for func in sass.split("Function : ")[1:]:
+        key = _paged_key(func.split(None, 1)[0])
+        if key:
+            out[key] = {op: len(re.findall(rf"\b{op}\b", func)) for op in ("HMMA", "LDGSTS")}
+    if sorted(out) != ["paged_mma_kernel<128>", "paged_mma_kernel<64>"] or \
+            any(not c["HMMA"] or not c["LDGSTS"] for c in out.values()):
+        raise SystemExit(f"phase 1: the bf16 paged kernels are not on mma.sync and cp.async: {out}")
+    for key, ptxas in _ptxas_report(report, _paged_key).items():
+        out[key]["ptxas"] = ptxas
+    log(f"phase 1: paged_attention's bf16 kernels in SASS (HMMA, LDGSTS counts) and ptxas: "
+        f"{json.dumps(out)}")
     return out
 
 
@@ -1703,12 +1838,9 @@ def ssd_sass(sass: str, report: Path) -> dict:
         key = _ssd_key(func.split(None, 1)[0])
         if key:
             out[key] = {"HMMA": len(re.findall(r"\bHMMA\b", func))}
-    lines = report.read_text().splitlines()
-    for i, line in enumerate(lines):
-        key = _ssd_key(line) if "Compiling entry" in line else None
+    for key, ptxas in _ptxas_report(report, _ssd_key).items():
         if key in out:
-            out[key]["ptxas"] = "; ".join(x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
-                                          if "Used" in x or "spill" in x)
+            out[key]["ptxas"] = ptxas
     bf16 = [k for k in out if "<bf16" in k and "state_pass" not in k]
     if len(out) != 14 or len(bf16) != 6 or any(not out[k]["HMMA"] for k in bf16):
         raise SystemExit(f"phase 1: the ssd_scan kernels are not all built, or a bf16 one "

@@ -41,12 +41,14 @@ _L = ctypes.c_longlong
 # C entry point -> argtypes (every one returns an int cudaError_t)
 _SIGNATURES = {
     "rt_hash_probe": [_P, _I, _P, _I, _P, _P, _P],
+    "rt_hash_probe_floor": [_P, _I, _P, _I, _I, _P, _P],
     "rt_masked_compact": [_P, _P, _I, _L, _I, _P, _P, _P, _I, _P],
     "rt_probe_place": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "rt_frontier_expand": [_I, _P, _I, _L, _P, _P, _L, _P, _P, _P],
     "rt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
                            _I, _I, _I, _I, _P],
     "rt_ssd_scan": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "rt_paged_stage_tables": [_P, _P, _L, _P],
     "rt_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            ctypes.c_float, _I, _P],
 }

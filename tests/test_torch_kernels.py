@@ -184,6 +184,103 @@ def test_hash_probe_kernel_matches_plain(cuda_device, cap, n, dup):
         np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
 
 
+def _unmix32(x: np.ndarray) -> np.ndarray:
+    """The inverse of the MurmurHash3 finalizer (a bijection on uint32)."""
+    x = x.astype(np.uint32)
+    x ^= x >> np.uint32(16)
+    x *= np.uint32(0x7ED1B41D)  # 0xC2B2AE35^-1 mod 2^32
+    x ^= (x >> np.uint32(13)) ^ (x >> np.uint32(26))
+    x *= np.uint32(0xA5CB9243)  # 0x85EBCA6B^-1 mod 2^32
+    x ^= x >> np.uint32(16)
+    return x
+
+
+def _keys_at(homes, cap, rng):
+    """int32 keys whose home slots in a table of ``cap`` are ``homes`` (the
+    high bits of each hash drawn at random; a repeat is harmless)."""
+    bits = cap.bit_length() - 1
+    high = rng.integers(0, 1 << (32 - bits), len(homes), dtype=np.uint64)
+    return _unmix32((high << np.uint64(bits)) | np.asarray(homes, np.uint64)).view(np.int32)
+
+
+def _chain_case(cap, case, seed):
+    """A table of ``cap`` slots and queries whose chains reach the probe
+    loop's edges:
+
+    * ``claimed``: half the slots (at most 2^17) taken by the engine's claim
+      path; half the queries present;
+    * ``tail``: queries whose homes lie in the last 16 slots, over a table
+      whose last 16 and first 32 slots are taken, so chains go past step 3
+      and wrap to slot 0;
+    * ``cluster``: queries homed in 8 slots, under a run of 64 taken slots;
+    * ``full``: no empty slot at all.
+
+    A few queries are placed at probe step 7 of their chain; each case adds
+    duplicate queries and the key -1 (EMPTY_KEY)."""
+    rng = np.random.default_rng(seed)
+    table = np.full(cap, -1, np.int32)
+    if case == "claimed":
+        keys = np.unique(_keys_at(rng.integers(0, cap, min(cap // 2, 1 << 17)), cap, rng))
+        keys = rng.permutation(keys[keys != -1])
+        table = claim_vertex_slots(torch.as_tensor(table), torch.as_tensor(keys),
+                                   torch.ones(keys.size, dtype=torch.bool))[0].numpy()
+        queries = np.concatenate([keys[:200], _keys_at(rng.integers(0, cap, 200), cap, rng)])
+    elif case == "full":
+        table[:] = _keys_at(rng.integers(0, cap, cap), cap, rng)
+        queries = np.concatenate([table[rng.permutation(cap)[:50]],
+                                  _keys_at(rng.integers(0, cap, 50), cap, rng)])
+    else:
+        c = cap - 16 if case == "tail" else cap // 2
+        taken = (np.arange(-32, 16) + cap) % cap if case == "tail" else c + np.arange(64) % cap
+        table[taken] = _keys_at(rng.integers(0, cap, taken.size), cap, rng)
+        queries = _keys_at(c + rng.integers(0, min(cap, 16 if case == "tail" else 8), 100), cap,
+                           rng)
+        homes = hash_vertex(torch.as_tensor(queries[:8]), cap).numpy()
+        table[(homes + 28) % cap] = queries[:8]  # present at step 7 (offset 28)
+    queries = np.concatenate([queries, queries[: len(queries) // 3], [-1, -1]]).astype(np.int32)
+    return table, queries
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,case", [(8, "claimed"), (8, "full"), (16, "claimed"), (16, "tail"),
+                                      (16, "full"), (1024, "tail"), (1024, "cluster"),
+                                      (1 << 23, "claimed"), (1 << 23, "tail"),
+                                      (1 << 23, "cluster")])
+def test_hash_probe_kernel_chains_match_plain(cuda_device, cap, case):
+    """The kernel's probe loop gives the plain version's slots bit for bit on
+    chains past step 3, wrapping at the table's end, in full and clustered
+    tables, at caps of 8, 16 and 2^23."""
+    table, queries = _cuda(*_chain_case(cap, case, cap + len(case)), device=cuda_device)
+    before = probe_kernel.hash_probe.launches
+    got = probe_kernel.hash_probe(table, queries)
+    assert probe_kernel.hash_probe.launches == before + 1
+    want = hash_probe(table, queries, impl="reference")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+
+
+def test_hash_probe_chain_cases_reach_their_edges():
+    """The cases of the test above reach what they are for, on the plain
+    version: chains past step 3 (offset 6) and wrapping, a full table with
+    no empty slot, present and absent keys."""
+    for cap, case in [(16, "tail"), (1024, "tail"), (1024, "cluster"), (1 << 23, "tail"),
+                      (1 << 23, "cluster"), (16, "full"), (1 << 23, "claimed")]:
+        table, queries = _chain_case(cap, case, cap + len(case))
+        found, empty = hash_probe(torch.as_tensor(table), torch.as_tensor(queries))
+        home = hash_vertex(torch.as_tensor(queries), cap)
+        slot = torch.where(found >= 0, found, empty)
+        offset = (slot - home) & (cap - 1)
+        assert (found >= 0).any() and (queries == -1).any()
+        if case == "full":
+            assert (empty < 0).all()
+        elif case == "claimed":
+            assert (empty >= 0).any()
+        else:
+            assert ((slot >= 0) & (offset > 6)).any() or ((slot < 0).any() and cap == 16)
+            if case == "tail":
+                assert ((slot >= 0) & (slot < home)).any() or cap == 16  # wrapped
+
+
 # beyond the first three: the one-pass kernel's 4,096-lane tiles, N of 1,
 # one tile -1 and +1, and 2^23 + 17 (2,049 tiles, so the look-back crosses
 # many), at densities 0, 0.01, 0.5 and 1 and R of 1 and 6

@@ -12,8 +12,14 @@
   and its cache rows copied into pages, equals the engine's dense decode
   attention, and the block tables equal those of ``repro``'s
   ``PagedKVManager`` on the same request stream.
+* Tables given on the host are checked there: every refusal of the card's
+  check is made with the same message before anything is uploaded, and the
+  two checks count the same (CPU tests).
 * The ``cuda``-marked tests hold the CUDA kernel against the plain version
-  and run only where there is a card.
+  and run only where there is a card: the bf16 kernel's edges (groups, D,
+  pages, lengths) on host and card tables, a call with host tables that
+  makes no read from the device, host-table calls queued behind a busy
+  card, and repeated calls bit for bit.
 """
 
 import subprocess
@@ -278,6 +284,95 @@ def test_plain_version_ignores_dead_table_entries():
                                   to_np(paged_attention(q, kp, vp, bt, sl)))
 
 
+# the refusals of the wrapper's value check: (what, table and lengths from
+# _small's, message); the same for host tables and for tables on the card
+def _long(bt, sl):
+    return bt, sl + 1
+
+
+def _negative(bt, sl):
+    return bt, sl - sl - 1
+
+
+def _past_pool(bt, sl):
+    bt = bt.clone()
+    bt[1, 1] = 6
+    return bt, sl
+
+
+def _negative_id(bt, sl):
+    bt = bt.clone()
+    bt[0, 2] = -1
+    return bt, sl
+
+
+REFUSALS = [(_long, "seq_lens"), (_negative, "seq_lens"), (_past_pool, "page ids"),
+            (_negative_id, "page ids")]
+
+
+@pytest.mark.parametrize("bad,match", REFUSALS, ids=[f.__name__ for f, _ in REFUSALS])
+def test_host_tables_are_refused_before_any_upload(monkeypatch, bad, match):
+    """Host tables are refused on the host, with the message that tables on
+    the card get, before anything is copied to a device."""
+    def no_upload(*args):
+        raise AssertionError("host tables were uploaded before the check refused them")
+
+    monkeypatch.setattr(paged_kernel, "_upload", no_upload)
+    q, kp, vp, bt, sl = _small()
+    bt, sl = bad(bt, sl)
+    with pytest.raises(ValueError, match=match):
+        paged_kernel.paged_attention(q, kp, vp, bt, sl)
+    # the same numbers, so the same refusal and message, by the route of
+    # tables on the card (torch ops and one read, here on the CPU)
+    assert paged_kernel._table_stats_host(bt, sl, 6, 4) == \
+        paged_kernel._table_stats_device(bt, sl, 6, 4)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_host_and_device_table_checks_agree(seed):
+    """The host check (numpy) and the card's (torch ops) give the same
+    lengths and count of bad live page ids on random tables, with ids past
+    either end of the pool, live and dead."""
+    rng = np.random.default_rng(seed)
+    B, pps, page, P = 5, 7, 4, 20
+    bt = torch.as_tensor(rng.integers(-3, P + 3, (B, pps)).astype(np.int32))
+    sl = torch.as_tensor(rng.integers(0, pps * page + 1, B).astype(np.int32))
+    host = paged_kernel._table_stats_host(bt, sl, P, page)
+    assert host == paged_kernel._table_stats_device(bt, sl, P, page)
+    live = torch.arange(pps)[None, :] * page < sl[:, None].long()
+    assert host[3] == int((live & ((bt < 0) | (bt >= P))).sum())
+    # a transposed view is read as it stands
+    t = bt.t().contiguous().t()
+    assert paged_kernel._table_stats_host(t, sl, P, page) == host
+    # ids all in the pool (the host check's fast path), with garbage past
+    # the longest sequence's pages and, in a shorter row, past its own
+    good = torch.as_tensor(rng.integers(0, P, (B, pps)).astype(np.int32))
+    cols = -(-int(sl.max()) // page)
+    good[:, cols:] = -9
+    for dead in (False, True):
+        if dead:
+            row = int(sl.argmin())
+            good[row, -(-int(sl[row]) // page):cols] = P + 5
+        stats = paged_kernel._table_stats_host(good, sl, P, page)
+        assert stats == paged_kernel._table_stats_device(good, sl, P, page)
+        assert stats[3] == 0
+
+
+def _table_placements(device):
+    """The plain version's inputs with the tables on the host and on ``device``."""
+    arrays = _inputs((3, 14, 2, 128, 16, 16, 4), seed=8)
+    q, kp, vp, bt, sl = _torch(arrays, "bfloat16", device)
+    return (q, kp, vp, bt.cpu(), sl.cpu()), (q, kp, vp, bt, sl)
+
+
+def test_plain_version_takes_host_tables():
+    """``paged_attention`` with the tables as host tensors gives what it gives
+    with them on q's device (the CPU here; the card in the ``cuda`` test)."""
+    host, dev = _table_placements("cpu")
+    for impl in (None, "reference"):
+        assert torch.equal(paged_attention(*host, impl=impl), paged_attention(*dev, impl=impl))
+
+
 # ---------------------------------------------------------------------------
 # (f) the CUDA kernel, on the card only
 # ---------------------------------------------------------------------------
@@ -344,3 +439,107 @@ def test_cuda_kernel_refuses_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="16-byte"):
         x = torch.zeros(q.numel() + 1, device=cuda_device)[1:].view(q.shape)
         paged_kernel.paged_attention(x, kp, vp, bt, sl)
+
+
+# the bf16 kernel (cp.async ring, mma.sync): groups of 1, 7, 8 and 16, D of 64
+# and 128, pages of 8, 16 and 32, over scattered tables and the lengths 0, 1,
+# a page - 1 and + 1, a block's tile of 64 positions - 1 and + 1, and the
+# table's full length
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [8, 16, 32])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("g", [1, 7, 8, 16])
+def test_cuda_bf16_kernel_edges(cuda_device, g, D, page):
+    rng = np.random.default_rng(g * 1000 + D * 10 + page)
+    hkv, pps = 2, -(-300 // page)
+    lens = [0, 1, page - 1, page + 1, 63, 65, pps * page, int(rng.integers(1, pps * page))]
+    B = len(lens)
+    P = B * pps + 7
+    q = rng.standard_normal((B, g * hkv, D)).astype(np.float32)
+    kp = rng.standard_normal((P, page, hkv, D)).astype(np.float32)
+    vp = rng.standard_normal((P, page, hkv, D)).astype(np.float32)
+    bt = rng.permutation(P)[: B * pps].reshape(B, pps).astype(np.int32)  # scattered
+    sl = np.array(lens, np.int32)
+    tq, tk, tv, tbt, tsl = _torch((q, kp, vp, bt, sl), "bfloat16", cuda_device)
+    want = paged_attention(tq, tk, tv, tbt, tsl, impl="reference")
+    on_card = paged_attention(tq, tk, tv, tbt, tsl)
+    on_host = paged_attention(tq, tk, tv, tbt.cpu(), tsl.cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(on_card, on_host)  # one plan, one kernel
+    assert torch.equal(on_card[0], torch.zeros_like(on_card[0]))
+    _close(on_card, to_np(want.float()), "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_host_tables_make_no_device_read(cuda_device, dtype):
+    """A call with host tables neither reads from the device nor waits for
+    it: under sync debug mode "error" any such read raises."""
+    arrays = _inputs((4, 28, 4, 128, 1100, 16, 260), seed=12)
+    q, kp, vp, bt, sl = _torch(arrays, dtype, cuda_device)
+    bt, sl = bt.cpu(), sl.cpu()
+    want = paged_attention(q, kp, vp, bt, sl)  # builds the library, outside the mode
+    torch.cuda.synchronize()
+    before = paged_kernel.paged_attention.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = paged_attention(q, kp, vp, bt, sl)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert paged_kernel.paged_attention.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_host_tables_queued_behind_work(cuda_device):
+    """Host-table calls queued while the card is busy, each on other tables:
+    no staging buffer is written while a launch is still to read it, so
+    each call gives what its tables give on the card."""
+    arrays = _inputs((4, 28, 4, 128, 1100, 16, 260), seed=14)
+    q, kp, vp, _, _ = _torch(arrays, "bfloat16", cuda_device)
+    rng = np.random.default_rng(14)
+    tables = [(torch.as_tensor(rng.choice(1100, size=(4, 260)).astype(np.int32)),
+               torch.as_tensor(rng.integers(0, 16 * 260 + 1, 4).astype(np.int32)))
+              for _ in range(6)]
+    want = [paged_attention(q, kp, vp, bt.to(cuda_device), sl.to(cuda_device))
+            for bt, sl in tables]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)  # about 25 ms of the card's clock
+    got = [paged_attention(q, kp, vp, bt, sl) for bt, sl in tables]
+    assert len(paged_kernel._STAGING[q.device]) >= 2  # buffers were still to be read
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_kernel_repeats_exactly(cuda_device):
+    """Ten calls on one input, host and card tables in turn, give one output
+    bit for bit (no atomics, one plan)."""
+    arrays = _inputs((4, 28, 4, 128, 1100, 16, 260), seed=13)
+    q, kp, vp, bt, sl = _torch(arrays, "bfloat16", cuda_device)
+    first = paged_attention(q, kp, vp, bt, sl)
+    for i in range(10):
+        tables = (bt, sl) if i % 2 else (bt.cpu(), sl.cpu())
+        assert torch.equal(paged_attention(q, kp, vp, *tables), first)
+
+
+@pytest.mark.cuda
+def test_cuda_plain_version_takes_host_tables(cuda_device):
+    host, dev = _table_placements(cuda_device)
+    assert torch.equal(paged_attention(*host, impl="reference"),
+                       paged_attention(*dev, impl="reference"))
+    assert torch.equal(paged_attention(*host), paged_attention(*dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad,match", REFUSALS, ids=[f.__name__ for f, _ in REFUSALS])
+def test_cuda_refusals_on_both_routes(cuda_device, bad, match):
+    """Each refusal holds for tables on the host and on the card, with one
+    message, before any launch."""
+    q, kp, vp, bt, sl = (t.to(cuda_device) for t in _small())
+    bt, sl = bad(bt, sl)
+    before = paged_kernel.paged_attention.launches
+    for tables in ((bt, sl), (bt.cpu(), sl.cpu())):
+        with pytest.raises(ValueError, match=match):
+            paged_kernel.paged_attention(q, kp, vp, *tables)
+    assert paged_kernel.paged_attention.launches == before
