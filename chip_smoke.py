@@ -32,11 +32,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``--seed``: ``WaitFreeGraph(device="cuda")`` at its default capacities
    grows through the kernels while it takes every vertex and 80 batches of
    65,536 ops of the ``traversal`` mix, each batch checked against the
-   sequential oracle.  Then ``apply`` is timed for the paper's Fig. 4 mixes,
-   and one growth rehash, ``build_csr``, ``reachable``, ``bfs_batch`` and
-   ``get_path_batch`` are timed and checked against the oracle on a subset.
-   Every graph kernel's launch count is read around this phase and must be
-   above 0.
+   sequential oracle; its snapshot maintenance is the default delta queue,
+   which folds nothing here (no query caches a snapshot before the
+   queries below).  Then ``apply`` is timed for the paper's Fig. 4 mixes,
+   and one growth rehash, a full ``build_csr`` (called as such),
+   ``reachable``, ``bfs_batch`` and ``get_path_batch`` are timed and checked
+   against the oracle on a subset.  Every graph kernel's launch count is
+   read around this phase and must be above 0.
 4. Each graph kernel against its plain version at the main path's shapes,
    on the main path's own tables, with CUDA-event times taken with the L2
    cache flushed before each run, the kernel's bound (the bytes and
@@ -150,6 +152,30 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    contiguous cache (no PyTorch call reads paged K/V).  Its ``launches``
    are those of the drain checks of phases 6 and 10: the engine itself
    decodes over a dense cache.
+14. Run right after phase 4, on phase 3's graph and oracle (Cv = Ce =
+   2^23): the delta CSR maintenance and the baseline engines.  Eight fold
+   epochs, one 65,536-op batch each (``traversal`` and ``update`` mixes in
+   turns), queued on the cached snapshot and folded by the next
+   ``traversal_csr()`` (timed, host clock ended by a sync, beside
+   ``build_csr``), which must take the device merge (``masked_compact`` and
+   ``hash_probe`` launched, no host splice) and equal ``build_csr`` and the
+   host splice field for field, with ``reachable`` on 32 pairs equal to the
+   oracle (each epoch also times the fold's host dedup alone); one more
+   fold runs under the profiler.  A growth epoch: one batch of edge adds
+   past the edge table's load factor (its dedup timed beside ``np.unique``
+   of its edge codes); the grown snapshot must be the queue's base, the next
+   ``traversal_csr()`` equal ``build_csr``, and ``rehash(with_csr=True)``
+   from the final size (timed in turns with the plain rehash) equal the host
+   rehash and ``build_csr`` of its state.  Then the engines from one
+   pre-state (the grown state), per Fig. 4 mix: ``apply_lockfree`` at
+   65,536 lanes, ``apply_serial`` at 512 and ``apply_coarse`` at 128 (the
+   caps of ``benchmarks/graph_throughput.py``), the wait-free and FPSP
+   engines at all three, each timed (ops/s), its bits and live set equal to
+   the oracle after the same lanes, and the lock-free rounds reported.  The
+   launch counts are read around this phase: every graph kernel must run.
+   The ``kernels`` line gains a ``masked_compact`` row at the fold's shape
+   (the survivors' 3 rows of 2^23 lanes), and each graph row the launches
+   of this phase (``launches_delta_path``).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``kernels`` record.  Without a card, or outside a checkout of the repository,
@@ -160,6 +186,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import json
 import re
 import statistics
@@ -178,17 +205,19 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (  # noqa: E402
-    OP_ADD_EDGE, OP_ADD_VERTEX, GraphState, SequentialGraph, WaitFreeGraph, hashing, maintenance,
-    run_sequential,
+    OP_ADD_EDGE, OP_ADD_VERTEX, GraphState, SequentialGraph, WaitFreeGraph, baselines, engine,
+    fastpath, hashing, maintenance, run_sequential, traversal,
 )
+from repro_torch.core.graph import _used_slots  # noqa: E402
 from repro_torch.core.hashing import hash_vertex, probe_slot  # noqa: E402
 from repro_torch.core.locate import claim_vertex_slots  # noqa: E402
-from repro_torch.core.traversal import _edge_validity, bfs_levels  # noqa: E402
-from repro_torch.core.types import MAX_PROBES  # noqa: E402
+from repro_torch.core.traversal import _edge_validity, bfs_levels, build_csr  # noqa: E402
+from repro_torch.core.types import GROW_LOAD_FACTOR, MAX_PROBES, make_batch  # noqa: E402
 from repro_torch.core.workloads import sample_batch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.compact import kernel as ck  # noqa: E402
 from repro_torch.kernels.compact import masked_compact, probe_place  # noqa: E402
+from repro_torch.kernels.compact import ops as compact_ops  # noqa: E402
 from repro_torch.kernels.compact.ref import probe_place_device_rounds  # noqa: E402
 from repro_torch.kernels.flash_attention import attention  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fak  # noqa: E402
@@ -237,6 +266,18 @@ BATCH = 65_536
 TRAVERSAL_BATCHES = 80
 TIMED_BATCHES = 10
 FIG4_MIXES = ("lookup", "balanced", "update")
+FOLD_EPOCHS = 8
+FOLD_MIXES = ("traversal", "update")  # in turns, epoch by epoch
+FOLD_PAIRS = 32
+# phase 14's engines, each at its lanes from one pre-state: the baselines at
+# benchmarks/graph_throughput.py's caps (coarse pays a read back an op; its
+# sweep there stops at 128, serial at 512), lock-free at the batch, and the
+# wait-free and FPSP engines at all three
+BASELINE_LANES = {"lockfree": BATCH, "serial": 512, "coarse": 128}
+ENGINE_FNS = dict(baselines.ENGINES, waitfree=engine.apply_batch,
+                  fpsp=fastpath.apply_batch_fpsp)
+ENGINE_RUNS = [(name, lanes) for name, lanes in BASELINE_LANES.items()] + [
+    (name, lanes) for name in ("waitfree", "fpsp") for lanes in (128, 512, BATCH)]
 PLACE_M, PLACE_CAP = 1 << 21, 1 << 22  # the vertex rehash from 2^21 to 2^22 slots
 FRONTIER_DEPTH = 3           # phase 4's frontiers: the BFS level 3 of their sources
 L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
@@ -617,9 +658,9 @@ def main_path(seed: int):
 
     # one growth rehash at the final size, held against the host reference
     state = g.state
-    (grown, ok), dt = wall_s(lambda: maintenance.rehash(
+    (grown, _, ok), dt = wall_s(lambda: maintenance.rehash(
         state, 2 * state.v_capacity, 2 * state.e_capacity, impl="device"))
-    host, host_ok = maintenance.rehash(state, 2 * state.v_capacity, 2 * state.e_capacity,
+    host, _, host_ok = maintenance.rehash(state, 2 * state.v_capacity, 2 * state.e_capacity,
                                           impl="host")
     if not (ok and host_ok):
         raise SystemExit("rehash at the final size overflowed")
@@ -633,8 +674,11 @@ def main_path(seed: int):
 
     if g.snapshot() != (oracle.vertices, oracle.edges):
         raise SystemExit("the graph's snapshot differs from the oracle")
-    csr, dt = wall_s(g.traversal_csr)  # the last batch mutated: a full build_csr
+    # a full rebuild, called as such (the graph's own snapshot below is one
+    # too: no query has cached a snapshot for the delta queue yet)
+    _, dt = wall_s(lambda: build_csr(g.state))
     out["build_csr_ms"] = dt * 1e3
+    csr = g.traversal_csr()
     if int(csr.n_edges) != len(oracle.edges):
         raise SystemExit("CSR edge count differs from the oracle")
 
@@ -674,7 +718,7 @@ def main_path(seed: int):
         f"{out['reachable_256_ms']:.3f} ms; bfs_batch on 16 sources {out['bfs_batch_16_ms']:.3f} ms "
         f"(mean {out['bfs_reached_mean']:.0f} vertices reached); get_path_batch on 16 pairs "
         f"{out['get_path_batch_16_ms']:.3f} ms; 4 BFS maps, 32 pairs and 16 paths equal to the oracle")
-    return out, g, (sources, r_us)
+    return out, g, oracle, (sources, r_us)
 
 
 # ---------------------------------------------------------------------------
@@ -860,6 +904,267 @@ def full_shape_kernels(g, sources, launches, calls, place_rounds_main, dev) -> l
         f"{place_row['rounds']} rounds on the main path; "
         f"frontier_expand C={c} Ce={ce}, depth {FRONTIER_DEPTH}, {', '.join(frontier_rows)})")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 14: delta CSR maintenance and the baseline engines, on phase 3's graph
+# ---------------------------------------------------------------------------
+
+
+def require_csr_equal(what: str, got, want) -> None:
+    for f in traversal.TraversalCSR._fields:
+        if not torch.equal(getattr(got, f), getattr(want, f)):
+            raise SystemExit(f"{what}: snapshots differ in {f}")
+
+
+@contextlib.contextmanager
+def spying(module, name: str, seen: list, keep=None):
+    """``module.name`` wrapped, while the block runs, to append to ``seen``
+    its arguments, or what ``keep`` makes of them where that is not None."""
+    real = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        item = keep(*args, **kwargs) if keep else args
+        if item is not None:
+            seen.append(item)
+        return real(*args, **kwargs)
+
+    setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def _launch_counts() -> dict:
+    return {name: w.launches for name, w in WRAPPERS.items()}
+
+
+def _oracle_keys(oracle):
+    """The oracle's live vertex keys and edge keys (``u << 32 | v``), sorted
+    int64 numpy."""
+    verts = np.sort(np.fromiter(oracle.vertices, np.int64, len(oracle.vertices)))
+    uv = np.fromiter(itertools.chain.from_iterable(oracle.edges), np.int64,
+                     2 * len(oracle.edges)).reshape(-1, 2)
+    return verts, np.sort((uv[:, 0] << 32) | (uv[:, 1] & 0xFFFFFFFF))
+
+
+def _state_keys(state):
+    """The same two arrays for a state on the card (its snapshot masks)."""
+    v_mask, e_mask = traversal.snapshot_live(state)
+    verts = torch.sort(state.v_key[v_mask].long()).values
+    edges = (state.e_key_u[e_mask].long() << 32) | (state.e_key_v[e_mask].long() & 0xFFFFFFFF)
+    return verts.cpu().numpy(), torch.sort(edges).values.cpu().numpy()
+
+
+def _reach_check(g, oracle, rng, n_keys, what: str) -> None:
+    """``reachable`` on FOLD_PAIRS pairs from one live source, half of the
+    targets reached by the oracle's BFS and half drawn at random."""
+    src = int(rng.integers(0, n_keys))
+    while src not in oracle.vertices:
+        src = int(rng.integers(0, n_keys))
+    ref = oracle.bfs(src)
+    reached = np.fromiter(ref, np.int64, len(ref)).astype(np.int32)
+    half = FOLD_PAIRS // 2
+    vs = np.concatenate([rng.choice(reached, half), rng.integers(0, n_keys, half)]).astype(np.int32)
+    got = g.reachable(np.full(FOLD_PAIRS, src, np.int32), vs)
+    want = np.array([int(v) in ref for v in vs])
+    if not np.array_equal(got, want):
+        raise SystemExit(f"{what}: reachable differs from the oracle")
+
+
+def delta_path(g, oracle, seed: int, dev):
+    rng = np.random.default_rng(seed + 14)
+    n_keys = COM_YOUTUBE_VERTICES
+    out = {"fold_epochs": [], "seconds": {}}
+    t_part = time.perf_counter()
+
+    def keep_survivors(values, mask, **_):  # the fold's first compaction: 3 rows
+        return (values.clone(), mask.clone()) if values.shape[0] == 3 else None
+
+    # fold epochs: each one batch queued on the cached snapshot, folded by the
+    # next query on the device merge, held to the rebuild and the host splice
+    for i in range(FOLD_EPOCHS):
+        base = g.traversal_csr()
+        mix = FOLD_MIXES[i % len(FOLD_MIXES)]
+        ops, us, vs = sample_batch(rng, BATCH, mix, key_space=n_keys)
+        _check_bits(g.apply(ops, us, vs), _oracle_apply(oracle, ops, us, vs), f"fold epoch {i}")
+        if g._delta_base is not base or len(g._delta_batches) != 1:
+            raise SystemExit(f"fold epoch {i}: the batch was not queued on the snapshot")
+        t0 = time.perf_counter()  # the fold's host dedup, alone (host only)
+        v_touch, e_tu, _ = traversal.touched_keys(ops, us, vs)
+        dt_keys = time.perf_counter() - t0
+        before = _launch_counts()
+        merges, splices, fold_inputs = [], [], []
+        with spying(maintenance, "delta_merge", merges), \
+                spying(traversal, "_delta_probe", splices), \
+                spying(compact_ops, "masked_compact", fold_inputs, keep_survivors):
+            csr, dt = wall_s(g.traversal_csr)
+        launched = {k: v - before[k] for k, v in _launch_counts().items()}
+        if len(merges) != 1 or splices:
+            raise SystemExit(f"fold epoch {i}: {len(merges)} device merges and "
+                             f"{len(splices)} host splices (want 1 and 0)")
+        if launched["masked_compact"] == 0 or launched["hash_probe"] == 0:
+            raise SystemExit(f"fold epoch {i}: the fold launched {launched}")
+        with uncounted():
+            rebuilt, dt_build = wall_s(lambda: build_csr(g.state))
+            require_csr_equal(f"fold epoch {i} against build_csr", csr, rebuilt)
+            host = traversal.apply_delta(base, g.state, ops, us, vs, impl="host")
+            require_csr_equal(f"fold epoch {i} against the host splice", csr, host)
+            del rebuilt, host
+        _reach_check(g, oracle, rng, n_keys, f"fold epoch {i}")
+        out["fold_epochs"].append({
+            "mix": mix, "touched_keys": int(v_touch.size + e_tu.size), "fold_ms": dt * 1e3,
+            "touched_keys_ms": dt_keys * 1e3, "build_csr_ms": dt_build * 1e3,
+            "masked_compact_launches":
+            launched["masked_compact"], "hash_probe_launches": launched["hash_probe"]})
+    log("phase 14: fold epochs (one 65,536-op batch each, folded by the device merge at "
+        "the next query, equal to build_csr and to the host splice, reachable on "
+        f"{FOLD_PAIRS} pairs equal to the oracle): " + json.dumps(out["fold_epochs"]))
+
+    # one more epoch, its fold under the profiler: where the fold's time goes
+    g.traversal_csr()
+    ops, us, vs = sample_batch(rng, BATCH, FOLD_MIXES[0], key_space=n_keys)
+    _check_bits(g.apply(ops, us, vs), _oracle_apply(oracle, ops, us, vs), "profiled fold epoch")
+    (csr,), out["fold_profile"] = profile_window(g.traversal_csr, 1, "fold")
+    with uncounted():
+        require_csr_equal("profiled fold against build_csr", csr, build_csr(g.state))
+    log("phase 14: one fold under the profiler: " + json.dumps(out["fold_profile"]))
+    out["seconds"]["fold epochs"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # growth epoch: add edges past the edge table's load factor in one batch;
+    # the growth's rehash hands its snapshot to the queue
+    _, e_used = _used_slots(g.state)
+    cv0, ce0 = g.state.v_capacity, g.state.e_capacity
+    n_add = int(GROW_LOAD_FACTOR * ce0) - e_used + BATCH
+    live = np.fromiter(oracle.vertices, np.int64, len(oracle.vertices)).astype(np.int32)
+    ops = np.full(n_add, OP_ADD_EDGE, np.int32)
+    us, vs = rng.choice(live, n_add), rng.choice(live, n_add)
+    got, dt = wall_s(lambda: g.apply(ops, us, vs))
+    _check_bits(got, _oracle_apply(oracle, ops, us, vs), "growth epoch")
+    # the fold's host dedup of this batch, beside np.unique of its edge codes
+    t0 = time.perf_counter()
+    traversal.touched_keys(ops, us, vs)
+    dt_keys = time.perf_counter() - t0
+    codes = (us.astype(np.int64) << 32) | (vs.astype(np.int64) & 0xFFFFFFFF)
+    t0 = time.perf_counter()
+    np.unique(codes)
+    dt_unique = time.perf_counter() - t0
+    cv, ce = g.state.v_capacity, g.state.e_capacity
+    base = g._delta_base
+    if (cv, ce) == (cv0, ce0) or base is None or base.e_capacity != ce or \
+            len(g._delta_batches) != 1:
+        raise SystemExit("growth epoch: no growth, or the grown snapshot is not the queue's base")
+    merges = []
+    with spying(maintenance, "delta_merge", merges):
+        csr, dt_fold = wall_s(g.traversal_csr)
+    with uncounted():
+        rebuilt, dt_build = wall_s(lambda: build_csr(g.state))
+        require_csr_equal("growth epoch's fold against build_csr", csr, rebuilt)
+        del rebuilt
+    if len(merges) != 1:
+        raise SystemExit("growth epoch: the fold did not take the device merge")
+    with uncounted():
+        for got_k, want_k in zip(_state_keys(g.state), _oracle_keys(oracle)):
+            if not np.array_equal(got_k, want_k):
+                raise SystemExit("growth epoch: the live set differs from the oracle")
+    out["growth_epoch"] = {"ops": n_add, "apply_s": dt, "capacities": [cv0, ce0, cv, ce],
+                           "fold_ms": dt_fold * 1e3, "build_csr_ms": dt_build * 1e3,
+                           "touched_keys_ms": dt_keys * 1e3, "np_unique_ms": dt_unique * 1e3,
+                           "numpy": np.__version__}
+
+    # the snapshot-compact at the final size, beside the plain rehash
+    state = g.state
+    times = {True: [], False: []}
+    for with_csr in (False, True) * 3:  # in turns; the last one is checked
+        grown = grown_csr = None  # the previous tables go before the next are made
+        (grown, grown_csr, ok), dt = wall_s(lambda: maintenance.rehash(
+            state, 2 * cv, 2 * ce, impl="device", with_csr=with_csr))
+        if not ok:
+            raise SystemExit("rehash at the final size overflowed")
+        times[with_csr].append(dt * 1e3)
+    with uncounted():
+        host, _, host_ok = maintenance.rehash(state, 2 * cv, 2 * ce, impl="host")
+        if not host_ok:
+            raise SystemExit("host rehash at the final size overflowed")
+        for f in GraphState._fields:
+            if not torch.equal(getattr(grown, f), getattr(host, f)):
+                raise SystemExit(f"rehash differs from the host reference in {f}")
+        del host
+        require_csr_equal("rehash(with_csr=True)", grown_csr, build_csr(grown))
+    del grown, grown_csr
+    out["rehash_ms"] = {"with_csr": times[True], "without": times[False]}
+    out["seconds"]["growth epoch and rehash"] = time.perf_counter() - t_part
+    log(f"phase 14: growth epoch of {n_add} edge adds, Cv {cv0} -> {cv}, Ce {ce0} -> {ce}: "
+        f"apply {dt * 1e3:.3f} ms, equal to the oracle; its batch queued on the rehash's snapshot, folded in "
+        f"{dt_fold * 1e3:.3f} ms (build_csr {dt_build * 1e3:.3f} ms), equal; its dedup "
+        f"{dt_keys * 1e3:.3f} ms (np.unique of its edge codes {dt_unique * 1e3:.3f} ms, "
+        f"numpy {np.__version__}); rehash to "
+        f"Cv={2 * cv} Ce={2 * ce} with the snapshot {json.dumps(times[True])} ms, without "
+        f"{json.dumps(times[False])} ms, equal to the host rehash and to build_csr")
+
+    # baselines: every engine from one pre-state (a copy of the grown state:
+    # the engines never write into the state they are given), each mix's
+    # bits and live set held to the oracle after the same lanes
+    out["engines"] = {}
+    pre = g.state
+    for mix in FIG4_MIXES:
+        t_part = time.perf_counter()
+        ops, us, vs = sample_batch(rng, BATCH, mix, key_space=n_keys)
+        bits, want_keys, lo = [], {}, 0
+        for cut in sorted(set(BASELINE_LANES.values())):
+            bits.append(_oracle_apply(oracle, ops[lo:cut], us[lo:cut], vs[lo:cut]))
+            want_keys[cut], lo = _oracle_keys(oracle), cut
+        exp = np.concatenate(bits)
+        rates, post = {}, None
+        for name, lanes in ENGINE_RUNS:
+            fn = ENGINE_FNS[name]
+            batch = make_batch(ops[:lanes], us[:lanes], vs[:lanes], device=dev)
+            res, dt = wall_s(lambda: fn(pre, batch))
+            what = f"{name} at {lanes} lanes, {mix}"
+            if not bool(res.ok):
+                raise SystemExit(f"{what}: overflowed")
+            _check_bits(res.success.cpu().numpy(), exp[:lanes], what)
+            with uncounted():
+                for got_k, want_k in zip(_state_keys(res.state), want_keys[lanes]):
+                    if not np.array_equal(got_k, want_k):
+                        raise SystemExit(f"{what}: live set differs from the oracle")
+            rates[f"{name}@{lanes}"] = {"ops_per_s": lanes / dt, "s": dt}
+            if name == "lockfree":
+                rates[f"{name}@{lanes}"]["rounds"] = int(res.stats[0])
+            if name == "waitfree" and lanes == BATCH:
+                post = res.state
+        out["engines"][mix] = rates
+        out["seconds"][f"engines, {mix}"] = time.perf_counter() - t_part
+        pre = post  # the oracle now holds the whole batch
+        log(f"phase 14: engines on the {mix} mix, one batch each (the serial and coarse loops "
+            f"go one op at a time) from one pre-state (Cv {cv}, Ce {ce}; host clock ended by "
+            "a sync; bits and live set equal to the oracle): " + json.dumps(rates))
+    log("phase 14: wall seconds by part: " + json.dumps(out["seconds"]))
+
+    return out, (fold_inputs[0] if fold_inputs else None)
+
+
+def fold_compact_row(vals, mask, launches: int) -> dict:
+    """``masked_compact`` at the fold's shape: the surviving (src, dst, lane)
+    rows of the last fold epoch's snapshot under its keep mask."""
+    r, n = vals.shape
+    with uncounted():
+        got = ck.masked_compact(vals, mask, fill=0)
+        want = masked_compact(vals, mask, fill=0, impl="reference")
+        row = {
+            "name": "masked_compact", "route": "cuda", "source": "src/repro_torch/csrc/compact.cu",
+            "replaces": "src/repro/kernels/compact/kernel.py:61", "launches": launches,
+            "max_abs_err": require_equal("masked_compact (fold)", got, want),
+            "ms": cuda_ms(lambda: ck.masked_compact(vals, mask, fill=0), 20),
+            "plain_ms": cuda_ms(lambda: masked_compact(vals, mask, fill=0, impl="reference"), 5),
+        }
+        bound = _bound(2 * 4 * r * n + n + 4, (r + 4) * n)
+        row.update(bound_ms=bound[0], bound_by=bound[1],
+                   library_ms=cuda_ms(lambda: vals[:, mask], 20),
+                   shape=f"the delta fold's survivors: {r} x {n}, {int(mask.sum())} kept")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -1917,11 +2222,23 @@ def main(argv=None) -> int:
     small_kernel_checks(dev)
 
     # phase 3: the graph's main path, with every launch count read around it
-    summary, g, sources = run_counted(GRAPH_PATH, lambda: main_path(args.seed))
+    summary, g, oracle, sources = run_counted(GRAPH_PATH, lambda: main_path(args.seed))
     launches = {name: fn.launches for name, fn in WRAPPERS.items()}
     calls = {name: fn.calls for name, fn in WRAPPERS.items()}
     rows = full_shape_kernels(g, sources, launches, calls, place_rounds(), dev)
-    del g
+
+    # phase 14 on the same graph, with every launch count read around it
+    t0 = time.perf_counter()
+    summary["delta"], fold_inputs = run_counted(
+        GRAPH_PATH, lambda: delta_path(g, oracle, args.seed, dev))
+    delta_launches = _launch_counts()
+    for row in rows:
+        row["launches_delta_path"] = delta_launches[row["name"]]
+    if fold_inputs is None:
+        raise SystemExit("phase 14: no fold compacted the snapshot's rows")
+    rows.append(fold_compact_row(*fold_inputs, delta_launches["masked_compact"]))
+    del g, oracle, fold_inputs
+    phase_s["14"] = time.perf_counter() - t0
 
     flash_small_checks(dev)
 
@@ -1937,7 +2254,7 @@ def main(argv=None) -> int:
     hyb_cfg = get_config(HYBRID_ARCH)
     hyb_flash = flash_full_shape(HYBRID_ARCH, hyb_cfg, 0, dev)  # launches: phase 10's
     rows.append(hyb_flash)
-    phase_s["1-7"] = time.perf_counter() - t_start
+    phase_s["1-7"] = time.perf_counter() - t_start - phase_s["14"]
 
     t0 = time.perf_counter()
     ssd_small_checks(dev)

@@ -6,10 +6,13 @@ PyTorch.  Module for module the counterpart of ``repro.core``:
   * :func:`repro_torch.core.engine.apply_batch` — the wait-free combine pass;
     :func:`repro_torch.core.fastpath.apply_batch_fpsp` its fast-path-slow-path
     twin.
+  * :mod:`repro_torch.core.baselines` — coarse / serial / lock-free
+    comparisons (the paper's Fig. 4).
   * :mod:`repro_torch.core.oracle` — sequential specification (ground truth).
   * :mod:`repro_torch.core.traversal` — batched reachability/BFS/k-hop over
-    CSR snapshots.
-  * :mod:`repro_torch.core.maintenance` — the growth rehash.
+    CSR snapshots, built or delta-folded (``apply_delta``).
+  * :mod:`repro_torch.core.maintenance` — the growth rehash (live-compact
+    and snapshot-compact) and the CSR delta merge.
 """
 
 from . import maintenance
@@ -17,6 +20,7 @@ from .graph import WaitFreeGraph
 from .oracle import SequentialGraph, run_sequential
 from .traversal import (
     TraversalCSR,
+    apply_delta,
     bfs_levels,
     bfs_parents,
     build_csr,
@@ -48,6 +52,7 @@ __all__ = [
     "run_sequential",
     "TraversalCSR",
     "build_csr",
+    "apply_delta",
     "bfs_levels",
     "bfs_parents",
     "path_probe",

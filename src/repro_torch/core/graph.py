@@ -58,14 +58,21 @@ def _used_slots(state: GraphState) -> Tuple[int, int]:
 
 
 def _rehash_escalating(
-    state: GraphState, new_vcap: int, new_ecap: int, impl: Optional[str] = None
-) -> GraphState:
+    state: GraphState,
+    new_vcap: int,
+    new_ecap: int,
+    impl: Optional[str] = None,
+    with_csr: bool = False,
+) -> Tuple[GraphState, Optional[traversal.TraversalCSR]]:
     """Rehash into ``(new_vcap, new_ecap)``; should placement overflow
-    ``MAX_PROBES``, double both capacities and retry."""
+    ``MAX_PROBES``, double both capacities and retry.  Returns
+    ``(new_state, csr_or_None)``."""
     for _ in range(_MAX_GROW_ATTEMPTS):
-        new_state, ok = maintenance.rehash(state, new_vcap, new_ecap, impl=impl)
+        new_state, csr, ok = maintenance.rehash(
+            state, new_vcap, new_ecap, impl=impl, with_csr=with_csr
+        )
         if ok:
-            return new_state
+            return new_state, csr
         new_vcap *= 2
         new_ecap *= 2
     raise RuntimeError("rehash placement did not converge")
@@ -74,20 +81,30 @@ def _rehash_escalating(
 class WaitFreeGraph:
     """The unbounded concurrent graph: the paper's public API, batched.
 
-    ``maintenance_impl`` selects where the growth rehash runs: ``"device"``
-    (the ``compact`` kernels on the graph's device) or ``"host"`` (the numpy
-    reference); ``None`` means ``"device"``.  Both give identical tables.
-
-    Traversal snapshots are rebuilt lazily after every mutating batch
-    (``csr_maintenance="rebuild"``), which gives answers bit-identical to
-    ``repro``'s incremental ``"delta"`` fold.
-
     ``mode`` selects the engine: ``"waitfree"`` (``engine.apply_batch``) or
     ``"fpsp"`` (``fastpath.apply_batch_fpsp``); both give identical results.
 
+    ``traversal_impl`` selects every query's frontier step: ``None``
+    dispatches on the graph's device (the ``frontier_expand`` kernel on the
+    card, its plain version on the CPU), ``"reference"`` forces the plain
+    version, ``"kernel"`` the kernel (the graph must be on the card).
+
+    ``csr_maintenance`` picks what happens to a cached traversal snapshot
+    when an update batch lands: ``"delta"`` (the default) queues the batch,
+    and the next query folds the whole queue into the snapshot with one
+    :func:`repro_torch.core.traversal.apply_delta` (bit-identical to a
+    rebuild, O(batch) probes); ``"rebuild"`` drops the snapshot and
+    recompacts it on the next query.
+
+    ``maintenance_impl`` selects where table maintenance (the growth rehash
+    and the delta fold's splice) runs: ``"device"`` (the ``compact`` kernels
+    on the graph's device; a growth then also hands over the grown state's
+    snapshot, the rehash's snapshot-compact) or ``"host"`` (the numpy
+    reference); ``None`` means ``"device"``.  Both give identical tables and
+    snapshots.
+
     Not ported yet, and refused with ``NotImplementedError``:
-    ``n_shards > 1``, ``csr_maintenance="delta"`` and ``obs`` (ROADMAP.md,
-    "Queue 1").
+    ``n_shards > 1`` and ``obs`` (ROADMAP.md, "Queue 1").
     """
 
     def __init__(
@@ -95,7 +112,8 @@ class WaitFreeGraph:
         v_capacity: int = 1024,
         e_capacity: int = 4096,
         mode: str = "waitfree",
-        csr_maintenance: str = "rebuild",
+        traversal_impl: Optional[str] = None,
+        csr_maintenance: str = "delta",
         maintenance_impl: Optional[str] = None,
         n_shards: int = 1,
         obs=None,
@@ -103,12 +121,10 @@ class WaitFreeGraph:
     ):
         if mode not in ("waitfree", "fpsp"):
             raise ValueError(f"unknown mode {mode!r}")
-        if csr_maintenance == "delta":
-            raise NotImplementedError(
-                "csr_maintenance='delta': ROADMAP.md queue 1, next slice 'Delta CSR maintenance'"
-            )
-        if csr_maintenance != "rebuild":
+        if csr_maintenance not in ("delta", "rebuild"):
             raise ValueError(f"unknown csr_maintenance {csr_maintenance!r}")
+        if traversal_impl not in (None, "reference", "kernel"):
+            raise ValueError(f"unknown traversal_impl {traversal_impl!r}")
         if not is_pow2(n_shards):
             raise ValueError("n_shards must be a power of two")
         if n_shards > 1:
@@ -117,9 +133,14 @@ class WaitFreeGraph:
             raise NotImplementedError("obs: ROADMAP.md queue 1, next slice 'Telemetry'")
         maintenance.resolve_impl(maintenance_impl)
         self.device = resolve_device(device, "WaitFreeGraph")
+        if traversal_impl == "kernel" and self.device.type != "cuda":
+            raise ValueError("traversal_impl='kernel' needs the graph on the card")
         self.mode = mode
         self._apply_fn = engine.apply_batch if mode == "waitfree" else fastpath.apply_batch_fpsp
+        self.traversal_impl = traversal_impl
+        self.csr_maintenance = csr_maintenance
         self.maintenance_impl = maintenance_impl
+        self._grow_csr: Optional[traversal.TraversalCSR] = None
         self.state = make_state(v_capacity, e_capacity, device=self.device)
         self._phase = 0  # the paper's maxPhase counter
 
@@ -129,9 +150,13 @@ class WaitFreeGraph:
 
     @state.setter
     def state(self, value: GraphState) -> None:
-        # any state swap invalidates the cached traversal snapshot
+        # any state swap (apply, growth, or a caller installing a state)
+        # invalidates the cached snapshot AND the pending delta queue, whose
+        # base snapshot no longer matches the state
         self._state = value
         self._csr: Optional[traversal.TraversalCSR] = None
+        self._delta_base: Optional[traversal.TraversalCSR] = None
+        self._delta_batches: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
 
     # -- batched API ------------------------------------------------------
     def apply(self, ops, us, vs=None) -> np.ndarray:
@@ -148,6 +173,13 @@ class WaitFreeGraph:
         # traversal snapshot stays valid across the state swap below
         mutating = bool(np.isin(ops0, _MUTATING_OPS).any())
         saved_csr = None if mutating else self._csr
+        # the pending delta queue (base snapshot + unpadded batches since the
+        # last query) survives the state swap below: read-only batches carry
+        # it, mutating batches append to it, and the next query folds the
+        # whole queue in one apply_delta
+        delta_base, delta_batches = self._delta_base, self._delta_batches
+        if mutating and self.csr_maintenance == "delta" and self._csr is not None:
+            delta_base, delta_batches = self._csr, []
         bucket = _bucket_size(n)
         pad = np.zeros(bucket - n, np.int32)  # OP_NOP = 0
         batch = make_batch(
@@ -159,12 +191,33 @@ class WaitFreeGraph:
         )
         self._phase += batch.size
 
-        for _ in range(_MAX_GROW_ATTEMPTS):
+        self._grow_csr = None
+        for attempt in range(_MAX_GROW_ATTEMPTS):
             pre = self.state  # kept alive for transactional retry
             res = self._apply_fn(pre, batch)
             if bool(res.ok) and not self._needs_growth(res.state):
+                grow_csr = self._grow_csr
                 self.state = res.state
-                self._csr = saved_csr
+                if attempt > 0:
+                    # growth moved every slot, so the saved snapshot and the
+                    # queue's base are void (the setter dropped them); the
+                    # rehash's snapshot-compact made the grown state's
+                    # snapshot: queue this batch against it
+                    if mutating and grow_csr is not None and self.csr_maintenance == "delta":
+                        self._delta_base = grow_csr
+                        self._delta_batches = [(ops0, us0, vs0)]
+                elif not mutating:
+                    # abstractly identical pre and post state: the snapshot
+                    # and the queue stay as valid as they were
+                    self._csr = saved_csr
+                    self._delta_base, self._delta_batches = delta_base, delta_batches
+                elif delta_base is not None and self.csr_maintenance == "delta":
+                    # a queue past the fold's own fallback threshold would
+                    # rebuild anyway: drop it and stop accumulating
+                    delta_batches = delta_batches + [(ops0, us0, vs0)]
+                    if sum(b[0].size for b in delta_batches) > delta_base.e_capacity // 4:
+                        delta_base, delta_batches = None, []
+                    self._delta_base, self._delta_batches = delta_base, delta_batches
                 return res.success[:n].cpu().numpy()
             # discard post-state; grow from pre-state; retry the same batch
             self.state = self._grow(pre)
@@ -188,7 +241,15 @@ class WaitFreeGraph:
         if new_vcap == state.v_capacity and new_ecap == state.e_capacity:
             new_vcap *= 2
             new_ecap *= 2
-        return _rehash_escalating(state, new_vcap, new_ecap, self.maintenance_impl)
+        # the snapshot-compact rides the device rehash; on the host it would
+        # be an eager build_csr a grow attempt, so it stays lazy there
+        impl = maintenance.resolve_impl(self.maintenance_impl)
+        with_csr = impl != "host" and self.csr_maintenance == "delta"
+        new_state, csr = _rehash_escalating(state, new_vcap, new_ecap, impl, with_csr)
+        # becomes the delta base of the retried batch in apply() (the state
+        # setter, which installs the grown state next, leaves it alone)
+        self._grow_csr = csr
+        return new_state
 
     # -- the paper's six-operation convenience API -------------------------
     def add_vertex(self, u: int) -> bool:
@@ -212,12 +273,31 @@ class WaitFreeGraph:
     # -- traversal queries (batched wait-free reachability) -----------------
     #
     # Every query runs against one cached TraversalCSR snapshot of the
-    # post-batch state, rebuilt lazily after a mutating batch.
+    # post-batch state, made lazily on the first query after a mutating batch.
 
     def traversal_csr(self) -> traversal.TraversalCSR:
-        """The cached consistent snapshot all queries linearize against."""
+        """The cached consistent snapshot all queries linearize against.
+
+        With ``csr_maintenance="delta"``, the update batches queued since the
+        last query are folded into the previous snapshot in one
+        :func:`repro_torch.core.traversal.apply_delta` (it re-probes the
+        union of the touched keys against the current state, so one fold over
+        many batches is exact); otherwise the snapshot is rebuilt."""
         if self._csr is None:
-            self._csr = traversal.build_csr(self.state)
+            if self._delta_base is not None and self._delta_batches:
+                batches = self._delta_batches
+                self._csr = traversal.apply_delta(
+                    self._delta_base,
+                    self.state,
+                    np.concatenate([b[0] for b in batches]),
+                    np.concatenate([b[1] for b in batches]),
+                    np.concatenate([b[2] for b in batches]),
+                    impl=self.maintenance_impl,
+                )
+            else:
+                self._csr = traversal.build_csr(self.state)
+            self._delta_base = None
+            self._delta_batches = []
         return self._csr
 
     def _pad_keys(self, keys: Sequence[int]) -> Tuple[torch.Tensor, int]:
@@ -237,7 +317,8 @@ class WaitFreeGraph:
             raise ValueError(f"reachable: {len(us)} sources vs {len(vs)} targets")
         pu, n = self._pad_keys(us)
         pv, _ = self._pad_keys(vs)
-        out = traversal.reachable(self.traversal_csr(), pu, pv)[:n].cpu().numpy()
+        out = traversal.reachable(self.traversal_csr(), pu, pv, self.traversal_impl)
+        out = out[:n].cpu().numpy()
         return bool(out[0]) if scalar else out
 
     def bfs(self, u: int) -> Dict[int, int]:
@@ -249,7 +330,7 @@ class WaitFreeGraph:
         """Batched BFS: one level map per source, all against one snapshot."""
         pk, n = self._pad_keys(sources)
         csr = self.traversal_csr()
-        levels = traversal.bfs_levels(csr, pk)[:n].cpu().numpy()
+        levels = traversal.bfs_levels(csr, pk, self.traversal_impl)[:n].cpu().numpy()
         v_key = csr.v_key.cpu().numpy()
         out = []
         for row in levels:
@@ -261,7 +342,7 @@ class WaitFreeGraph:
         """Vertex keys within ≤k directed hops of ``u`` (including ``u``)."""
         pk, _ = self._pad_keys([u])
         csr = self.traversal_csr()
-        mask = traversal.khop_mask(csr, pk, int(k))[0].cpu().numpy()
+        mask = traversal.khop_mask(csr, pk, int(k), self.traversal_impl)[0].cpu().numpy()
         return set(csr.v_key.cpu().numpy()[mask].tolist())
 
     def get_path(self, u: int, v: int) -> Optional[List[int]]:
@@ -279,7 +360,8 @@ class WaitFreeGraph:
         pv, _ = self._pad_keys(vs)
         csr = self.traversal_csr()
         levels, parents, vslot, vlive = (
-            x[:n].cpu().numpy() for x in traversal.path_probe(csr, pu, pv)
+            x[:n].cpu().numpy()
+            for x in traversal.path_probe(csr, pu, pv, self.traversal_impl)
         )
         v_key = csr.v_key.cpu().numpy()
         out: List[Optional[List[int]]] = []

@@ -1,31 +1,44 @@
-"""State maintenance: the growth rehash (live-compact).
+"""State maintenance: the growth rehash, the snapshot-compact and the CSR
+delta merge.
 
-Port of the rehash half of ``repro.core.maintenance``.  A rehash masks the
-live vertices and the incarnation-valid live edges, compacts them in
-table-slot order (``masked_compact``), and re-inserts them into the grown
-tables by claim-round placement (``probe_place``) — Harris physical
-deletion, batched.  Placement is bounded by ``MAX_PROBES``, the engine's own
-locate bound, so every placed key is locatable by construction; a placement
-that would exceed it reports ``ok=False`` and the caller grows further.
+Port of ``repro.core.maintenance``, three operations on the
+:mod:`repro_torch.kernels.compact` primitives:
+
+1. **live-compact** (:func:`rehash`) — mask the live vertices and the
+   incarnation-valid live edges, compact them in table-slot order
+   (``masked_compact``), and re-insert them into the grown tables by
+   claim-round placement (``probe_place``) — Harris physical deletion,
+   batched.  Placement is bounded by ``MAX_PROBES``, the engine's own locate
+   bound, so every placed key is locatable by construction; a placement
+   that would exceed it reports ``ok=False`` and the caller grows further.
+2. **snapshot-compact** (``rehash(..., with_csr=True)``) — the compaction
+   carries every vertex's old slot and every surviving edge's old endpoint
+   slots, so an old-slot → new-slot map gives the new state's
+   :class:`TraversalCSR` with one stable argsort and no locate: a growth
+   hands the delta queue its snapshot.  Bit-identical to ``build_csr`` of
+   the new state.
+3. **delta merge** (:func:`delta_merge`) — the device half of
+   :func:`repro_torch.core.traversal.apply_delta`: compact the surviving
+   lanes, sort the O(batch) delta, and merge it into the surviving runs with
+   ``searchsorted``.  Its composite ``(src, lane)`` keys are int64, so
+   unlike the reference (int32 keys, x64 off) it applies at every capacity
+   below ``2**63`` slots squared (:func:`merge_keys_fit`).
 
 Implementations (``impl``):
 
 * ``"host"`` — :func:`rehash_host`, vectorized numpy claim rounds with the
-  identical discipline: the reference every device path must match bit for
-  bit.
-* ``"device"`` — the :mod:`repro_torch.kernels.compact` primitives on the
-  state's device: the CUDA kernels on the card, their plain versions on the
-  CPU.
+  identical discipline, and the numpy splice of ``apply_delta``: the
+  reference every device path must match bit for bit.
+* ``"device"`` — the compact primitives on the state's device: the CUDA
+  kernels on the card, their plain versions on the CPU.
 * ``None`` — ``"device"``.
 
 A rehash linearizes at the batch boundary that triggered it: the caller
 discards the overflowing post-state and re-applies the same batch against
-the grown pre-state, so no operation observes a half-compacted table.
-
-The snapshot-compact (``with_csr``) branch, the delta merge and the
-sharded ``endpoints`` override wait for the delta and sharding slices; the
-compaction therefore carries only the rows the new tables need (no old-slot
-rows, which only the snapshot-compact reads).
+the grown pre-state, so no operation observes a half-compacted table.  A
+``delta_merge`` inherits the linearization point of the CSR it folds into.
+The sharded ``endpoints`` override of :func:`rehash` waits for the sharding
+slice.
 """
 
 from __future__ import annotations
@@ -38,10 +51,15 @@ import torch
 # the family's ops module, not its names: either package may be imported first
 from ..kernels.compact import ops as compact_ops
 from .hashing import edge_hash32_np, hash_edge, hash_vertex, vertex_hash32_np
-from .traversal import _edge_validity
+from .traversal import TraversalCSR, _delta_probe_parts, _edge_validity, build_csr
 from .types import ABSENT_INC, EMPTY_KEY, MAX_PROBES, GraphState
 
 MAINTENANCE_IMPLS = (None, "host", "device")
+
+# Composite (src, lane) merge keys are int64 below this bound; past it the
+# delta fold takes the host splice (as the reference does past 2**31).
+_MERGE_KEY_LIMIT = 2**63
+_INT64_MAX = 2**63 - 1
 
 _I32 = torch.int32
 
@@ -174,7 +192,8 @@ def rehash_host(state: GraphState, new_vcap: int, new_ecap: int) -> Tuple[GraphS
 
 def _place_rows(rows, count, capacity: int, home_fn, fills):
     """Place the first ``count`` compacted lanes of ``rows`` (key rows first)
-    into fresh ``capacity``-slot columns.  Returns (columns, live, overflow)."""
+    into fresh ``capacity``-slot columns, one column a fill.  Returns
+    (columns, live, overflow, slots, active), ``slots`` -1 where unplaced."""
     dev = rows.device
     active = torch.arange(rows.shape[1], dtype=_I32, device=dev) < count
     home = torch.where(active, home_fn(rows), 0)
@@ -190,27 +209,33 @@ def _place_rows(rows, count, capacity: int, home_fn, fills):
         cols.append(col)
     live = torch.zeros(capacity, dtype=torch.bool, device=dev)
     live[where] = True
-    return cols, live, overflow
+    return cols, live, overflow, slots, active
 
 
-def _rehash_device(state: GraphState, new_vcap: int, new_ecap: int):
-    # vertices: compact live lanes in slot order, place into the new table
+def _rehash_device(state: GraphState, new_vcap: int, new_ecap: int, with_csr: bool):
+    cv_old = state.v_capacity
+    dev = state.device
+
+    # vertices: compact live lanes (with their old slots) in slot order, place
     vcomp, n_v = compact_ops.masked_compact(
-        torch.stack([state.v_key, state.v_inc]), state.v_live, fill=-1
+        torch.stack([state.v_key, state.v_inc, torch.arange(cv_old, dtype=_I32, device=dev)]),
+        state.v_live,
+        fill=-1,
     )
-    (n_vkey, n_vinc), n_vlive, v_over = _place_rows(
+    (n_vkey, n_vinc), n_vlive, v_over, vslots, v_active = _place_rows(
         vcomp, n_v, new_vcap, lambda r: hash_vertex(r[0], new_vcap),
         (EMPTY_KEY, ABSENT_INC),
     )
 
-    # edges: mask stale bindings, compact, place
-    _, _, valid = _edge_validity(state)
+    # edges: mask stale bindings, compact (with the old endpoint slots), place
+    su_old, sv_old, valid = _edge_validity(state)
     ecomp, n_e = compact_ops.masked_compact(
-        torch.stack([state.e_key_u, state.e_key_v, state.e_inc_u, state.e_inc_v]),
+        torch.stack([state.e_key_u, state.e_key_v, state.e_inc_u, state.e_inc_v,
+                     su_old, sv_old]),
         valid,
         fill=-1,
     )
-    (n_eku, n_ekv, n_ebu, n_ebv), n_elive, e_over = _place_rows(
+    (n_eku, n_ekv, n_ebu, n_ebv), n_elive, e_over, eslots, e_active = _place_rows(
         ecomp, n_e, new_ecap, lambda r: hash_edge(r[0], r[1], new_ecap),
         (EMPTY_KEY, EMPTY_KEY, ABSENT_INC, ABSENT_INC),
     )
@@ -219,17 +244,169 @@ def _rehash_device(state: GraphState, new_vcap: int, new_ecap: int):
         v_key=n_vkey, v_live=n_vlive, v_inc=n_vinc,
         e_key_u=n_eku, e_key_v=n_ekv, e_live=n_elive, e_inc_u=n_ebu, e_inc_v=n_ebv,
     )
-    return new_state, not bool(v_over | e_over)
+    ok = not bool(v_over | e_over)
+    if not with_csr:
+        return new_state, None, ok
+
+    # snapshot-compact: every compacted edge knows its endpoints' old slots,
+    # and old2new turns them into new ones, so only build_csr's argsort
+    # remains
+    old2new = torch.full((cv_old + 1,), new_vcap, dtype=_I32, device=dev)
+    old2new[vcomp[2][v_active].long()] = vslots[v_active]
+    e_placed = e_active & (eslots >= 0)
+    where = eslots[e_placed].long()
+    src_lane = torch.full((new_ecap,), new_vcap, dtype=_I32, device=dev)
+    dst_lane = torch.full((new_ecap,), new_vcap, dtype=_I32, device=dev)
+    src_lane[where] = old2new[ecomp[4][e_placed].long()]
+    dst_lane[where] = old2new[ecomp[5][e_placed].long()]
+    order = torch.argsort(src_lane, stable=True)
+    src = src_lane[order]
+    rows = torch.arange(new_vcap, dtype=_I32, device=dev)
+    csr = TraversalCSR(
+        v_key=n_vkey,
+        v_live=n_vlive,
+        v_inc=n_vinc,
+        n_live=n_v,
+        src=src,
+        dst=dst_lane[order],
+        lane=order.to(_I32),
+        row_start=torch.searchsorted(src, rows, right=False).to(_I32),
+        row_end=torch.searchsorted(src, rows, right=True).to(_I32),
+        n_edges=n_e,
+    )
+    return new_state, csr, ok
 
 
 def rehash(
-    state: GraphState, new_vcap: int, new_ecap: int, *, impl: Optional[str] = None
-) -> Tuple[GraphState, bool]:
+    state: GraphState,
+    new_vcap: int,
+    new_ecap: int,
+    *,
+    impl: Optional[str] = None,
+    with_csr: bool = False,
+    endpoints=None,
+) -> Tuple[GraphState, Optional[TraversalCSR], bool]:
     """Grow + compact into fresh ``(new_vcap, new_ecap)`` tables.
 
-    Returns ``(new_state, ok)``; ``ok=False`` means a probe chain would have
-    exceeded ``MAX_PROBES`` — discard the new state and grow further.  Both
-    impls are bit-identical."""
+    Returns ``(new_state, csr, ok)``.  ``csr`` is the new state's
+    :class:`TraversalCSR` when ``with_csr`` (bit-identical to
+    ``build_csr(new_state)``; the host impl builds it, and only when ``ok``),
+    else ``None``.  ``ok=False`` means a probe chain would have exceeded
+    ``MAX_PROBES`` — discard the new state and grow further.  Both impls are
+    bit-identical.  ``endpoints`` (the partitioned shards' global endpoint
+    index) is refused until the sharding slice."""
+    if endpoints is not None:
+        raise NotImplementedError("endpoints: ROADMAP.md queue 1, next slice 'Sharding'")
     if resolve_impl(impl) == "host":
-        return rehash_host(state, new_vcap, new_ecap)
-    return _rehash_device(state, new_vcap, new_ecap)
+        new_state, ok = rehash_host(state, new_vcap, new_ecap)
+        csr = build_csr(new_state) if (with_csr and ok) else None
+        return new_state, csr, ok
+    return _rehash_device(state, new_vcap, new_ecap, with_csr)
+
+
+# ---------------------------------------------------------------------------
+# device delta merge (the searchsorted splice of apply_delta)
+# ---------------------------------------------------------------------------
+
+
+def merge_keys_fit(cv: int, ce: int) -> bool:
+    """Whether the composite ``src * ce + lane`` merge keys (at most
+    ``cv * ce - 1``) stay below the int64 sentinel: the device merge's
+    applicability guard."""
+    return cv * ce < _MERGE_KEY_LIMIT
+
+
+def _drop_set(buf: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor, write: torch.Tensor):
+    """``buf[idx[i]] = vals[i]`` where ``write[i]``, for a ``buf`` with one
+    spare slot at its end that takes every unwritten lane (the reference's
+    ``mode="drop"`` scatter, with no read back to the host)."""
+    spare = buf.shape[0] - 1
+    buf[torch.where(write, idx, spare).long()] = vals
+
+
+def _delta_merge_device(csr: TraversalCSR, state: GraphState, keys: torch.Tensor,
+                        nv: int, ne: int) -> TraversalCSR:
+    cv, ce = csr.v_capacity, csr.e_capacity
+    dev = keys.device
+    p = _delta_probe_parts(state, keys[:nv], keys[nv:nv + ne], keys[nv + ne:])
+
+    # vertices whose (live, inc) changed invalidate every lane bound to them
+    v_l = p.v_slot.long()
+    changed = p.v_found & ((csr.v_live[v_l] != p.v_live_now) | (csr.v_inc[v_l] != p.v_inc_now))
+    hit = torch.zeros(cv + 2, dtype=torch.bool, device=dev)
+    _drop_set(hit, p.v_slot, torch.ones_like(changed), changed)
+
+    # every touched edge key is re-derived from the post state: drop its old
+    # entry (if any) so the merge below is the single source
+    ltouch = torch.zeros(ce + 1, dtype=torch.bool, device=dev)
+    _drop_set(ltouch, p.e_lane, torch.ones_like(p.e_found), p.e_found)
+
+    lanes = torch.arange(ce, dtype=_I32, device=dev)
+    src_l = csr.src.long()
+    keep = ((lanes < csr.n_edges) & ~(hit[src_l] | hit[csr.dst.long()])
+            & ~ltouch[csr.lane.long()])
+    scomp, n_keep = compact_ops.masked_compact(
+        torch.stack([csr.src, csr.dst, csr.lane]), keep, fill=0
+    )
+    s_src, s_dst, s_lane = scomp
+    s_active = lanes < n_keep
+    s_key = torch.where(s_active, s_src.long() * ce + s_lane, _INT64_MAX)
+
+    # the O(batch) delta, sorted by the (src, lane) order of the rebuild's
+    # stable argsort
+    ins = p.e_found & p.e_valid
+    d_key0 = torch.where(ins, p.e_su.long() * ce + p.e_lane, _INT64_MAX)
+    d_key, dorder = torch.sort(d_key0, stable=True)
+    d_src, d_dst, d_lane, d_ins = p.e_su[dorder], p.e_sv[dorder], p.e_lane[dorder], ins[dorder]
+    n_ins = ins.sum().to(_I32)
+
+    # searchsorted merge: keys are distinct (lanes are), so each side's final
+    # position is its own rank plus the other side's count of smaller keys
+    pos_s = lanes + torch.searchsorted(d_key, s_key).to(_I32)
+    d_rank = torch.arange(d_key.shape[0], dtype=_I32, device=dev)
+    pos_d = d_rank + torch.searchsorted(s_key, d_key).to(_I32)
+
+    out_src = torch.full((ce + 1,), cv, dtype=_I32, device=dev)
+    out_dst = torch.full((ce + 1,), cv, dtype=_I32, device=dev)
+    out_lane = torch.zeros(ce + 1, dtype=_I32, device=dev)
+    for out, s_vals, d_vals in ((out_src, s_src, d_src), (out_dst, s_dst, d_dst),
+                                (out_lane, s_lane, d_lane)):
+        _drop_set(out, pos_s, s_vals, s_active)
+        _drop_set(out, pos_d, d_vals, d_ins)
+
+    # tail: the unused lanes in ascending order, exactly where the rebuild's
+    # stable argsort leaves the invalid lanes
+    n_valid = n_keep + n_ins
+    lane_used = torch.zeros(ce + 1, dtype=torch.bool, device=dev)
+    _drop_set(lane_used, s_lane, torch.ones_like(s_active), s_active)
+    _drop_set(lane_used, d_lane, torch.ones_like(d_ins), d_ins)
+    ucomp, n_unused = compact_ops.masked_compact(lanes[None, :], ~lane_used[:ce], fill=0)
+    _drop_set(out_lane, n_valid + lanes, ucomp[0], lanes < n_unused)
+
+    out_src = out_src[:ce]
+    rows = torch.arange(cv, dtype=_I32, device=dev)
+    return TraversalCSR(
+        v_key=state.v_key,
+        v_live=state.v_live,
+        v_inc=state.v_inc,
+        n_live=p.n_live,
+        src=out_src,
+        dst=out_dst[:ce],
+        lane=out_lane[:ce],
+        row_start=torch.searchsorted(out_src, rows, right=False).to(_I32),
+        row_end=torch.searchsorted(out_src, rows, right=True).to(_I32),
+        n_edges=n_valid,
+    )
+
+
+def delta_merge(
+    csr: TraversalCSR, state: GraphState, pack: np.ndarray, nv: int, ne: int
+) -> TraversalCSR:
+    """Fold the (deduplicated, bucket-padded, packed ``vkeys | e_us | e_vs``)
+    touched keys into ``csr`` on the state's device — the searchsorted splice
+    of :func:`repro_torch.core.traversal.apply_delta`, with one host-to-device
+    transfer and none back.  Callers own the fallback guards (capacity
+    change, delta footprint, :func:`merge_keys_fit`); bit-identity to
+    ``build_csr(state)`` holds by construction."""
+    keys = torch.as_tensor(pack, device=state.device)
+    return _delta_merge_device(csr, state, keys, nv, ne)

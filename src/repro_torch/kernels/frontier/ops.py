@@ -2,7 +2,9 @@
 
 Dispatch by the tensors' device: a CUDA tensor launches the kernel, a CPU
 tensor takes the plain version.  ``impl="reference"`` forces the plain
-version on any device (the comparison in ``chip_smoke.py`` uses it).
+version on any device (the comparison in ``chip_smoke.py`` uses it), and
+``impl="kernel"`` the kernel, which refuses tensors that are not on the
+card.
 """
 
 from __future__ import annotations
@@ -18,6 +20,6 @@ def frontier_expand(
 ) -> torch.Tensor:
     if impl == "reference" or (impl is None and not frontier.is_cuda):
         return _ref.frontier_expand_reference(frontier, src, dst)
-    if impl is not None:
+    if impl not in (None, "kernel"):
         raise ValueError(f"unknown impl {impl!r}")
     return _kernel.frontier_expand(frontier, src, dst)

@@ -102,13 +102,36 @@ def test_default_device_is_the_card(monkeypatch):
 # keyword arguments of WaitFreeGraph, or {"family": arch} for an LM of a
 # family the port does not run yet
 @pytest.mark.parametrize("kwargs", [{"family": "mixtral-8x7b"}, {"n_shards": 2},
-                                    {"csr_maintenance": "delta"}, {"obs": True}])
+                                    {"family": "llama-3.2-vision-11b"}, {"obs": True}])
 def test_later_slices_are_refused(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if "family" in kwargs:
             LM(get_smoke_config(kwargs["family"]), device="cpu")
         else:
             WaitFreeGraph(device="cpu", **kwargs)
+
+
+def test_delta_maintenance_is_the_default():
+    g = WaitFreeGraph(device="cpu")
+    assert g.csr_maintenance == "delta" and g.traversal_impl is None
+    assert WaitFreeGraph(csr_maintenance="rebuild", device="cpu").csr_maintenance == "rebuild"
+
+
+# "kernel_interpret" is repro's Pallas interpreter, which the port has not;
+# "kernel" needs the graph on the card
+@pytest.mark.parametrize("kwargs", [{"traversal_impl": "kernel_interpret"},
+                                    {"traversal_impl": "pallas"}, {"traversal_impl": "kernel"},
+                                    {"csr_maintenance": "eager"}])
+def test_unknown_traversal_impl_raises(kwargs):
+    with pytest.raises(ValueError):
+        WaitFreeGraph(device="cpu", **kwargs)
+
+
+def test_reference_traversal_impl_gives_the_same_answers():
+    g = WaitFreeGraph(64, 64, traversal_impl="reference", device="cpu")
+    g.apply([1, 1, 1, 4, 4], [1, 2, 3, 1, 2], [0, 0, 0, 2, 3])
+    assert g.reachable(1, 3) and not g.reachable(3, 1)
+    assert g.bfs(1) == {1: 0, 2: 1, 3: 2} and g.get_path(1, 3) == [1, 2, 3]
 
 
 _PKG = Path(repro_torch.__file__).parent

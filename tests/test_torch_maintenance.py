@@ -48,8 +48,8 @@ def test_rehash_matches_host_reference(seed, grow, impl):
     state = _churned_state(seed)
     vcap, ecap = grow * state.v_capacity, grow * state.e_capacity
     want, want_ok = _reference(state, vcap, ecap)
-    got, ok = maintenance.rehash(state, vcap, ecap, impl=impl)
-    assert ok and want_ok
+    got, csr, ok = maintenance.rehash(state, vcap, ecap, impl=impl)
+    assert ok and want_ok and csr is None
     assert_states_equal(got, want, f"seed={seed} grow={grow} impl={impl}")
 
 
@@ -59,8 +59,8 @@ def test_rehash_overflow_verdict_matches(impl):
     is False in both packages, and the partial tables agree too."""
     state = _churned_state(3)
     want, want_ok = _reference(state, 16, 16)
-    got, ok = maintenance.rehash(state, 16, 16, impl=impl)
-    assert not ok and not want_ok
+    got, csr, ok = maintenance.rehash(state, 16, 16, impl=impl)
+    assert not ok and not want_ok and csr is None
     assert_states_equal(got, want, impl)
 
 
@@ -68,7 +68,7 @@ def test_rehash_default_is_device_and_matches_repro_device_path():
     state = _churned_state(4)
     jstate = JGraphState(**{k: jax.numpy.asarray(v) for k, v in state_columns(state).items()})
     want, _, want_ok = j_maint.rehash(jstate, 512, 2048, impl="device")
-    got, ok = maintenance.rehash(state, 512, 2048)
+    got, _, ok = maintenance.rehash(state, 512, 2048)
     assert maintenance.resolve_impl(None) == "device"
     assert ok and bool(want_ok)
     assert_states_equal(got, want)
@@ -80,7 +80,8 @@ def test_grow_escalates_on_overflow():
     from repro_torch.core.graph import _rehash_escalating
 
     state = _churned_state(5)
-    got = _rehash_escalating(state, 16, 16)
+    got, csr = _rehash_escalating(state, 16, 16)
+    assert csr is None
     vcap = got.v_capacity
     assert vcap > 16 and got.e_capacity == got.v_capacity
     want, want_ok = _reference(state, vcap, got.e_capacity)
