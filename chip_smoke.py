@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one NVIDIA card: the wait-free graph, the
-serving paths of three LMs (dense, ssm and hybrid) and the paged decode
-attention on the serving page table's own block tables.
+"""Drive the PyTorch/CUDA port on one NVIDIA card: the wait-free graph (one
+shard and hash-prefix sharded), the serving paths of three LMs (dense, ssm
+and hybrid) and the paged decode attention on the serving page table's own
+block tables.
 
 Run from the root of a checkout, with one card visible:
 
@@ -176,6 +177,29 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    The ``kernels`` line gains a ``masked_compact`` row at the fold's shape
    (the survivors' 3 rows of 2^23 lanes), and each graph row the launches
    of this phase (``launches_delta_path``).
+15. Run right after phase 14: the hash-prefix sharded graph at the same
+   scale, four logical shards on the card.  ``WaitFreeGraph(n_shards=4)``
+   at its default capacities (256 vertex and 1,024 edge slots a shard)
+   takes phase 3's build stream from the same seed, every batch's bits
+   checked against a sequential oracle fed the same batches; it grows
+   shard by shard through the endpoint rehash.  The growth steps, the
+   sub-batch balance, the build's ``apply`` time and one timed window of
+   ``apply`` a Fig. 4 mix (with a profile of three balanced batches) are
+   printed, and the snapshot must equal the oracle's.  Then the fused
+   snapshot: ``traversal_csr()`` (the device fuse), then the device and the
+   host fuse (``impl="host"``) timed in turns and equal field for field,
+   ``n_edges`` and ``n_live`` equal to the oracle, and the queries of phase
+   3 checked the same way.  ``WaitFreeGraph(n_shards=2, mode="fpsp")`` on
+   the stream's first 30 batches must give the 4-shard bits.  Telemetry:
+   one- and four-shard FPSP graphs with ``obs=True`` (edge tables of 2^21
+   slots, which must not grow after the vertex loads) on the first 26
+   batches (the vertex loads and 8 traversal batches; the vertex loads
+   alone would leave the stab and edge phases nothing to do) give the
+   4-shard bits, equal shard-invariant counters and equal directory probe
+   histograms, and the four-shard graph's span table (host wall ms of each
+   pipeline phase and of ``csr.fuse``) is printed.  Every graph kernel must
+   launch in the phase; each graph row of the ``kernels`` line gains its
+   launches here (``launches_sharded_path``).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``kernels`` record.  Without a card, or outside a checkout of the repository,
@@ -213,7 +237,8 @@ from repro_torch.core.hashing import hash_vertex, probe_slot  # noqa: E402
 from repro_torch.core.locate import claim_vertex_slots  # noqa: E402
 from repro_torch.core.traversal import _edge_validity, bfs_levels, build_csr  # noqa: E402
 from repro_torch.core.types import GROW_LOAD_FACTOR, MAX_PROBES, make_batch  # noqa: E402
-from repro_torch.core.workloads import sample_batch  # noqa: E402
+from repro_torch.core import sharding  # noqa: E402
+from repro_torch.core.workloads import sample_batch, shard_balance  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.compact import kernel as ck  # noqa: E402
 from repro_torch.kernels.compact import masked_compact, probe_place  # noqa: E402
@@ -235,6 +260,7 @@ from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import blocks as model_blocks  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models.module import tree_leaves, tree_map  # noqa: E402
+from repro_torch.obs import probes as obs_probes  # noqa: E402
 from repro_torch.serving import PagedKVManager, Request, ServingEngine  # noqa: E402
 
 # the kernel wrappers, whose launch and call counts the main paths are read by
@@ -279,6 +305,21 @@ ENGINE_FNS = dict(baselines.ENGINES, waitfree=engine.apply_batch,
 ENGINE_RUNS = [(name, lanes) for name, lanes in BASELINE_LANES.items()] + [
     (name, lanes) for name in ("waitfree", "fpsp") for lanes in (128, 512, BATCH)]
 PLACE_M, PLACE_CAP = 1 << 21, 1 << 22  # the vertex rehash from 2^21 to 2^22 slots
+SHARDS = 4                   # phase 15's shard count, logical shards on one card
+SHARDED_FPSP_BATCHES = 30    # phase 15's 2-shard FPSP run: the stream's first batches
+OBS_BATCHES = 26             # phase 15's telemetry: the vertex loads and 8 traversal batches
+# ... on edge tables (2^21 slots in all) that those 8 batches' ~315,000 edge
+# adds do not outgrow: a growth after the first removal drops tombstones, so
+# ``engine.inserted`` (new physical slots) would then depend on when each
+# shard count grew; growth during the vertex loads reclaims nothing, and the
+# phase fails if either graph grows after them
+OBS_E_CAPACITY = 1 << 21
+# tests/test_obs.py's counters that do not depend on the shard count
+SHARD_INVARIANT_COUNTERS = ("apply.batches", "apply.ops", "engine.vops", "engine.eops",
+                            "engine.inserted", "fastpath.eops", "fastpath.edge_dup")
+SPAN_TABLE = ("graph.apply_sharded", "phase.route", "phase.settle_vertices",
+              "phase.answer_stabs", "phase.gather", "phase.settle_edges", "phase.compact",
+              "csr.fuse")
 FRONTIER_DEPTH = 3           # phase 4's frontiers: the BFS level 3 of their sources
 L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
 SECTOR_BYTES = 32           # the unit a gather moves from device memory
@@ -583,7 +624,33 @@ def profile_window(step, n: int, unit: str):
     }
 
 
-def profile_apply(g, oracle, rng, n_keys, n_batches: int = 3) -> dict:
+def fig4_windows(g, oracle, rng, n_keys, phase: int) -> dict:
+    """``apply`` timed for each Fig. 4 mix: a warm-up batch, then
+    TIMED_BATCHES - 1 batches of BATCH ops on the host clock ended by a
+    sync; every batch's bits are checked against the oracle afterwards.
+    Returns ops/s per mix."""
+    rates = {}
+    for mix in FIG4_MIXES:
+        batches = [sample_batch(rng, BATCH, mix, key_space=n_keys) for _ in range(TIMED_BATCHES)]
+        warm = g.apply(*batches[0])
+        _check_bits(warm, _oracle_apply(oracle, *batches[0]), f"{mix} warm-up batch")
+        results = []
+        sync()
+        t0 = time.perf_counter()
+        for b in batches[1:]:
+            results.append(g.apply(*b))
+        sync()
+        dt = time.perf_counter() - t0
+        rate = (TIMED_BATCHES - 1) * BATCH / dt
+        for j, (b, got) in enumerate(zip(batches[1:], results)):
+            _check_bits(got, _oracle_apply(oracle, *b), f"{mix} batch {j}")
+        rates[mix] = rate
+        log(f"phase {phase}: apply {mix}: {rate:.0f} ops/s over {TIMED_BATCHES - 1} batches of "
+            f"{BATCH} (host clock, ended by a sync); bits equal to the oracle")
+    return rates
+
+
+def profile_apply(g, oracle, rng, n_keys, n_batches: int = 3, phase: int = 3) -> dict:
     """The profile of ``apply`` on a few balanced batches, each checked
     against the oracle."""
     batches = iter([sample_batch(rng, BATCH, "balanced", key_space=n_keys)
@@ -597,7 +664,7 @@ def profile_apply(g, oracle, rng, n_keys, n_batches: int = 3) -> dict:
     results, res = profile_window(step, n_batches, "batch")
     for j, (b, got) in enumerate(zip(used, results)):
         _check_bits(got, _oracle_apply(oracle, *b), f"profiled batch {j}")
-    log("phase 3: apply profile (balanced): " + json.dumps(res))
+    log(f"phase {phase}: apply profile (balanced): " + json.dumps(res))
     return res
 
 
@@ -634,26 +701,7 @@ def main_path(seed: int):
     out.update(live_vertices=live_v, live_edges=live_e,
                v_capacity=g.state.v_capacity, e_capacity=g.state.e_capacity)
 
-    # Fig. 4 mixes: time apply, then check the bits against the oracle
-    out["apply_ops_per_s"] = {}
-    for mix in FIG4_MIXES:
-        batches = [sample_batch(rng, BATCH, mix, key_space=n_keys) for _ in range(TIMED_BATCHES)]
-        warm = g.apply(*batches[0])
-        _check_bits(warm, _oracle_apply(oracle, *batches[0]), f"{mix} warm-up batch")
-        results = []
-        sync()
-        t0 = time.perf_counter()
-        for b in batches[1:]:
-            results.append(g.apply(*b))
-        sync()
-        dt = time.perf_counter() - t0
-        rate = (TIMED_BATCHES - 1) * BATCH / dt
-        for j, (b, got) in enumerate(zip(batches[1:], results)):
-            _check_bits(got, _oracle_apply(oracle, *b), f"{mix} batch {j}")
-        out["apply_ops_per_s"][mix] = rate
-        log(f"phase 3: apply {mix}: {rate:.0f} ops/s over {TIMED_BATCHES - 1} batches of "
-            f"{BATCH} (host clock, ended by a sync); bits equal to the oracle")
-
+    out["apply_ops_per_s"] = fig4_windows(g, oracle, rng, n_keys, 3)
     out["apply_profile"] = profile_apply(g, oracle, rng, n_keys)
 
     # one growth rehash at the final size, held against the host reference
@@ -682,8 +730,18 @@ def main_path(seed: int):
     if int(csr.n_edges) != len(oracle.edges):
         raise SystemExit("CSR edge count differs from the oracle")
 
-    # queries: 16 BFS sources; the first 4 are checked against the oracle,
-    # and so are the 32 reachability pairs and 16 paths drawn from them
+    queries, sources, r_us = query_checks(g, oracle, rng, n_keys)
+    out.update(queries)
+    log(f"phase 3: build_csr {out['build_csr_ms']:.3f} ms; " + query_summary(out))
+    return out, g, oracle, (sources, r_us)
+
+
+def query_checks(g, oracle, rng, n_keys):
+    """``reachable`` on 256 pairs, ``bfs_batch`` on 16 sources and
+    ``get_path_batch`` on 16 pairs, each timed (host clock ended by a sync);
+    4 BFS maps, the 32 pairs and 16 paths drawn from them are checked
+    against the oracle.  Returns (times, sources, the pairs' sources)."""
+    out = {}
     live_keys = np.fromiter(oracle.vertices, np.int64, len(oracle.vertices)).astype(np.int32)
     sources = rng.choice(live_keys, 16, replace=False)
     checked = sources[:4]
@@ -714,11 +772,14 @@ def main_path(seed: int):
                               any(e not in oracle.edges for e in zip(p, p[1:]))):
             raise SystemExit(f"get_path({u}, {v}) is not a shortest path")
     out["bfs_reached_mean"] = float(np.mean([len(x) for x in levels]))
-    log(f"phase 3: build_csr {out['build_csr_ms']:.3f} ms; reachable on 256 pairs "
-        f"{out['reachable_256_ms']:.3f} ms; bfs_batch on 16 sources {out['bfs_batch_16_ms']:.3f} ms "
-        f"(mean {out['bfs_reached_mean']:.0f} vertices reached); get_path_batch on 16 pairs "
-        f"{out['get_path_batch_16_ms']:.3f} ms; 4 BFS maps, 32 pairs and 16 paths equal to the oracle")
-    return out, g, oracle, (sources, r_us)
+    return out, sources, r_us
+
+
+def query_summary(out) -> str:
+    return (f"reachable on 256 pairs {out['reachable_256_ms']:.3f} ms; bfs_batch on 16 sources "
+            f"{out['bfs_batch_16_ms']:.3f} ms (mean {out['bfs_reached_mean']:.0f} vertices "
+            f"reached); get_path_batch on 16 pairs {out['get_path_batch_16_ms']:.3f} ms; 4 BFS "
+            f"maps, 32 pairs and 16 paths equal to the oracle")
 
 
 # ---------------------------------------------------------------------------
@@ -1144,6 +1205,145 @@ def delta_path(g, oracle, seed: int, dev):
     log("phase 14: wall seconds by part: " + json.dumps(out["seconds"]))
 
     return out, (fold_inputs[0] if fold_inputs else None)
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the sharded graph at com-Youtube scale
+# ---------------------------------------------------------------------------
+
+
+def build_stream(rng):
+    """Phase 3's build stream, given a generator made from the same seed:
+    the vertex loads, then TRAVERSAL_BATCHES ``traversal`` batches, as
+    (label, ops, us, vs); ``rng`` is left where phase 3's Fig. 4 batches
+    start."""
+    n_keys = COM_YOUTUBE_VERTICES
+    for lo in range(0, n_keys, BATCH):
+        us = np.arange(lo, min(lo + BATCH, n_keys), dtype=np.int32)
+        yield "vertex load", np.full(us.shape, OP_ADD_VERTEX, np.int32), us, np.zeros_like(us)
+    for i in range(TRAVERSAL_BATCHES):
+        yield (f"traversal batch {i}", *sample_batch(rng, BATCH, "traversal", key_space=n_keys))
+
+
+def _shard_caps(g):
+    return tuple((st.v_capacity, st.e_capacity) for st in g.shards)
+
+
+def _balance(shard_idx) -> float:
+    sizes = [idx.size for idx in shard_idx]
+    return max(sizes) * len(sizes) / max(1, sum(sizes))
+
+
+def sharded_path(seed: int, dev):
+    n_keys = COM_YOUTUBE_VERTICES
+    out = {"n_shards": SHARDS, "seconds": {}}
+    t_part = time.perf_counter()
+
+    # part 1: the 4-shard build, every batch checked against the oracle
+    g = WaitFreeGraph(n_shards=SHARDS, device=dev)
+    oracle = SequentialGraph()
+    out["shard_capacities_start"] = _shard_caps(g)
+    caps_seen = [_shard_caps(g)]
+    bits, balance, apply_s, n_ops = [], [], 0.0, 0
+    rng = np.random.default_rng(seed)
+    for label, ops, us, vs in build_stream(rng):
+        if label.startswith("traversal"):
+            balance.append(_balance(sharding.route_ops(ops, us, vs, SHARDS)[0]))
+        if label == "traversal batch 0":
+            edge_hist = shard_balance(ops, us, vs, SHARDS).tolist()
+        sync()
+        t0 = time.perf_counter()
+        got = g.apply(ops, us, vs)
+        sync()
+        apply_s += time.perf_counter() - t0
+        _check_bits(got, _oracle_apply(oracle, ops, us, vs), f"sharded {label}")
+        if len(bits) < SHARDED_FPSP_BATCHES:
+            bits.append((ops, us, vs, got))
+        n_ops += ops.size
+        if _shard_caps(g) != caps_seen[-1]:
+            caps_seen.append(_shard_caps(g))
+    out.update(build_ops=n_ops, build_apply_s=apply_s, build_ops_per_s=n_ops / apply_s,
+               growth_steps=caps_seen, subbatch_balance=[min(balance), max(balance)],
+               live_vertices=len(oracle.vertices), live_edges=len(oracle.edges))
+    log(f"phase 15: built {n_ops} ops on {SHARDS} shards in {apply_s:.3f} s of apply (host "
+        f"clock ended by a sync; {n_ops / apply_s:.0f} ops/s), every batch equal to the oracle; "
+        f"live vertices {len(oracle.vertices)}, live edges {len(oracle.edges)}; shard "
+        f"capacities (Cv, Ce) at each growth: {caps_seen}; sub-batch balance (max over mean) "
+        f"{min(balance):.4f}-{max(balance):.4f}; edge ops a shard in the first traversal "
+        f"batch {edge_hist}")
+    out["apply_ops_per_s"] = fig4_windows(g, oracle, rng, n_keys, 15)
+    out["apply_profile"] = profile_apply(g, oracle, rng, n_keys, phase=15)
+    if g.snapshot() != (oracle.vertices, oracle.edges):
+        raise SystemExit("phase 15: the sharded graph's snapshot differs from the oracle")
+    out["seconds"]["build"] = time.perf_counter() - t_part
+
+    # part 2: the fused snapshot, on the card and on the host, and queries
+    t_part = time.perf_counter()
+    csr, dt = wall_s(g.traversal_csr)
+    out["fuse_ms_first"] = dt * 1e3
+    if int(csr.n_edges) != len(oracle.edges) or int(csr.n_live) != len(oracle.vertices):
+        raise SystemExit("phase 15: the fused snapshot's counts differ from the oracle")
+    fuse_ms = {"device": [], "host": []}
+    for impl in ("device", "host", "host", "device"):
+        fused, dt = wall_s(lambda: sharding.fuse_partitioned(g.shards, impl=impl))
+        require_csr_equal(f"phase 15 {impl} fuse", fused, csr)
+        fuse_ms[impl].append(dt * 1e3)
+        del fused
+    out["fuse_ms"] = fuse_ms
+    out.update(directory_capacity=csr.v_capacity, fused_edge_lanes=csr.e_capacity)
+    queries, _, _ = query_checks(g, oracle, rng, n_keys)
+    out.update(queries)
+    log(f"phase 15: fused snapshot (directory Cv={csr.v_capacity}, {csr.e_capacity} edge lanes) "
+        f"{out['fuse_ms_first']:.3f} ms as the graph's first query; the device fuse "
+        f"{fuse_ms['device']} ms and the host fuse {fuse_ms['host']} ms in turns, field for "
+        f"field equal; n_edges and n_live equal to the oracle; " + query_summary(out))
+    del csr, oracle
+    out["seconds"]["fuse_and_queries"] = time.perf_counter() - t_part
+
+    # part 3: FPSP on 2 shards gives part 1's bits
+    t_part = time.perf_counter()
+    g2 = WaitFreeGraph(n_shards=2, mode="fpsp", device=dev)
+    for i, (ops, us, vs, want) in enumerate(bits):
+        if not np.array_equal(g2.apply(ops, us, vs), want):
+            raise SystemExit(f"phase 15: 2-shard FPSP bits differ from 4 shards at batch {i}")
+    out["fpsp_2_shards"] = {"batches": len(bits), "shard_capacities": _shard_caps(g2)}
+    log(f"phase 15: 2-shard FPSP on the first {len(bits)} batches: bits equal to the 4-shard "
+        f"graph's; shard capacities {_shard_caps(g2)}")
+    del g, g2
+    out["seconds"]["fpsp_2_shards"] = time.perf_counter() - t_part
+
+    # part 4: telemetry on one shard and on four, FPSP, against obs off
+    t_part = time.perf_counter()
+    graphs = {n: WaitFreeGraph(e_capacity=OBS_E_CAPACITY, n_shards=n, mode="fpsp", obs=True,
+                               device=dev) for n in (1, SHARDS)}
+    n_loads = -(-n_keys // BATCH)
+    for i, (ops, us, vs, want) in enumerate(bits[:OBS_BATCHES]):
+        if i == n_loads:
+            grown = {n: gn.obs.counters().get("growth.events", 0) for n, gn in graphs.items()}
+        for n, gn in graphs.items():
+            if not np.array_equal(gn.apply(ops, us, vs), want):
+                raise SystemExit(f"phase 15: obs-on bits ({n} shards) differ at batch {i}")
+    if any(gn.obs.counters().get("growth.events", 0) != grown[n] for n, gn in graphs.items()):
+        raise SystemExit("phase 15: a telemetry graph grew after the vertex loads")
+    graphs[SHARDS].traversal_csr()
+    counters = {n: gn.obs.counters() for n, gn in graphs.items()}
+    for name in SHARD_INVARIANT_COUNTERS:
+        if counters[1].get(name) != counters[SHARDS].get(name):
+            raise SystemExit(f"phase 15: {name} differs between 1 and {SHARDS} shards")
+    dirs = {n: obs_probes.directory_probe_histogram(gn) for n, gn in graphs.items()}
+    if dirs[1] != dirs[SHARDS]:
+        raise SystemExit("phase 15: the directory probe histograms differ across shard counts")
+    spans = graphs[SHARDS].obs.dump()["spans"]
+    table = {name: {"count": spans[name]["count"], "total_ms": spans[name]["total_ms"]}
+             for name in SPAN_TABLE if name in spans}
+    out["telemetry"] = {"batches": OBS_BATCHES,
+                        "counters": {k: counters[SHARDS].get(k) for k in SHARD_INVARIANT_COUNTERS},
+                        "directory_probe_hist": dirs[SHARDS], "spans": table}
+    log(f"phase 15: telemetry on the first {OBS_BATCHES} batches, FPSP: the shard-invariant "
+        f"counters and the directory probe histograms equal on 1 and {SHARDS} shards, the bits "
+        f"equal with obs off; {SHARDS}-shard spans (host wall ms): {json.dumps(table)}")
+    out["seconds"]["telemetry"] = time.perf_counter() - t_part
+    return out
 
 
 def fold_compact_row(vals, mask, launches: int) -> dict:
@@ -2240,6 +2440,15 @@ def main(argv=None) -> int:
     del g, oracle, fold_inputs
     phase_s["14"] = time.perf_counter() - t0
 
+    # phase 15: the sharded graph, with every launch count read around it
+    t0 = time.perf_counter()
+    summary["sharded"] = run_counted(GRAPH_PATH, lambda: sharded_path(args.seed, dev))
+    sharded_launches = _launch_counts()
+    for row in rows:
+        row["launches_sharded_path"] = sharded_launches[row["name"]]
+    torch.cuda.empty_cache()
+    phase_s["15"] = time.perf_counter() - t0
+
     flash_small_checks(dev)
 
     # phase 6: the LM's serving path, with every launch count read around it
@@ -2254,7 +2463,7 @@ def main(argv=None) -> int:
     hyb_cfg = get_config(HYBRID_ARCH)
     hyb_flash = flash_full_shape(HYBRID_ARCH, hyb_cfg, 0, dev)  # launches: phase 10's
     rows.append(hyb_flash)
-    phase_s["1-7"] = time.perf_counter() - t_start - phase_s["14"]
+    phase_s["1-7"] = time.perf_counter() - t_start - phase_s["14"] - phase_s["15"]
 
     t0 = time.perf_counter()
     ssd_small_checks(dev)

@@ -2,7 +2,8 @@
 PyTorch.  Module for module the counterpart of ``repro.core``:
 
   * :class:`repro_torch.core.graph.WaitFreeGraph` — unbounded graph, six ops,
-    batched apply, growth, snapshot queries (one shard).
+    batched apply, growth, snapshot queries, one shard or hash-prefix
+    sharded (``n_shards``), with telemetry (``obs``).
   * :func:`repro_torch.core.engine.apply_batch` — the wait-free combine pass;
     :func:`repro_torch.core.fastpath.apply_batch_fpsp` its fast-path-slow-path
     twin.
@@ -13,9 +14,12 @@ PyTorch.  Module for module the counterpart of ``repro.core``:
     CSR snapshots, built or delta-folded (``apply_delta``).
   * :mod:`repro_torch.core.maintenance` — the growth rehash (live-compact
     and snapshot-compact) and the CSR delta merge.
+  * :mod:`repro_torch.core.sharding` — hash-prefix partitioning of the
+    tables: shard routing, the canonical vertex directory, cross-shard
+    snapshot fusion.
 """
 
-from . import maintenance
+from . import maintenance, sharding
 from .graph import WaitFreeGraph
 from .oracle import SequentialGraph, run_sequential
 from .traversal import (
@@ -48,6 +52,7 @@ from .types import (
 __all__ = [
     "WaitFreeGraph",
     "maintenance",
+    "sharding",
     "SequentialGraph",
     "run_sequential",
     "TraversalCSR",

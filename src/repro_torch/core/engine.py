@@ -20,8 +20,11 @@ Three JAX idioms have no direct torch twin and are spelled out here:
 ``jnp.lexsort`` becomes stable argsorts from the minor key to the major key;
 ``.at[i].set(x, mode="drop")`` becomes a masked index write (the dropped
 lanes are masked out, never sent out of range); and every gather index is
-guarded the way ``repro`` guards it, since torch does not clamp.  The split
-phases for the sharded pipeline wait for the sharding slice.
+guarded the way ``repro`` guards it, since torch does not clamp.
+
+The sharded pipeline (:mod:`repro_torch.core.sharding`) runs the same three
+waves split across shards, with the stab exchange in the middle:
+:func:`settle_vertices`, :func:`answer_stabs` and :func:`settle_edges`.
 """
 
 from __future__ import annotations
@@ -348,3 +351,55 @@ def apply_batch(state: GraphState, batch: OpBatch) -> ApplyResult:
         ]
     )
     return ApplyResult(state=state, success=success, ok=ok, stats=stats)
+
+
+# ---------------------------------------------------------------------------
+# phase entry points for the partitioned (cross-shard) pipeline
+# ---------------------------------------------------------------------------
+#
+#   settle_vertices  — per shard, over its owned vertex ops;
+#   answer_stabs     — per endpoint-owner shard, answering the (endpoint,
+#                      phase) queries of every shard's edge ops against its
+#                      own transitions;
+#   settle_edges     — per shard, over its owned edge ops, fed the gathered
+#                      endpoint answers.
+
+
+def settle_vertices(state: GraphState, batch: OpBatch):
+    """The vertex wave alone.  Returns ``(state', results, ev_live, ev_inc,
+    overflow, stats)``: the ev tensors are the per-lane post-op (live, inc)
+    payloads :func:`answer_stabs` reads; ``stats`` is ``i32[3]:
+    [n_inserted, claim_rounds, n_vops]``."""
+    is_vop = _is_vop(batch.op)
+    state, results, (ev_live, ev_inc), overflow, n_ins, rounds = _vertex_wave(state, batch)
+    stats = torch.stack([n_ins, rounds.to(_I32), is_vop.sum().to(_I32)])
+    return state, results, ev_live, ev_inc, overflow, stats
+
+
+def answer_stabs(pre_state: GraphState, batch: OpBatch, ev_live, ev_inc, qkeys, qphases):
+    """Answer endpoint (live, inc)-at-phase queries against this shard's
+    vertex transitions.
+
+    ``pre_state`` is the shard's *pre-vertex-wave* table (head queries
+    precede every in-batch transition of their key); ``batch``, ``ev_live``
+    and ``ev_inc`` are the shard's own sub-batch and the payloads
+    :func:`settle_vertices` returned for it.  ``qkeys``/``qphases`` are the
+    gathered queries (INT32_MAX lanes are inert padding).  Returns ``(live,
+    inc, overflow)`` per query."""
+    is_vop = _is_vop(batch.op)
+    tkey = torch.where(is_vop, batch.u, INT32_MAX)
+    return _stab_scan(pre_state, tkey, batch.phase, is_vop, ev_live, ev_inc, qkeys, qphases)
+
+
+def settle_edges(state: GraphState, batch: OpBatch, u_live, u_inc, v_live, v_inc):
+    """The edge wave alone, fed externally gathered endpoint answers.
+    Returns ``(state', results, overflow, stats)`` with ``stats`` =
+    ``i32[4]: [n_edge_dup, n_inserted, claim_rounds, n_eops]`` (dup is
+    FPSP-only and 0 here: the layout of the FPSP twin)."""
+    is_eop = _is_eop(batch.op)
+    state, results, overflow, n_ins, rounds = _edge_wave(
+        state, batch, is_eop, (u_live, u_inc, v_live, v_inc)
+    )
+    zero = torch.zeros((), dtype=_I32, device=batch.op.device)
+    stats = torch.stack([zero, n_ins, rounds.to(_I32), is_eop.sum().to(_I32)])
+    return state, results, overflow, stats

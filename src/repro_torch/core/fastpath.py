@@ -18,8 +18,14 @@ The reference skips the slow pass with ``lax.cond`` when nothing conflicts.
 Here that is a host branch on the conflict count (one read back per batch):
 the skipped pass yields exactly the zero results, ``ok`` and zero stats the
 reference's ``skip`` branch returns, so state and ``stats`` stay
-byte-identical.  The sharded twin ``settle_edges_fpsp`` waits for the
-sharding slice (ROADMAP.md queue 1).
+byte-identical.
+
+Under hash-prefix sharding (:mod:`repro_torch.core.sharding`) each shard's
+sub-batch holds only its owned ops, and endpoint liveness arrives from the
+cross-shard stabbing wave instead of the local table: the partitioned entry
+point is :func:`settle_edges_fpsp`, whose conflict mask reduces to duplicate
+``(u, v)`` detection because the stab answers already fold in every
+concurrent vertex op.
 """
 
 from __future__ import annotations
@@ -164,10 +170,28 @@ def _fast_apply(state: GraphState, batch: OpBatch, fast: torch.Tensor):
     # them — that is the fast-path precondition)
     uloc = locate_vertices(state.v_key, torch.where(fe, u, INT32_MAX), fe)
     vloc2 = locate_vertices(state.v_key, torch.where(fe, v, INT32_MAX), fe)
-    u_live = engine._gather_found(state.v_live, uloc, False)
-    v_live = engine._gather_found(state.v_live, vloc2, False)
-    u_inc = engine._gather_found(state.v_inc, uloc, ABSENT_INC)
-    v_inc = engine._gather_found(state.v_inc, vloc2, ABSENT_INC)
+    endpoint = (
+        engine._gather_found(state.v_live, uloc, False),
+        engine._gather_found(state.v_inc, uloc, ABSENT_INC),
+        engine._gather_found(state.v_live, vloc2, False),
+        engine._gather_found(state.v_inc, vloc2, ABSENT_INC),
+    )
+    state, e_success, e_over, e_ins, e_rounds = _fast_apply_edges(state, batch, fe, endpoint)
+
+    success = torch.where(fv, v_success, torch.where(fe, e_success, False))
+    overflow = vloc.overflow | uloc.overflow | vloc2.overflow | v_over | e_over
+    n_ins = placed.sum().to(_I32) + e_ins
+    return state, success, overflow, n_ins, v_rounds + e_rounds
+
+
+def _fast_apply_edges(state: GraphState, batch: OpBatch, fe: torch.Tensor, endpoint):
+    """The edge half of :func:`_fast_apply`, fed endpoint (live, inc)
+    answers: read from the table by :func:`_fast_apply`, or settled at each
+    op's phase by the cross-shard stabbing wave, in which case the fast-path
+    precondition shrinks to "``(u, v)`` unique among this shard's edge ops".
+    Returns ``(state', success, overflow, n_inserted, claim_rounds)``."""
+    op, u, v = batch.op, batch.u, batch.v
+    u_live, u_inc, v_live, v_inc = endpoint
     eligible = u_live & v_live & fe
 
     eloc = locate_edges(
@@ -208,11 +232,46 @@ def _fast_apply(state: GraphState, batch: OpBatch, fast: torch.Tensor):
         e_key_u=e_ku_new, e_key_v=e_kv_new,
         e_live=e_live_new, e_inc_u=e_bu_new, e_inc_v=e_bv_new,
     )
+    return state, e_success, eloc.overflow | e_over, e_placed.sum().to(_I32), e_rounds
 
-    success = torch.where(fv, v_success, torch.where(fe, e_success, False))
-    overflow = vloc.overflow | uloc.overflow | vloc2.overflow | eloc.overflow | v_over | e_over
-    n_ins = (placed.sum() + e_placed.sum()).to(_I32)
-    return state, success, overflow, n_ins, v_rounds + e_rounds
+
+def settle_edges_fpsp(state: GraphState, batch: OpBatch, u_live, u_inc, v_live, v_inc):
+    """FPSP twin of :func:`repro_torch.core.engine.settle_edges` for the
+    partitioned pipeline: edge ops whose ``(u, v)`` is unique in this
+    shard's sub-batch take the sort-free direct path (the stab answers stand
+    in for the endpoint reads), and only duplicate-key groups pay the
+    phase-ordered epoch scan — skipped on the host when there are none, with
+    the reference's skip-branch results.  Returns ``(state', results,
+    overflow, stats)``, ``stats`` = ``i32[4]: [n_edge_dup, n_inserted,
+    claim_rounds, n_eops]``, the layout of ``settle_edges``."""
+    is_eop = engine._is_eop(batch.op)
+    conflicted = is_eop & _edge_dup_mask(batch.u, batch.v, is_eop)
+    fast = is_eop & ~conflicted
+    endpoint = (u_live, u_inc, v_live, v_inc)
+
+    state, fast_success, fast_over, fast_ins, fast_rounds = _fast_apply_edges(
+        state, batch, fast, endpoint
+    )
+
+    n_conf = conflicted.sum().to(_I32)
+    dev = batch.op.device
+    if int(n_conf) > 0:
+        masked = batch._replace(op=torch.where(conflicted, batch.op, OP_NOP))
+        state, slow_success, slow_over, slow_ins, slow_rounds = engine._edge_wave(
+            state, masked, conflicted, endpoint
+        )
+    else:
+        slow_success = torch.zeros(batch.size, dtype=torch.bool, device=dev)
+        slow_over = torch.tensor(False, device=dev)
+        slow_ins = slow_rounds = torch.zeros((), dtype=_I32, device=dev)
+    success = torch.where(fast, fast_success, slow_success)
+    stats = torch.stack([
+        n_conf,
+        fast_ins + slow_ins,
+        (fast_rounds + slow_rounds).to(_I32),
+        is_eop.sum().to(_I32),
+    ])
+    return state, success, fast_over | slow_over, stats
 
 
 def apply_batch_fpsp(state: GraphState, batch: OpBatch) -> ApplyResult:

@@ -37,8 +37,15 @@ A rehash linearizes at the batch boundary that triggered it: the caller
 discards the overflowing post-state and re-applies the same batch against
 the grown pre-state, so no operation observes a half-compacted table.  A
 ``delta_merge`` inherits the linearization point of the CSR it folds into.
-The sharded ``endpoints`` override of :func:`rehash` waits for the sharding
-slice.
+Under hash-prefix sharding (:mod:`repro_torch.core.sharding`) each shard
+rehashes its own tables with this code, except that edge validity is judged
+against the *global* sorted endpoint index (``rehash(..., endpoints=...)``):
+an edge's endpoints generally live on other shards.
+
+Telemetry: :func:`rehash` records a ``maintenance.rehash`` counter and a
+``maintenance.rehash.<impl>`` span, and the host placement a
+``maintenance.claim_rounds`` histogram, into the active registry
+(:mod:`repro_torch.obs`); none of it alters the tables.
 """
 
 from __future__ import annotations
@@ -48,6 +55,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+# ambient telemetry: a no-op unless a registry is active (obs.metrics imports
+# nothing of repro_torch.core)
+from ..obs import metrics as obsm
 # the family's ops module, not its names: either package may be imported first
 from ..kernels.compact import ops as compact_ops
 from .hashing import edge_hash32_np, hash_edge, hash_vertex, vertex_hash32_np
@@ -113,13 +123,21 @@ def _probe_place_host(
         slots[winner] = cand[winner]
         pending &= ~winner
         rounds += 1
+    obsm.hist("maintenance.claim_rounds", rounds)
     return slots, bool(pending.any())
 
 
-def rehash_host(state: GraphState, new_vcap: int, new_ecap: int) -> Tuple[GraphState, bool]:
+def rehash_host(
+    state: GraphState, new_vcap: int, new_ecap: int, endpoints=None
+) -> Tuple[GraphState, bool]:
     """Grow + compact on the host (numpy): keep live vertices (with
     incarnations) and incarnation-valid live edges only.  The new state is
-    built on ``state``'s device."""
+    built on ``state``'s device.
+
+    ``endpoints``, when given, is the sorted global ``(keys, incs)`` live
+    vertex index (numpy or tensors) that edge validity is judged against
+    instead of this state's own vertex table: the partitioned-shard case
+    (:func:`repro_torch.core.sharding.gather_live_vertices`)."""
     v_key = state.v_key.cpu().numpy()
     v_live = state.v_live.cpu().numpy()
     v_inc = state.v_inc.cpu().numpy()
@@ -145,8 +163,12 @@ def rehash_host(state: GraphState, new_vcap: int, new_ecap: int) -> Tuple[GraphS
     e_bu = state.e_inc_u.cpu().numpy()
     e_bv = state.e_inc_v.cpu().numpy()
 
-    order = np.argsort(keys, kind="stable")
-    sk, si = keys[order], incs[order]
+    if endpoints is None:
+        order = np.argsort(keys, kind="stable")
+        sk, si = keys[order], incs[order]
+    else:
+        sk, si = (e.cpu().numpy() if isinstance(e, torch.Tensor) else np.asarray(e)
+                  for e in endpoints)
 
     def inc_now(qs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         if sk.size == 0:
@@ -212,7 +234,29 @@ def _place_rows(rows, count, capacity: int, home_fn, fills):
     return cols, live, overflow, slots, active
 
 
-def _rehash_device(state: GraphState, new_vcap: int, new_ecap: int, with_csr: bool):
+def _edge_validity_sorted(state: GraphState, sorted_key: torch.Tensor,
+                          sorted_inc: torch.Tensor) -> torch.Tensor:
+    """Edge validity against an external sorted ``(key, inc)`` endpoint
+    index: the device twin of ``rehash_host``'s lookup under ``endpoints``.
+    (The reference pads the index to a power of two so that ``jit``
+    compiles once; its INT32_MAX padding keys can never validate an edge, so
+    the unpadded index gives the same mask.)"""
+    n = sorted_key.shape[0]
+    if n == 0:
+        return torch.zeros(state.e_capacity, dtype=torch.bool, device=state.device)
+
+    def look(q):
+        pos = torch.searchsorted(sorted_key, q)
+        pc = pos.clamp(max=n - 1)
+        return (pos < n) & (sorted_key[pc] == q), sorted_inc[pc]
+
+    fu, iu = look(state.e_key_u)
+    fv, iv = look(state.e_key_v)
+    return state.e_live & fu & fv & (iu == state.e_inc_u) & (iv == state.e_inc_v)
+
+
+def _rehash_device(state: GraphState, new_vcap: int, new_ecap: int, with_csr: bool,
+                   endpoints=None):
     cv_old = state.v_capacity
     dev = state.device
 
@@ -227,14 +271,17 @@ def _rehash_device(state: GraphState, new_vcap: int, new_ecap: int, with_csr: bo
         (EMPTY_KEY, ABSENT_INC),
     )
 
-    # edges: mask stale bindings, compact (with the old endpoint slots), place
-    su_old, sv_old, valid = _edge_validity(state)
-    ecomp, n_e = compact_ops.masked_compact(
-        torch.stack([state.e_key_u, state.e_key_v, state.e_inc_u, state.e_inc_v,
-                     su_old, sv_old]),
-        valid,
-        fill=-1,
-    )
+    # edges: mask stale bindings, compact (with the old endpoint slots, which
+    # only the snapshot-compact reads), place
+    rows = [state.e_key_u, state.e_key_v, state.e_inc_u, state.e_inc_v]
+    if endpoints is None:
+        su_old, sv_old, valid = _edge_validity(state)
+        rows += [su_old, sv_old]
+    else:
+        # partitioned shard: endpoints judged against the global index
+        sk, si = (torch.as_tensor(e, device=dev) for e in endpoints)
+        valid = _edge_validity_sorted(state, sk, si)
+    ecomp, n_e = compact_ops.masked_compact(torch.stack(rows), valid, fill=-1)
     (n_eku, n_ekv, n_ebu, n_ebv), n_elive, e_over, eslots, e_active = _place_rows(
         ecomp, n_e, new_ecap, lambda r: hash_edge(r[0], r[1], new_ecap),
         (EMPTY_KEY, EMPTY_KEY, ABSENT_INC, ABSENT_INC),
@@ -293,15 +340,24 @@ def rehash(
     ``build_csr(new_state)``; the host impl builds it, and only when ``ok``),
     else ``None``.  ``ok=False`` means a probe chain would have exceeded
     ``MAX_PROBES`` — discard the new state and grow further.  Both impls are
-    bit-identical.  ``endpoints`` (the partitioned shards' global endpoint
-    index) is refused until the sharding slice."""
-    if endpoints is not None:
-        raise NotImplementedError("endpoints: ROADMAP.md queue 1, next slice 'Sharding'")
-    if resolve_impl(impl) == "host":
-        new_state, ok = rehash_host(state, new_vcap, new_ecap)
-        csr = build_csr(new_state) if (with_csr and ok) else None
-        return new_state, csr, ok
-    return _rehash_device(state, new_vcap, new_ecap, with_csr)
+    bit-identical.
+
+    ``endpoints`` — the sorted global ``(keys, incs)`` live vertex index,
+    numpy or tensors — replaces the state's own vertex table as the edge
+    validity reference: the partitioned-shard case.  It excludes
+    ``with_csr`` (the snapshot-compact's slot map is local; a sharded
+    graph's snapshot is rebuilt by
+    :func:`repro_torch.core.sharding.fuse_partitioned`)."""
+    impl = resolve_impl(impl)
+    if endpoints is not None and with_csr:
+        raise ValueError("rehash: the snapshot-compact needs local endpoints")
+    with obsm.span(f"maintenance.rehash.{impl}"):
+        obsm.counter("maintenance.rehash")
+        if impl == "host":
+            new_state, ok = rehash_host(state, new_vcap, new_ecap, endpoints)
+            csr = build_csr(new_state) if (with_csr and ok) else None
+            return new_state, csr, ok
+        return _rehash_device(state, new_vcap, new_ecap, with_csr, endpoints)
 
 
 # ---------------------------------------------------------------------------

@@ -46,6 +46,8 @@ import torch
 
 # the family's ops module, not its names: either package may be imported first
 from ..kernels.frontier import ops as frontier_ops
+# ambient telemetry: a no-op unless a registry is active
+from ..obs import metrics as obsm
 from .locate import locate_edges, locate_vertices
 from .types import (
     EMPTY_KEY,
@@ -315,13 +317,18 @@ def apply_delta(
     """
     ce = csr.e_capacity
     if state.v_capacity != csr.v_capacity or state.e_capacity != ce:
+        obsm.counter("csr.delta.rebuild_capacity_changed")
         return build_csr(state)  # rehash: every slot moved
 
     v_touch, e_tu, e_tv = touched_keys(ops, us, vs)
     if v_touch.size == 0 and e_tu.size == 0:
+        obsm.counter("csr.delta.readonly")
         return csr  # read-only batch: the snapshot is still exact
     if v_touch.size + e_tu.size > max(32, int(max_delta_frac * ce)):
+        obsm.counter("csr.delta.rebuild_too_large")
         return build_csr(state)  # delta too large to beat the rebuild
+    obsm.counter("csr.delta.folded")
+    obsm.hist("csr.delta.touched", int(v_touch.size + e_tu.size))
 
     v_pad = _pad_pow2(v_touch, EMPTY_KEY)
     eu_pad = _pad_pow2(e_tu, EMPTY_KEY)

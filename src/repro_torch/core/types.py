@@ -35,6 +35,9 @@ OP_ADD_EDGE = 4
 OP_REMOVE_EDGE = 5
 OP_CONTAINS_EDGE = 6
 
+VERTEX_OPS = (OP_ADD_VERTEX, OP_REMOVE_VERTEX, OP_CONTAINS_VERTEX)
+EDGE_OPS = (OP_ADD_EDGE, OP_REMOVE_EDGE, OP_CONTAINS_EDGE)
+
 # Sentinel for an empty hash slot / absent incarnation.
 EMPTY_KEY = -1
 ABSENT_INC = -1

@@ -1,7 +1,6 @@
 """Workload generators mirroring the paper's experimental setup (§5).
 
-Copy of ``repro.core.workloads`` (numpy only).  ``shard_balance`` is left out
-until the sharding slice ports ``core/sharding.py``, which it reads.
+Copy of ``repro.core.workloads`` (numpy only).
 
 The paper: initial graph of 1000 vertices; each thread draws ops from one of
 three distributions over (AddV, RemV, ConV, AddE, RemE, ConE):
@@ -96,6 +95,19 @@ def skewed_update_batch(
         pin = rng.random(n) < hot_frac
         us = np.where(pin, np.int32(hot_key), us)
     return ops, us, vs
+
+
+def shard_balance(ops, us, vs, n_shards: int) -> np.ndarray:
+    """Edge-op count per hash-prefix shard for one batch
+    (:func:`repro_torch.core.sharding.shard_of_edges` routing): the mixes
+    draw keys uniformly, so shard loads stay near-uniform; a skewed
+    histogram means a skewed key distribution, not a routing bug."""
+    from .sharding import edge_shard_histogram
+
+    return edge_shard_histogram(
+        np.asarray(ops, np.int32), np.asarray(us, np.int32),
+        np.asarray(vs, np.int32), n_shards,
+    )
 
 
 def initial_vertices(key_space: int = 1000):

@@ -20,8 +20,10 @@ Port of ``repro.serving.engine`` for the dense, ssm and hybrid families:
     tokens.
 
 The engine runs on the card unless ``device`` says otherwise.  Telemetry
-(``obs``) waits for the telemetry slice: only ``None`` and ``False`` are
-accepted.
+(``obs``: ``None`` defers to ``REPRO_OBS``, ``True`` a fresh registry,
+``False`` the no-op, or a registry to share) records the ``serving.*``
+metrics of ``docs/OBSERVABILITY.md``; it changes neither admission,
+sampling nor page accounting.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 
 from ..device import resolve_device
 from ..models import LM
+from ..obs import metrics as obsm
 from ..models.config import ArchConfig
 from .paged_cache import PagedKVManager
 
@@ -63,9 +66,8 @@ class ServingEngine:
         obs=None,
         device=None,
     ):
-        if obs:
-            raise NotImplementedError("obs: ROADMAP.md queue 1, next slice 'Telemetry'")
         self.cfg = cfg
+        self.obs = obsm.resolve(obs)
         self.device = resolve_device(device, "ServingEngine")
         self.model = LM(cfg, self.device)
         self.params = params
@@ -95,6 +97,7 @@ class ServingEngine:
         if len(req.prompt) + req.max_new_tokens > self.max_len:
             raise ValueError("prompt + max_new_tokens exceeds max_len")
         req.submit_tick = self.ticks
+        self.obs.counter("serving.submitted")
         self.queue.append(req)
 
     def run(self, max_ticks: int = 10_000) -> Dict[int, Request]:
@@ -105,8 +108,16 @@ class ServingEngine:
         return self.finished
 
     # -- one engine tick -----------------------------------------------------
-    @torch.no_grad()
     def tick(self) -> None:
+        reg = self.obs
+        if reg.enabled:
+            reg.hist("serving.queue_depth", len(self.queue))
+            reg.gauge("serving.active_slots", sum(1 for s in self.slots if s is not None))
+        with reg.span("serving.tick"):
+            self._tick()
+
+    @torch.no_grad()
+    def _tick(self) -> None:
         pos = int(self.cache["len"])
         # timeline compaction: once every slot is idle, restart the shared
         # position axis so long request streams drain on a bounded cache
@@ -129,6 +140,10 @@ class ServingEngine:
             self.queue.pop(0)
             self._admit(slot, req, pos)
             admit[req.id] = len(req.prompt)
+            if self.obs.enabled and req.submit_tick >= 0:
+                # admission latency in engine ticks (deterministic, unlike
+                # wall clock): how long the request sat head-of-line
+                self.obs.hist("serving.admission_wait_ticks", self.ticks - req.submit_tick)
 
         # this tick's forced/sampled token per active slot
         tokens = np.zeros((self.max_batch, 1), np.int32)
@@ -160,6 +175,7 @@ class ServingEngine:
                     finish.append(req.id)
                     self.finished[req.id] = req
                     self.slots[slot] = None
+                    self.obs.counter("serving.finished")
                 else:
                     extend.append(req.id)
 

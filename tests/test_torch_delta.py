@@ -285,10 +285,15 @@ def test_rehash_with_csr_matches_build_csr_and_repro(j, impl, grow):
 
 
 def test_rehash_refuses_endpoints():
+    """The shards' global endpoint index excludes the snapshot-compact,
+    whose slot map is local (``endpoints`` alone is held in
+    tests/test_torch_sharding.py)."""
     state = _churned_state(0)
     keys = np.arange(4, dtype=np.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        maintenance.rehash(state, 512, 2048, endpoints=(keys, keys))
+    for impl in SPLICES:
+        with pytest.raises(ValueError, match="local endpoints"):
+            maintenance.rehash(state, 512, 2048, impl=impl, with_csr=True,
+                               endpoints=(keys, keys))
 
 
 @pytest.mark.parametrize("impl", SPLICES)

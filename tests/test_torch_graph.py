@@ -100,9 +100,12 @@ def test_default_device_is_the_card(monkeypatch):
 
 
 # keyword arguments of WaitFreeGraph, or {"family": arch} for an LM of a
-# family the port does not run yet
-@pytest.mark.parametrize("kwargs", [{"family": "mixtral-8x7b"}, {"n_shards": 2},
-                                    {"family": "llama-3.2-vision-11b"}, {"obs": True}])
+# family the port does not run yet; shards on several devices wait for a
+# multi-card slice
+@pytest.mark.parametrize("kwargs", [{"family": "mixtral-8x7b"},
+                                    {"n_shards": 2, "mesh": ["cpu", "meta"]},
+                                    {"family": "llama-3.2-vision-11b"},
+                                    {"family": "musicgen-medium"}])
 def test_later_slices_are_refused(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if "family" in kwargs:
@@ -152,6 +155,8 @@ def test_package_imports_without_jax_or_repro():
                          env={"PYTHONPATH": src_dir, "PATH": "/usr/bin:/bin"}, timeout=120)
     assert res.returncode == 0, res.stderr
     assert len(mods) >= 20
+    assert {"repro_torch.core.sharding", "repro_torch.obs", "repro_torch.obs.metrics",
+            "repro_torch.obs.probes"} <= set(mods)
 
 
 def test_no_source_file_names_jax_or_repro():
