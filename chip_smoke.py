@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA card: the wait-free graph (one
-shard and hash-prefix sharded), the serving paths of three LMs (dense, ssm
-and hybrid) and the paged decode attention on the serving page table's own
-block tables.
+shard and hash-prefix sharded), the serving paths of seven LMs (one of each
+family: dense, ssm, hybrid, two MoE, vlm and audio) and the paged decode
+attention on the serving page table's own block tables.
 
 Run from the root of a checkout, with one card visible:
 
@@ -200,6 +200,44 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    pipeline phase and of ``csr.fuse``) is printed.  Every graph kernel must
    launch in the phase; each graph row of the ``kernels`` line gains its
    launches here (``launches_sharded_path``).
+16. granite-moe-3b-a800m (moe; hf:ibm-granite/granite-3.0-1b-a400m-base) at
+   full width (32 layers, d_model 1536, GQA 24/8 of 64, 40 experts top-8 of
+   width 512, vocab 49155), as phase 6 with these changes.  The MoE
+   dispatch of the prefill's first and last layer, on their own inputs, must
+   equal a numpy twin on the card's router probabilities (top-k with ties to
+   the lower index, slots in (expert, phase) order, drops past the capacity)
+   int for int in ``gate_idx``, ``keep`` and the slots; the share of pairs
+   dropped is reported for the prefill and for each serving tick.  In place
+   of "decoded alone" (a request alone meets other capacity drops than in a
+   batch, as in the reference), the same traffic on a second fresh engine
+   must give the same tokens.  ``flash_attention`` is then timed at the
+   prefill's shape (B 2, Hq 24, Hkv 8, S 4,096, D 64, causal) as in phase 7.
+17. mixtral-8x7b (moe; arXiv:2401.04088) at full width (d_model 4096, GQA
+   32/8 of 128, 8 experts top-2 of width 14,336, window 4,096), 16 of its 32
+   layers (about 47 GB; all 32 would be about 93 GB, past the card's 80), as
+   phase 16, with a prefill of 2 x 8,192 tokens so that the window masks
+   keys; ``flash_attention`` timed at B 2, Hq 32, Hkv 8, S 8,192, D 128,
+   causal, window 4,096, beside SDPA with the window's boolean mask.
+18. llama-3.2-vision-11b (vlm; hf:meta-llama/Llama-3.2-11B-Vision) at full
+   width (40 layers, a gated cross-attention block after every 5, GQA 32/8
+   of 128, vocab 128256), both tanh gates and 4,096 image tokens of d_model
+   drawn nonzero from the seed: the prefill (with the image tokens) launches
+   ``flash_attention`` non-causal at Sq = Sk = 4,096 8 times beside the 40
+   causal self-attention launches.  16 prompt tokens decoded one at a time
+   over the cross K/V that ``decode_init`` precomputes must give the
+   prefill's logits at every position within 3e-2 relative L2 on an f32
+   copy of the first group (5 layers, its cross block, ``ln_f`` and the
+   head; the decode launches the kernel at Sq 1 against 4,096 keys); the
+   whole bf16 model's figure is reported.  Serving is text-only, as in the
+   reference, with all of phase 6's checks; ``flash_attention`` is timed at
+   the cross-attention shape (B 2, Hq 32, Hkv 8, Sq = Sk = 4,096, D 128,
+   non-causal).
+19. musicgen-medium (audio; arXiv:2306.05284) at full width (48 layers,
+   d_model 1536, MHA 24 of 64, 4 codebooks of 2,048, layernorm with bias,
+   GeLU, sinusoid positions): a prefill of 2 x 4,096 frames x 4 codebooks,
+   whose (B, 1, 4, Vp) logits are held as phase 6 holds its own; serving
+   with (P, 4) prompts and all of phase 6's checks; ``flash_attention``
+   timed at B 2, H 24, S 4,096, D 64, causal.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``kernels`` record.  Without a card, or outside a checkout of the repository,
@@ -259,7 +297,7 @@ from repro_torch.launch.steps import build_prefill_step  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import blocks as model_blocks  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
-from repro_torch.models.module import tree_leaves, tree_map  # noqa: E402
+from repro_torch.models.module import param_bytes, param_count, tree_map  # noqa: E402
 from repro_torch.obs import probes as obs_probes  # noqa: E402
 from repro_torch.serving import PagedKVManager, Request, ServingEngine  # noqa: E402
 
@@ -378,6 +416,15 @@ SERVE_SLOTS, SERVE_MAX_LEN, SERVE_PAGE = 8, 512, 16
 SERVE_REQUESTS, SERVE_NEW, SERVE_PROMPT = 16, 32, (16, 64)
 SERVE_ALONE = (0, 2)        # greedy requests admitted at tick 0, in slots 0 and 2
 PROFILE_TICKS = 6
+# phases 16-19: the moe, vlm and audio families at published width
+GRANITE_ARCH, MIXTRAL_ARCH = "granite-moe-3b-a800m", "mixtral-8x7b"
+VLM_ARCH, AUDIO_ARCH = "llama-3.2-vision-11b", "musicgen-medium"
+# mixtral's 32 layers are about 93 GB in bf16, past the card's 80: 16 of
+# them (about 47 GB) are run, a cut in depth only (the other 16 would be a
+# second pipeline stage)
+MIXTRAL_LAYERS = 16
+MIXTRAL_PREFILL_LEN = 8192  # twice its 4,096 window, so the window masks keys
+XATTN_DECODE_TOKENS = 16    # phase 18's decode over the cross K/V against the prefill
 
 # ssd_scan against its plain version: tests/test_kernels.py's sweep and
 # tolerances, plus K = V = 128, S = 100 (chunk 4), an odd S (chunk 1) and S
@@ -1444,12 +1491,14 @@ def flash_small_checks(dev) -> dict:
 def _decode_alone(eng, params, req, slot: int):
     """Greedy tokens of ``req`` decoded with ``decode_step`` as the only
     sequence in a cache of the engine's shape, in the slot (and so at the
-    positions and matrix shapes) the engine gave it."""
-    model = eng.model
+    positions and matrix shapes) the engine gave it.  For audio a prompt row
+    fills every codebook and a generated id all of them, as in the engine."""
+    model, ncb = eng.model, eng.cfg.n_codebooks
     cache = model.decode_init(eng.max_batch, eng.max_len)
     cache["start"] = torch.zeros(eng.max_batch, dtype=torch.int32, device=eng.device)
-    tokens = torch.zeros(eng.max_batch, 1, dtype=torch.int32, device=eng.device)
-    prompt, gen = [int(t) for t in req.prompt], []
+    tokens = torch.zeros((eng.max_batch, 1) + ((ncb,) if ncb > 1 else ()), dtype=torch.int32,
+                         device=eng.device)
+    prompt, gen = torch.as_tensor(req.prompt, device=eng.device), []
     with torch.no_grad():
         for t in range(len(prompt) + req.max_new_tokens - 1):
             tokens[slot, 0] = prompt[t] if t < len(prompt) else gen[-1]
@@ -1494,7 +1543,7 @@ def _check_logits(what: str, got, want, vocab: int):
     return rel, top1
 
 
-def _model_handoff(model, params, tokens):
+def _model_handoff(model, params, tokens, _batch):
     """The prefill's recurrent states continued by one ``decode_step``,
     against the prefill of one token more (ssm: the whole model)."""
     n = tokens.shape[1] - 1
@@ -1510,7 +1559,7 @@ def _model_handoff(model, params, tokens):
     return {"whole model": _check_logits("handoff", got, want, model.cfg.vocab)[0]}
 
 
-def _block_handoff(model, params, tokens):
+def _block_handoff(model, params, tokens, _batch):
     """The handoff on the first and last mamba2 layers (hybrid: the prefill
     yields no KV cache for the shared block): a block run over the prompt,
     its state continued by one decode step, against the block run over one
@@ -1530,6 +1579,114 @@ def _block_handoff(model, params, tokens):
             out[f"layer {i}"] = _rel_l2(a, b)
             if out[f"layer {i}"] > LOGITS_REL_L2:
                 raise SystemExit(f"handoff at layer {i}: relative L2 {out[f'layer {i}']}")
+    return out
+
+
+def _xattn_decode_check(model, params, tokens, batch):
+    """vlm: the first ``XATTN_DECODE_TOKENS`` prompt tokens decoded one at a
+    time over the cross K/V that ``decode_init`` precomputes from the image
+    tokens, against the prefill's logits at every position.  Held to
+    ``LOGITS_REL_L2`` on an f32 copy of the first group (its ``every`` layers,
+    its cross-attention block, ``ln_f`` and the head: the decode launches the
+    kernel at Sq 1 against the image tokens); the whole bf16 model's figure is
+    reported."""
+    cfg, n = model.cfg, XATTN_DECODE_TOKENS
+    toks, mem = tokens[:, :n], batch["memory"]
+
+    def decode_against_prefill(m, p, memory):
+        with torch.no_grad():
+            hid, _, _ = m.hidden_states(p, toks, memory=memory)
+            want = m._logits(p, hid)
+            cache = m.decode_init(toks.shape[0], n, params=p, memory=memory)
+            got = []
+            for t in range(n):
+                lg, cache = m.decode_step(p, toks[:, t:t + 1], cache)
+                got.append(lg)
+        a, b = torch.cat(got, 1)[..., :cfg.vocab].float(), want[..., :cfg.vocab].float()
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise SystemExit("vlm decode over the cross K/V: logits are not finite")
+        return _rel_l2(a, b), (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+
+    every = cfg.xattn_every
+    p32 = {"embed": tree_map(lambda t: t.float(), params["embed"]),
+           "ln_f": tree_map(lambda t: t.float(), params["ln_f"]),
+           "blocks": tree_map(lambda t: t[:every].float(), params["blocks"]),
+           "xattn": tree_map(lambda t: t[:1].float(), params["xattn"])}
+    rel32, agree32 = decode_against_prefill(
+        LM(cfg.scaled(n_layers=every, dtype="float32"), model.device), p32, mem.float())
+    del p32
+    torch.cuda.empty_cache()
+    if rel32 > LOGITS_REL_L2:
+        raise SystemExit(f"vlm decode over the cross K/V, f32 first group: relative L2 {rel32} "
+                         f"(limit {LOGITS_REL_L2})")
+    rel16, agree16 = decode_against_prefill(model, params, mem)
+    return {"tokens": n, "first group f32 (held)": rel32, "first group f32 top-1 share": agree32,
+            "whole model bf16 (reported)": rel16, "whole model bf16 top-1 share": agree16}
+
+
+def dispatch_twin(probs: np.ndarray, k: int, capacity: int):
+    """numpy twin of ``moe_dispatch`` on given router probabilities (T, e):
+    top-k with ties to the lower expert index, slots granted in (expert,
+    phase) order, the pairs past ``capacity`` dropped to slot ``e *
+    capacity``.  Returns (gate_idx, keep, slot), each (T, k)."""
+    T, e = probs.shape
+    gate_idx = np.argsort(-probs, axis=1, kind="stable")[:, :k]
+    eid = gate_idx.reshape(-1)
+    order = np.argsort(eid, kind="stable")
+    seg_start = np.searchsorted(eid[order], np.arange(e))
+    pos = np.empty_like(eid)
+    pos[order] = np.arange(eid.size) - seg_start[eid[order]]
+    keep = pos < capacity
+    slot = np.where(keep, eid * capacity + pos, e * capacity)
+    return gate_idx, keep.reshape(T, k), slot.reshape(T, k)
+
+
+@contextlib.contextmanager
+def _moe_dispatches(calls=()):
+    """The model's MoE dispatches run as they would; the results of the
+    calls numbered ``calls`` (in layer order) are kept with their capacity,
+    and every call's dropped pairs are summed on the card (``stats``, read
+    by the caller)."""
+    kept, stats, n, real = {}, {"dropped": 0, "pairs": 0}, [0], model_layers.moe_dispatch
+
+    def recording(router, cfg, xt, capacity):
+        res = real(router, cfg, xt, capacity)
+        if n[0] in calls:
+            kept[n[0]] = ([t.clone() for t in res], capacity)
+        n[0] += 1
+        stats["dropped"] = stats["dropped"] + (~res[3]).sum()
+        stats["pairs"] += res[3].numel()
+        return res
+
+    model_layers.moe_dispatch = recording
+    try:
+        yield kept, stats
+    finally:
+        model_layers.moe_dispatch = real
+
+
+def _drop_share(stats) -> float:
+    return int(stats["dropped"]) / stats["pairs"] if stats["pairs"] else 0.0
+
+
+def _dispatch_gate(kept, k: int) -> dict:
+    """The card's dispatch of the kept MoE calls against :func:`dispatch_twin`
+    on the card's own router probabilities: ``gate_idx``, ``keep`` and the
+    slots equal, int for int."""
+    out = {}
+    for i, ((probs, _, gate_idx, keep, slot), capacity) in sorted(kept.items()):
+        want = dispatch_twin(probs.cpu().numpy(), k, capacity)
+        for name, got, w in zip(("gate_idx", "keep", "slot"), (gate_idx, keep, slot), want):
+            got = got.cpu().numpy()
+            if got.shape != w.shape or not np.array_equal(got, w):
+                bad = int(np.flatnonzero(got.reshape(-1) != w.reshape(-1))[0]) \
+                    if got.shape == w.shape else -1
+                raise SystemExit(f"MoE dispatch of layer {i}: {name} differs from the numpy "
+                                 f"twin (first at flat index {bad})")
+        kept_np = keep.cpu().numpy()
+        out[f"layer {i}"] = {"tokens": int(probs.shape[0]), "capacity": capacity,
+                             "pairs": int(kept_np.size),
+                             "dropped_share": float(1 - kept_np.mean())}
     return out
 
 
@@ -1646,13 +1803,54 @@ def _paged_drain_summary(phase: int, checks: list, reusable: set) -> dict:
     return res
 
 
+def _serve_requests(cfg, seed: int):
+    """Phase 6's traffic: SERVE_REQUESTS requests of SERVE_PROMPT tokens (a
+    row of every codebook for audio) and SERVE_NEW new ones, half greedy;
+    and the generator that drew them, for the second wave."""
+    rng, cb = np.random.default_rng(seed + 1), _codebooks(cfg)
+    out = []
+    for i in range(SERVE_REQUESTS):
+        plen = int(rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1))
+        out.append(dict(id=i, prompt=rng.integers(0, cfg.vocab, (plen,) + cb).astype(np.int32),
+                        max_new_tokens=SERVE_NEW, temperature=0.0 if i % 2 == 0 else 0.8))
+    return out, rng
+
+
+def _codebooks(cfg) -> tuple:
+    return (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+
+
+def _serve_again(cfg, params, seed: int, dev, done) -> dict:
+    """MoE: the same traffic on a fresh engine must give the same tokens (a
+    request decoded alone would see other capacity drops than in a batch,
+    as in the reference); each tick's share of (token, expert) pairs
+    dropped is read here."""
+    eng = ServingEngine(cfg, params, max_batch=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                        page_size=SERVE_PAGE, seed=seed, device=dev)
+    for r in _serve_requests(cfg, seed)[0]:
+        eng.submit(Request(**r))
+    shares = []
+    while eng.queue or any(s is not None for s in eng.slots):
+        with _moe_dispatches() as (_, stats):
+            eng.tick()
+        shares.append(_drop_share(stats))
+    for rid, req in done.items():
+        if eng.finished[rid].generated != req.generated:
+            raise SystemExit(f"request {rid}: a second engine on the same traffic gave other "
+                             f"tokens")
+    return {"ticks": eng.ticks, "dropped_share_mean": statistics.mean(shares),
+            "dropped_share_min": min(shares), "dropped_share_max": max(shares)}
+
+
 def lm_serve_path(arch: str, phase: int, seed: int, dev, *, plain_run: dict,
                   per_prefill: dict, handoff=None, gate_f32: bool = False,
-                  scan_calls=()) -> dict:
-    """One LM at full width: the prefill through the kernels (each called
-    ``per_prefill[name]`` times), held against the prefill with ``plain_run``
-    forcing a plain version, the prefill-to-decode ``handoff`` where the
-    model has recurrent states, and continuous-batching serving.
+                  scan_calls=(), n_layers=None, prefill_len=None) -> dict:
+    """One LM at full width (``n_layers`` cuts its depth): the prefill
+    through the kernels (each called ``per_prefill[name]`` times), held
+    against the prefill with ``plain_run`` forcing a plain version, the
+    ``handoff`` from the prefill to decode where the model has one, and
+    continuous-batching serving.  A vlm's cross-attention gates and its image
+    tokens are drawn nonzero from the seed.
 
     With ``gate_f32`` the kernel-against-plain comparison and the handoff
     are held to their limit on an f32 copy of the same weights, and the bf16
@@ -1662,28 +1860,47 @@ def lm_serve_path(arch: str, phase: int, seed: int, dev, *, plain_run: dict,
     not the kernel.  The bf16 kernel is held per layer instead: the inputs
     of the scan calls numbered ``scan_calls`` in the bf16 prefill are kept,
     and the kernel on them is held to its plain version (outputs and final
-    states).  Launches made only to compare are not counted."""
+    states).  An MoE model's dispatch is held on its first and last layer's
+    own prefill inputs to a numpy twin, int for int, and its serving to a
+    second engine on the same traffic.  Launches made only to compare are
+    not counted."""
     cfg = get_config(arch)
-    out = {"arch": cfg.name}
+    full_bytes = param_bytes(LM(cfg, "meta").meta())
+    if n_layers is not None:
+        cfg = cfg.scaled(n_layers=n_layers)
+    moe, cb = cfg.moe is not None, _codebooks(cfg)
+    prefill_len = prefill_len or PREFILL_LEN
+    out = {"arch": cfg.name, "layers": cfg.n_layers}
     model = LM(cfg, dev)
-    params, dt = wall_s(lambda: model.init(torch.Generator(device=dev).manual_seed(seed)))
-    out["params"] = sum(t.numel() for t in tree_leaves(params))
-    out["param_bytes"] = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params, dt = wall_s(lambda: model.init(gen))
+    if cfg.xattn_every:  # the reference's zeros would leave the cross path out
+        for leaf in (params["xattn"]["attn"]["gate"], params["xattn"]["ffn_gate"]):
+            leaf.uniform_(0.3, 1.0, generator=gen)
+    out["params"] = param_count(model.meta())
+    out["param_bytes"] = param_bytes(model.meta())
     out["init_s"] = dt
+    cut = "" if n_layers is None else \
+        f" (depth cut to {n_layers} layers; all {get_config(arch).n_layers}: " \
+        f"{full_bytes / 1e9:.2f} GB)"
     log(f"phase {phase}: {cfg.name} at full width, {out['params']} parameters "
-        f"({out['param_bytes'] / 1e9:.2f} GB) drawn on the card in {dt:.2f} s")
+        f"({out['param_bytes'] / 1e9:.2f} GB){cut} drawn on the card in {dt:.2f} s")
 
     # prefill through the kernels, then with a plain version forced
     rng = np.random.default_rng(seed)
-    prompt = rng.integers(0, cfg.vocab, (PREFILL_BATCH, PREFILL_LEN))
-    nxt = rng.integers(0, cfg.vocab, (PREFILL_BATCH, 1))  # the handoff's next token
+    prompt = rng.integers(0, cfg.vocab, (PREFILL_BATCH, prefill_len) + cb)
+    nxt = rng.integers(0, cfg.vocab, (PREFILL_BATCH, 1) + cb)  # the handoff's next token
     tokens = torch.as_tensor(np.concatenate([prompt, nxt], 1).astype(np.int32), device=dev)
-    batch = {"tokens": tokens[:, :PREFILL_LEN]}
+    batch = {"tokens": tokens[:, :prefill_len]}
+    if cfg.xattn_every:  # the image tokens, as the stub frontend supplies them
+        batch["memory"] = torch.randn(PREFILL_BATCH, cfg.n_img_tokens, cfg.d_model,
+                                      generator=gen, device=dev).to(cfg.param_dtype)
     prefill, _, _ = build_prefill_step(cfg, device=dev)
     plain, _, _ = build_prefill_step(cfg, device=dev, run_overrides=plain_run)
     torch.cuda.reset_peak_memory_stats()
     before = {name: (WRAPPERS[name].calls, WRAPPERS[name].launches) for name in per_prefill}
-    with _scan_inputs_of(scan_calls) as kept:
+    moe_calls = (0, cfg.n_layers - 1) if moe else ()
+    with _scan_inputs_of(scan_calls) as kept, _moe_dispatches(moe_calls) as (dispatches, drops):
         logits, warm_s = wall_s(lambda: prefill(params, batch))
     counts = {name: WRAPPERS[name].calls - before[name][0] for name in per_prefill}
     launched = {name: WRAPPERS[name].launches - before[name][1] for name in per_prefill}
@@ -1695,14 +1912,15 @@ def lm_serve_path(arch: str, phase: int, seed: int, dev, *, plain_run: dict,
     log(f"phase {phase}: prefill profile: " + json.dumps(prof))
     with uncounted():
         want, plain_s = wall_s(lambda: plain(params, batch))
-    if logits.shape != (PREFILL_BATCH, 1, model_layers.padded_vocab(cfg)):
+    vp = model_layers.padded_vocab(cfg)
+    if logits.shape != (PREFILL_BATCH, 1) + cb + (vp,):
         raise SystemExit(f"prefill logits of shape {tuple(logits.shape)}")
     compare = _logits_distance if gate_f32 else _check_logits
     rel, top1 = compare(f"prefill against {plain_run}", logits, want, cfg.vocab)
     med = statistics.median(times)
-    n_tok = PREFILL_BATCH * PREFILL_LEN
+    n_tok = PREFILL_BATCH * prefill_len
     out["prefill"] = {
-        "batch": PREFILL_BATCH, "prompt_len": PREFILL_LEN, "warmup_s": warm_s,
+        "batch": PREFILL_BATCH, "prompt_len": prefill_len, "warmup_s": warm_s,
         "s": times, "median_s": med, "prompt_tokens_per_s": n_tok / med,
         "plain_s": plain_s, "plain_run": plain_run, "peak_bytes": peak,
         "calls_per_prefill": counts, "launches_per_prefill": launched,
@@ -1712,16 +1930,24 @@ def lm_serve_path(arch: str, phase: int, seed: int, dev, *, plain_run: dict,
     if scan_calls:
         out["prefill"]["layer_scan_gate"] = _layer_scan_gate(kept)
     del kept
-    log(f"phase {phase}: prefill {PREFILL_BATCH} x {PREFILL_LEN}: median {med:.4f} s of "
-        f"{PREFILL_RUNS} ({n_tok / med:.0f} prompt tokens/s), warm-up {warm_s:.3f} s, "
-        f"with {plain_run} {plain_s:.3f} s; peak {peak / 1e9:.2f} GB; kernel calls per "
-        f"prefill {counts}, launches {launched}; last-token logits within {rel:.3e} "
+    log(f"phase {phase}: prefill {PREFILL_BATCH} x {prefill_len}{' x ' + str(cb[0]) if cb else ''}"
+        f": median {med:.4f} s of {PREFILL_RUNS} ({n_tok / med:.0f} prompt tokens/s), warm-up "
+        f"{warm_s:.3f} s, with {plain_run} {plain_s:.3f} s; peak {peak / 1e9:.2f} GB; kernel "
+        f"calls per prefill {counts}, launches {launched}; last-token logits within {rel:.3e} "
         f"relative L2 of the plain run's, top-1 agreeing {top1}")
     if scan_calls:
         log(f"phase {phase}: ssd_scan on the bf16 inputs of the prefill's scan calls "
             f"{list(scan_calls)} (first and last layer) equals its plain version within "
             f"{SSD_TOL[torch.bfloat16]}, outputs and final states: "
             f"{json.dumps(out['prefill']['layer_scan_gate'])}")
+    if moe:
+        out["prefill"]["dropped_share"] = _drop_share(drops)
+        out["prefill"]["dispatch_gate"] = _dispatch_gate(dispatches, cfg.moe.top_k)
+        log(f"phase {phase}: MoE dispatch on the first and last layer's own prefill inputs "
+            f"equals the numpy twin on the card's router probabilities (gate_idx, keep and "
+            f"slots, int for int): {json.dumps(out['prefill']['dispatch_gate'])}; pairs dropped "
+            f"over every layer of the prefill: {out['prefill']['dropped_share']:.4f}")
+    del dispatches, drops
     gate_model, gate_params, gated = model, params, "bf16"
     if gate_f32:
         cfg32 = cfg.scaled(dtype="float32")
@@ -1743,22 +1969,20 @@ def lm_serve_path(arch: str, phase: int, seed: int, dev, *, plain_run: dict,
         del got, want
     if handoff is not None:
         with uncounted():
-            out["handoff_rel_l2"], dt = wall_s(lambda: handoff(gate_model, gate_params, tokens))
-        log(f"phase {phase}: prefill-to-decode handoff on the {gated} ({dt:.2f} s): the "
-            f"prompt's recurrent states continued by one decode step give the "
-            f"{PREFILL_LEN + 1}-token run's result within relative L2 "
-            f"{json.dumps(out['handoff_rel_l2'])}")
+            out["handoff_rel_l2"], dt = wall_s(lambda: handoff(gate_model, gate_params, tokens,
+                                                               batch))
+        log(f"phase {phase}: prefill-to-decode handoff ({handoff.__name__}) on the {gated} "
+            f"({dt:.2f} s): decode continuing the prompt gives the prefill's result within "
+            f"relative L2 {json.dumps(out['handoff_rel_l2'])}")
     del tokens, batch, gate_params
     torch.cuda.empty_cache()
 
     # continuous-batching serving over the wait-free page table
     eng = ServingEngine(cfg, params, max_batch=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
                         page_size=SERVE_PAGE, seed=seed, device=dev)
-    rng = np.random.default_rng(seed + 1)
-    for i in range(SERVE_REQUESTS):
-        plen = int(rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1))
-        eng.submit(Request(id=i, prompt=rng.integers(0, cfg.vocab, plen).astype(np.int32),
-                           max_new_tokens=SERVE_NEW, temperature=0.0 if i % 2 == 0 else 0.8))
+    requests, rng = _serve_requests(cfg, seed)
+    for r in requests:
+        eng.submit(Request(**r))
     split = {"decode_step": 0.0, "page_ops": 0.0}
     eng.model.decode_step = _synced(eng.model.decode_step, split, "decode_step")
     eng.pages.step_ops = _synced(eng.pages.step_ops, split, "page_ops")
@@ -1773,10 +1997,6 @@ def lm_serve_path(arch: str, phase: int, seed: int, dev, *, plain_run: dict,
     for f in GraphState._fields:
         if not torch.equal(getattr(twin.graph.state, f), getattr(eng.pages.graph.state, f)):
             raise SystemExit(f"failover replay: page-table graph differs in {f}")
-    for rid in SERVE_ALONE:
-        if done[rid].temperature != 0.0 or _decode_alone(eng, params, done[rid], rid) != \
-                done[rid].generated:
-            raise SystemExit(f"request {rid} decoded alone differs from the batch")
     n_gen = sum(len(r.generated) for r in done.values())
     out["serve"] = {
         "slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN, "page_size": SERVE_PAGE,
@@ -1787,6 +2007,18 @@ def lm_serve_path(arch: str, phase: int, seed: int, dev, *, plain_run: dict,
         "page_table_capacity": [eng.pages.graph.state.v_capacity,
                                 eng.pages.graph.state.e_capacity],
     }
+    if moe:
+        out["serve"]["again"] = _serve_again(cfg, params, seed, dev, done)
+        same = (f"the same traffic on a fresh engine gives the same tokens (pairs dropped a "
+                f"tick: mean {out['serve']['again']['dropped_share_mean']:.4f}, "
+                f"{out['serve']['again']['dropped_share_min']:.4f}-"
+                f"{out['serve']['again']['dropped_share_max']:.4f})")
+    else:
+        for rid in SERVE_ALONE:
+            if done[rid].temperature != 0.0 or _decode_alone(eng, params, done[rid], rid) != \
+                    done[rid].generated:
+                raise SystemExit(f"request {rid} decoded alone differs from the batch")
+        same = f"requests {list(SERVE_ALONE)} decoded alone give the batch's tokens"
     # a profiled window of full ticks on a second wave, whose sequences get
     # the pages the first wave gave back; drained by hand afterwards, with
     # the paged decode checked on the engine's own block tables
@@ -1794,7 +2026,8 @@ def lm_serve_path(arch: str, phase: int, seed: int, dev, *, plain_run: dict,
                 if op == OP_ADD_EDGE}
     for i in range(SERVE_SLOTS):
         eng.submit(Request(id=SERVE_REQUESTS + i, max_new_tokens=SERVE_NEW,
-                           prompt=rng.integers(0, cfg.vocab, SERVE_PROMPT[0]).astype(np.int32)))
+                           prompt=rng.integers(0, cfg.vocab, (SERVE_PROMPT[0],) + cb)
+                           .astype(np.int32)))
     eng.tick()
     _, out["serve"]["profile"] = profile_window(eng.tick, PROFILE_TICKS, "tick")
     log(f"phase {phase}: serving profile: " + json.dumps(out["serve"]["profile"]))
@@ -1814,8 +2047,7 @@ def lm_serve_path(arch: str, phase: int, seed: int, dev, *, plain_run: dict,
         f"{split['page_ops']:.3f} s in page-table ops): "
         f"{n_gen} generated tokens ({n_gen / run_s:.1f} tokens/s), "
         f"{out['serve']['page_ops']} page ops applied; failover replay identical (page "
-        f"tables and graph state); requests {list(SERVE_ALONE)} decoded alone give the "
-        f"batch's tokens")
+        f"tables and graph state); {same}")
     del eng, params, twin
     torch.cuda.empty_cache()
     return out
@@ -1826,36 +2058,61 @@ def lm_serve_path(arch: str, phase: int, seed: int, dev, *, plain_run: dict,
 # ---------------------------------------------------------------------------
 
 
-def flash_full_shape(arch: str, cfg, launches: int, dev) -> dict:
-    """``flash_attention`` at ``arch``'s prefill shape, bf16, causal, beside
-    its plain version and ``scaled_dot_product_attention``, whose own error
-    against the plain version is reported too."""
-    b, hq, hkv, s, d = PREFILL_BATCH, cfg.n_heads, cfg.n_kv_heads, PREFILL_LEN, cfg.head_dim
+def _attended_pairs(s: int, causal: bool, window) -> int:
+    """The (q, k) pairs the mask keeps over ``s`` positions of q and of k."""
+    if not causal:
+        return s * s
+    w = min(window or s, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def flash_full_shape(arch: str, cfg, launches: int, dev, *, phase: int = 7, seq=None,
+                     causal: bool = True, window=None, what: str = "prefill") -> dict:
+    """``flash_attention`` at ``arch``'s prefill shape (``seq`` positions for
+    q and k, causal or not, with its sliding ``window``), bf16, beside its
+    plain version and ``scaled_dot_product_attention`` (with the window's
+    boolean mask where there is one), whose own error against the plain
+    version is reported too."""
+    b, hq, hkv, s, d = PREFILL_BATCH, cfg.n_heads, cfg.n_kv_heads, seq or PREFILL_LEN, \
+        cfg.head_dim
     gen = torch.Generator(device=dev).manual_seed(4)
     q = torch.randn(b, hq, s, d, generator=gen, device=dev).bfloat16()
     k = torch.randn(b, hkv, s, d, generator=gen, device=dev).bfloat16()
     v = torch.randn(b, hkv, s, d, generator=gen, device=dev).bfloat16()
-    got = fak.flash_attention(q, k, v, causal=True)
-    want = attention(q, k, v, causal=True, impl="reference")
-    err = require_close(f"flash_attention at the {arch} prefill shape", got, want,
-                        FLASH_TOL[torch.bfloat16])
-    block_rel = require_block_rel_l2(f"flash_attention at the {arch} prefill shape", got, want)
+    label = f"flash_attention at the {arch} {what} shape"
+    got = fak.flash_attention(q, k, v, causal=causal, window=window)
+    want = attention(q, k, v, causal=causal, window=window, impl="reference")
+    err = require_close(label, got, want, FLASH_TOL[torch.bfloat16])
+    block_rel = require_block_rel_l2(label, got, want)
+    del got
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_err = (sdpa(q, k, v, is_causal=True, enable_gqa=True).float() - want.float()).abs().max()
-    pairs = s * (s + 1) // 2  # the (q, k) pairs the causal mask keeps
-    flops = 4 * b * hq * pairs * d
+    mask = None
+    if window is not None:
+        pos = torch.arange(s, device=dev)
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+
+    def library():
+        if mask is not None:
+            return sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+        return sdpa(q, k, v, is_causal=causal, enable_gqa=True)
+
+    lib_err = (library().float() - want.float()).abs().max()
+    del want
+    flops = 4 * b * hq * _attended_pairs(s, causal, window) * d
     row = {
-        "name": "flash_attention" if arch == LM_ARCH else f"flash_attention[{arch}]",
+        "name": "flash_attention" if arch == LM_ARCH else f"flash_attention[{arch}"
+                + ("" if what == "prefill" else f" {what}") + "]",
         "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:106",
         "launches": launches, "max_abs_err": err, "block_rel_l2": block_rel,
-        "ms": cuda_ms(lambda: fak.flash_attention(q, k, v, causal=True), 10),
-        "plain_ms": cuda_ms(lambda: attention(q, k, v, causal=True, impl="reference"), 3),
+        "ms": cuda_ms(lambda: fak.flash_attention(q, k, v, causal=causal, window=window), 10),
+        "plain_ms": cuda_ms(lambda: attention(q, k, v, causal=causal, window=window,
+                                              impl="reference"), 3),
         "bound_ms": None, "bound_by": None,
-        "library_ms": cuda_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 10),
+        "library_ms": cuda_ms(library, 10),
         "library_max_abs_err": lib_err.item(),
         "shape": {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d, "dtype": "bfloat16",
-                  "causal": True},
+                  "causal": causal, "window": window},
     }
     t_bytes = 2 * (q.numel() * 2 + k.numel() + v.numel()) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_OPS_PER_S * 1e3
@@ -1863,8 +2120,9 @@ def flash_full_shape(arch: str, cfg, launches: int, dev) -> dict:
         (t_bytes, "bytes")
     row["tflops"] = flops / row["ms"] / 1e9
     row["share_of_bound"] = row["bound_ms"] / row["ms"]
-    log(f"phase 7: flash_attention at the {arch} prefill shape B={b} Hq={hq} Hkv={hkv} S={s} "
-        f"D={d} bf16 causal: {row['ms']:.4f} ms, {row['tflops']:.1f} TFLOP/s, "
+    log(f"phase {phase}: {label} B={b} Hq={hq} Hkv={hkv} S={s} D={d} bf16 "
+        f"{'causal' if causal else 'non-causal'}{f' window {window}' if window else ''}: "
+        f"{row['ms']:.4f} ms, {row['tflops']:.1f} TFLOP/s, "
         f"{100 * row['share_of_bound']:.1f}% of the bound {row['bound_ms']:.4f} ms by "
         f"{row['bound_by']} (plain {row['plain_ms']:.3f} ms, scaled_dot_product_attention "
         f"{row['library_ms']:.4f} ms); max abs err {err}, scaled_dot_product_attention's "
@@ -2392,6 +2650,29 @@ def place_rounds() -> int:
     return 0 if rounds is None else int(rounds)
 
 
+def family_phases(seed: int, dev, rows: list, summary: dict, phase_s: dict) -> None:
+    """Phases 16-19: the moe, vlm and audio LMs, each with every launch
+    count read around it, and ``flash_attention`` timed at its shape."""
+    plain_attn = {"attn_impl": "reference"}
+    for phase, arch, kw, shape in (
+            (16, GRANITE_ARCH, {}, {}),
+            (17, MIXTRAL_ARCH, {"n_layers": MIXTRAL_LAYERS, "prefill_len": MIXTRAL_PREFILL_LEN},
+             {"seq": MIXTRAL_PREFILL_LEN, "window": get_config(MIXTRAL_ARCH).window}),
+            (18, VLM_ARCH, {"handoff": _xattn_decode_check},
+             {"causal": False, "what": "cross"}),
+            (19, AUDIO_ARCH, {}, {})):
+        t0 = time.perf_counter()
+        cfg = get_config(arch).scaled(n_layers=kw.get("n_layers", get_config(arch).n_layers))
+        n_attn = cfg.n_layers + (cfg.n_layers // cfg.xattn_every if cfg.xattn_every else 0)
+        summary[arch] = run_counted(SERVE_PATH, lambda: lm_serve_path(
+            arch, phase, seed, dev, plain_run=plain_attn,
+            per_prefill={"flash_attention": n_attn}, **kw))
+        summary[arch]["launches"] = _launch_counts()
+        rows.append(flash_full_shape(arch, cfg, summary[arch]["launches"]["flash_attention"],
+                                     dev, phase=phase, **shape))
+        phase_s[str(phase)] = time.perf_counter() - t0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2505,6 +2786,8 @@ def main(argv=None) -> int:
     rows.append(paged_full_shape(HYBRID_ARCH, hyb_cfg, summary["hybrid"]["launches"], args.seed,
                                  dev))
     phase_s["13"] = time.perf_counter() - t0
+
+    family_phases(args.seed, dev, rows, summary, phase_s)
 
     summary["card"] = smi
     summary["sass"] = sass

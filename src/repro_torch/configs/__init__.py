@@ -3,9 +3,9 @@
 Port of ``repro.configs`` (the same ten published configurations, kept as
 data in this package).  Each module exports ``CONFIG`` and the registry
 derives the reduced smoke config via
-``repro_torch.models.config.reduced_for_smoke``.  The dense, ssm and
-hybrid families run in the port; moe, vlm and audio are data only so far
-(ROADMAP.md queue 1).
+``repro_torch.models.config.reduced_for_smoke``.  Every family runs in the
+port (``repro_torch.models.LM``); only MoE experts over several cards wait
+for a multi-card slice (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations

@@ -54,9 +54,10 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):
         plen = int(rng.integers(4, 24))
+        shape = (plen,) if cfg.n_codebooks == 1 else (plen, cfg.n_codebooks)
         eng.submit(Request(
             id=i,
-            prompt=rng.integers(0, cfg.vocab, size=(plen,)).astype(np.int32),
+            prompt=rng.integers(0, cfg.vocab, size=shape).astype(np.int32),
             max_new_tokens=args.max_new,
             temperature=args.temperature,
         ))

@@ -1,8 +1,11 @@
 """The LM half of the port: layers, blocks and decoder.
 
-Port of ``repro.models`` for the dense, ssm (rwkv6) and hybrid (zamba2:
-mamba2 with a shared attention block) families; moe, vlm and audio still
-raise ``NotImplementedError``.  See ``lm.py``.
+Port of ``repro.models`` for every family: dense, moe (mixtral, granite),
+ssm (rwkv6), hybrid (zamba2: mamba2 with a shared attention block), vlm
+(llama-3.2-vision: gated cross attention to image tokens) and audio
+(musicgen: multi-codebook tokens).  Only the MoE FFN with its experts over
+several cards (the reference's ``moe_apply_shardmap``) raises
+``NotImplementedError``.  See ``lm.py``.
 """
 
 from .config import ArchConfig, MoEConfig, SSMConfig, reduced_for_smoke

@@ -1,9 +1,11 @@
 """Residual blocks.
 
-Port of ``repro.models.blocks`` for the dense, ssm and hybrid families:
+Port of ``repro.models.blocks``:
 
-* ``attn``   — pre-norm attention + MLP (dense transformers, and the shared
-               block of zamba2);
+* ``attn``   — pre-norm attention + MLP or MoE FFN (dense transformers,
+               mixtral and granite, the musicgen backbone, the text layers
+               of llama-3.2-vision, and the shared block of zamba2);
+* ``xattn``  — tanh-gated cross-attention to image tokens (llama-3.2-vision);
 * ``rwkv6``  — Finch time-mix (data-dependent per-channel decay, strict
                readout + bonus) and channel-mix;
 * ``mamba2`` — SSD block (causal conv, scalar-decay scan, gated norm).
@@ -14,8 +16,9 @@ through :func:`repro_torch.kernels.ssd_scan.ssd_scan`, which launches the
 CUDA kernel for tensors on the card and takes the plain chunked version on
 the CPU; ``scan_impl="reference"`` forces the plain version anywhere.  Their
 one-token decode step is the plain ``linear_scan_step``, as it is jnp in the
-reference.  The ``xattn`` block (vlm) and the MoE FFN wait for later slices
-and raise ``NotImplementedError``; ``LM`` refuses their families.
+reference.  Every block kind runs; only the MoE FFN with its experts over
+several cards (``shard=True``, the reference's ``moe_apply_shardmap``)
+raises ``NotImplementedError`` (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -26,16 +29,22 @@ import torch.nn.functional as F
 from ..kernels.ssd_scan import ops as ssd_ops
 from ..kernels.ssd_scan.ref import linear_scan_step
 from .config import ArchConfig
-from .layers import attn_apply, attn_meta, mlp_apply, mlp_meta, norm_apply, norm_meta
+from .layers import (
+    _split_heads,
+    attn_apply,
+    attn_meta,
+    mlp_apply,
+    mlp_meta,
+    moe_apply,
+    moe_meta,
+    norm_apply,
+    norm_meta,
+)
 from .module import ParamMeta
 
 F32 = torch.float32
 
 _SCAN_IMPLS = {"chunked": None, "reference": "reference"}
-
-
-def _later(kind: str):
-    raise NotImplementedError(f"{kind} blocks: ROADMAP.md queue 1, the other LM families")
 
 
 def _pick_chunk(S: int, target: int = 64) -> int:
@@ -57,27 +66,36 @@ def _scan(q, k, v, w, h0, *, chunk, strict, scalar_decay, scan_impl):
     )
 
 
-def attn_block_meta(cfg: ArchConfig):
+def attn_block_meta(cfg: ArchConfig, *, moe: bool = False):
     return {
         "ln1": norm_meta(cfg),
         "attn": attn_meta(cfg),
         "ln2": norm_meta(cfg),
-        "ffn": mlp_meta(cfg),
+        "ffn": moe_meta(cfg) if moe else mlp_meta(cfg),
     }
 
 
-def attn_block_apply(p, cfg: ArchConfig, x, *, positions=None, kv_cache=None,
-                     attn_impl="chunked", block_q=512, block_k=512):
-    """Returns (x', new_cache, aux); aux is the MoE balancing loss of the
-    reference's signature, 0.0 for the dense MLP."""
+def attn_block_apply(p, cfg: ArchConfig, x, *, moe=False, positions=None, kv_cache=None,
+                     attn_impl="chunked", shard=False, block_q=512, block_k=512):
+    """Returns (x', new_cache, aux); aux is the MoE balancing loss, 0.0 for
+    the dense MLP.  ``shard=True`` asks for the reference's
+    ``moe_apply_shardmap`` (experts over several cards), which the port
+    refuses."""
+    if moe and shard:
+        raise NotImplementedError(
+            "moe_apply_shardmap: experts over several cards wait for a multi-card slice "
+            "(ROADMAP.md queue 1)")
     h, new_cache = attn_apply(
         p["attn"], cfg, norm_apply(p["ln1"], cfg, x),
         positions=positions, kv_cache=kv_cache, attn_impl=attn_impl,
         block_q=block_q, block_k=block_k,
     )
     x = x + h
-    f = mlp_apply(p["ffn"], cfg, norm_apply(p["ln2"], cfg, x))
-    return x + f, new_cache, 0.0
+    if moe:
+        f, aux = moe_apply(p["ffn"], cfg, norm_apply(p["ln2"], cfg, x))
+    else:
+        f, aux = mlp_apply(p["ffn"], cfg, norm_apply(p["ln2"], cfg, x)), 0.0
+    return x + f, new_cache, aux
 
 
 def attn_cache_init(cfg: ArchConfig, batch: int, max_len: int, dtype, device):
@@ -89,8 +107,40 @@ def attn_cache_init(cfg: ArchConfig, batch: int, max_len: int, dtype, device):
     }
 
 
+# ---------------------------------------------------------------------------
+# cross-attention block (vlm)
+# ---------------------------------------------------------------------------
+
 def xattn_block_meta(cfg: ArchConfig):
-    _later("cross-attention (vlm)")
+    return {
+        "ln1": norm_meta(cfg),
+        "attn": attn_meta(cfg, cross=True),
+        "ln2": norm_meta(cfg),
+        "ffn": mlp_meta(cfg),
+        "ffn_gate": ParamMeta((1,), F32, (None,), "zeros"),
+    }
+
+
+def xattn_block_apply(p, cfg: ArchConfig, x, memory=None, kv_override=None, *,
+                      attn_impl="chunked"):
+    """Cross attention to ``memory`` (or to its precomputed K/V heads) and
+    the MLP, each scaled by its tanh gate.  With neither given the attention
+    is the reference's: its self-attention path with this block's weights
+    (no gate on it)."""
+    h, _ = attn_apply(
+        p["attn"], cfg, norm_apply(p["ln1"], cfg, x),
+        memory=memory, kv_override=kv_override, attn_impl=attn_impl,
+    )
+    x = x + h
+    f = mlp_apply(p["ffn"], cfg, norm_apply(p["ln2"], cfg, x))
+    return x + f * torch.tanh(p["ffn_gate"]).to(f.dtype)
+
+
+def xattn_precompute_kv(p, cfg: ArchConfig, memory):
+    """Project the (fixed) image memory to K/V heads once for decode."""
+    k = _split_heads(memory @ p["attn"]["wk"], cfg.n_kv_heads, cfg.head_dim)
+    v = _split_heads(memory @ p["attn"]["wv"], cfg.n_kv_heads, cfg.head_dim)
+    return k, v
 
 
 # ---------------------------------------------------------------------------

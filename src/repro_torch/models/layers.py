@@ -1,9 +1,10 @@
-"""Core layers of the dense LM family: norm, RoPE, embeddings, attention, MLP.
+"""Core layers: norm, RoPE, embeddings (multi-codebook too), attention
+(self and cross), MLP, MoE.
 
-Port of the dense subset of ``repro.models.layers``.  Every layer is a
-(meta, apply) pair of plain functions on tensors.  Activation layout is
-(B, S, d_model); attention internals use (B, H, S, Dh).  Reductions are
-taken in f32, as in the reference.
+Port of ``repro.models.layers``.  Every layer is a (meta, apply) pair of
+plain functions on tensors.  Activation layout is (B, S, d_model); attention
+internals use (B, H, S, Dh).  Reductions are taken in f32, as in the
+reference.
 
 The full-sequence attention goes through the port's
 :func:`repro_torch.kernels.flash_attention.attention`, which dispatches on
@@ -11,9 +12,12 @@ the device: on the card both ``attn_impl="chunked"`` (the reference's
 memory-linear XLA formulation) and ``attn_impl="kernel"`` launch the one
 CUDA kernel the port has, and on the CPU both take the plain chunked
 version.  ``attn_impl="reference"`` forces the plain version on any device.
-Decode attention and every projection are plain tensor code, as they are
-jnp in the reference.  MoE and cross-attention wait for later slices
-(ROADMAP.md queue 1).
+Cross attention (the vlm family) goes through the same entry point,
+non-causal and without a window, at Sq != Sk; its one-token decode against
+the precomputed image K/V too.  Decode self-attention, every projection and
+the MoE FFN (dispatch, three batched expert products, combine) are plain
+tensor code, as they are jnp in the reference.  Only the reference's
+``moe_apply_shardmap`` (experts over several cards) has no counterpart.
 """
 
 from __future__ import annotations
@@ -99,33 +103,49 @@ def padded_vocab(cfg: ArchConfig) -> int:
 
 
 def embed_meta(cfg: ArchConfig):
-    """One token table (and head); the multi-codebook tables of the audio
-    family wait for its slice."""
-    vp = padded_vocab(cfg)
-    m = {"tok": ParamMeta((vp, cfg.d_model), cfg.param_dtype, ("tp", "fsdp"), "embed",
+    """The token table and head; one of each per codebook (audio), stacked
+    along a leading codebook dim."""
+    vp, d, ncb = padded_vocab(cfg), cfg.d_model, cfg.n_codebooks
+    multi = ncb > 1
+    m = {"tok": ParamMeta((ncb, vp, d) if multi else (vp, d), cfg.param_dtype,
+                          (None, "tp", "fsdp") if multi else ("tp", "fsdp"), "embed",
                           scale=0.02)}
     if not cfg.tie_embeddings:
-        m["head"] = ParamMeta((cfg.d_model, vp), cfg.param_dtype, ("fsdp", "tp"), "normal")
+        m["head"] = ParamMeta((ncb, d, vp) if multi else (d, vp), cfg.param_dtype,
+                              (None, "fsdp", "tp") if multi else ("fsdp", "tp"), "normal")
     return m
 
 
 def embed_apply(p, cfg: ArchConfig, tokens):
-    """tokens: (B, S) integer."""
+    """tokens: (B, S) integer, or (B, S, n_codebooks) for audio, whose
+    embedding is the sum of the per-codebook embeddings, added in codebook
+    order (MusicGen)."""
+    if cfg.n_codebooks > 1:
+        out = torch.zeros(tuple(tokens.shape[:2]) + (cfg.d_model,), dtype=cfg.param_dtype,
+                          device=tokens.device)
+        for c in range(cfg.n_codebooks):
+            out = out + p["tok"][c][tokens[..., c].long()]
+        return out
     return p["tok"][tokens.long()]
 
 
-def logits_apply(p, cfg: ArchConfig, x):
-    """x: (B, S, d) -> (B, S, padded_vocab)."""
+def logits_apply(p, cfg: ArchConfig, x, codebook: Optional[int] = None):
+    """x: (B, S, d) -> (B, S, padded_vocab), of codebook ``codebook`` for
+    audio."""
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", x, p["tok"].to(cfg.param_dtype))
-    return torch.einsum("bsd,dv->bsv", x, p["head"])
+        w = p["tok"].to(cfg.param_dtype)
+        if cfg.n_codebooks > 1:
+            w = w[codebook]
+        return torch.einsum("bsd,vd->bsv", x, w)
+    w = p["head"] if cfg.n_codebooks == 1 else p["head"][codebook]
+    return torch.einsum("bsd,dv->bsv", x, w)
 
 
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
 
-def attn_meta(cfg: ArchConfig):
+def attn_meta(cfg: ArchConfig, cross: bool = False):
     d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = cfg.param_dtype
     m = {
@@ -138,6 +158,8 @@ def attn_meta(cfg: ArchConfig):
         m["bq"] = ParamMeta((hq * dh,), F32, ("tp",), "zeros")
         m["bk"] = ParamMeta((hkv * dh,), F32, ("tp",), "zeros")
         m["bv"] = ParamMeta((hkv * dh,), F32, ("tp",), "zeros")
+    if cross:
+        m["gate"] = ParamMeta((1,), F32, (None,), "zeros")  # tanh-gated (llama-3.2)
     return m
 
 
@@ -174,6 +196,8 @@ def attn_apply(
     *,
     positions=None,         # (S,) absolute positions (for rope)
     kv_cache=None,          # optional dict(k=(B,Hkv,T,Dh), v=..., len=(), start=(B,))
+    memory=None,            # (B, M, d) cross-attention memory
+    kv_override=None,       # precomputed (k, v) heads (cross-attention decode)
     attn_impl: str = "chunked",
     block_k: int = 512,
     block_q: int = 512,
@@ -185,21 +209,32 @@ def attn_apply(
     slots.  The port writes the new row into the given cache tensors in
     place (the reference returns updated copies); the returned dict holds
     the same tensors and the advanced length.
+
+    With ``memory`` or ``kv_override`` the attention is cross attention: K
+    and V come from the memory (or are given), without RoPE, and no bias is
+    added to a given K/V; it is non-causal and unwindowed, and its output is
+    scaled by ``tanh(gate)``.
     """
     if attn_impl not in _ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
     B, S, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cross = memory is not None or kv_override is not None
 
     q = _split_heads(x @ p["wq"], hq, dh)
-    k = _split_heads(x @ p["wk"], hkv, dh)
-    v = _split_heads(x @ p["wv"], hkv, dh)
+    if kv_override is not None:
+        k, v = kv_override
+    else:
+        kv_src = memory if cross else x
+        k = _split_heads(kv_src @ p["wk"], hkv, dh)
+        v = _split_heads(kv_src @ p["wv"], hkv, dh)
     if cfg.qkv_bias:
         q = q + p["bq"].reshape(hq, 1, dh).to(q.dtype)
-        k = k + p["bk"].reshape(hkv, 1, dh).to(k.dtype)
-        v = v + p["bv"].reshape(hkv, 1, dh).to(v.dtype)
+        if kv_override is None:
+            k = k + p["bk"].reshape(hkv, 1, dh).to(k.dtype)
+            v = v + p["bv"].reshape(hkv, 1, dh).to(v.dtype)
 
-    if cfg.rope:
+    if cfg.rope and not cross:
         if positions is None:
             positions = torch.arange(S, device=x.device)
         q = rope_apply(q, positions, cfg.rope_theta)
@@ -219,12 +254,15 @@ def attn_apply(
         out = _decode_attention(q, ck, cv, valid, start=kv_cache.get("start"))
     else:
         out = flash_ops.attention(
-            q.contiguous(), k.contiguous(), v.contiguous(), causal=True, window=cfg.window,
-            impl=_ATTN_IMPLS[attn_impl], block_q=block_q, block_k=block_k,
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=not cross,
+            window=None if cross else cfg.window, impl=_ATTN_IMPLS[attn_impl],
+            block_q=block_q, block_k=block_k,
         )
 
-    out = out.transpose(1, 2).reshape(B, S, hq * dh)
-    return out @ p["wo"], new_cache
+    out = out.transpose(1, 2).reshape(B, S, hq * dh) @ p["wo"]
+    if cross:
+        out = out * torch.tanh(p["gate"]).to(out.dtype)
+    return out, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -259,3 +297,126 @@ def mlp_apply(p, cfg: ArchConfig, x):
     if cfg.mlp_bias:
         out = out + p["bo"].to(out.dtype)
     return out
+
+
+# ---------------------------------------------------------------------------
+# MoE (capacity-based top-k dispatch; deterministic phase-order drops)
+#
+# The reference's global-dispatch engine, ``moe_apply``.  Its shard_map
+# engine, ``moe_apply_shardmap`` (experts over several cards), has no
+# counterpart: the attention block refuses ``shard=True``.
+# ---------------------------------------------------------------------------
+
+def moe_meta(cfg: ArchConfig):
+    d, dt = cfg.d_model, cfg.param_dtype
+    e, ff = cfg.moe.n_experts, cfg.moe.expert_ff
+    return {
+        "router": ParamMeta((d, e), F32, ("fsdp", None), "normal"),
+        "wi": ParamMeta((e, d, ff), dt, (None, "fsdp", "tp"), "normal"),
+        "wg": ParamMeta((e, d, ff), dt, (None, "fsdp", "tp"), "normal"),
+        "wo": ParamMeta((e, ff, d), dt, (None, "tp", "fsdp"), "normal"),
+    }
+
+
+def moe_dispatch(router, cfg: ArchConfig, xt, capacity: int):
+    """Token -> expert slots, as the reference's ``_moe_local`` grants them.
+
+    router (d, e); xt (T, d).  Returns (probs (T, e) f32, gate_vals (T, k)
+    f32, gate_idx (T, k), keep (T, k) bool, slot (T, k)): each (token, k)
+    pair's slot ``expert * capacity + position`` in the expert buffer, or the
+    out-of-range ``e * capacity`` where it is dropped.
+
+    Top-k is the first k of a stable descending sort, so ties go to the lower
+    expert index as in ``jax.lax.top_k`` (``torch.topk`` promises no order
+    among ties).  Slots are granted in (expert, phase) order: a stable
+    argsort of the expert ids (the phase is the pair's index, already
+    ascending), a position within the expert's segment, and the pairs past
+    ``capacity`` dropped."""
+    T = xt.shape[0]
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    n = T * k
+    probs = torch.softmax(xt.to(F32) @ router, dim=-1)
+    gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = gate_vals[:, :k], gate_idx[:, :k]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+
+    eid = gate_idx.reshape(n)
+    order = torch.argsort(eid, stable=True)
+    eid_sorted = eid[order]
+    seg_start = torch.searchsorted(eid_sorted, torch.arange(e, device=xt.device))
+    pos = torch.empty_like(eid)
+    pos[order] = torch.arange(n, device=xt.device) - seg_start[eid_sorted]
+    keep = pos < capacity
+    slot = torch.where(keep, eid * capacity + pos, e * capacity)
+    return probs, gate_vals, gate_idx, keep.reshape(T, k), slot.reshape(T, k)
+
+
+def _moe_local(router, wi, wg, wo, cfg: ArchConfig, xt, capacity: int):
+    """Dispatch + expert FFN + combine over a token set.
+
+    router (d, e); wi/wg (e, d, F); wo (e, F, d); xt (T, d).  Returns (out
+    (T, d), probs, gate_idx).
+
+    Dispatch is inverted as in the reference: each slot holds a token index
+    (T for the zero row), and one row gather builds the (e, capacity, d)
+    expert buffer.  The combine adds each token's kept slot rows, weighted
+    by their gates, in ascending slot order (the reference's scatter-add
+    order), rounding to x's dtype after each add, with no atomics, so it
+    gives the same bits on every run."""
+    T, d = xt.shape
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    probs, gate_vals, gate_idx, keep, slot = moe_dispatch(router, cfg, xt, capacity)
+    kept = slot[keep]
+    src_tok = torch.arange(T, device=xt.device)[:, None].expand(T, k)[keep]
+    slot_tok = torch.full((e * capacity,), T, dtype=torch.long, device=xt.device)
+    slot_tok[kept] = src_tok
+    xtp = torch.cat([xt, xt.new_zeros(1, d)])
+    buf = xtp[slot_tok].reshape(e, capacity, d)
+    del xtp, slot_tok
+
+    h = torch.bmm(buf, wi)
+    g = torch.bmm(buf, wg)
+    del buf
+    h = F.silu(g.to(F32)).to(h.dtype) * h
+    del g
+    out_buf = torch.bmm(h, wo).reshape(e * capacity, d)
+    del h
+
+    slot_w = torch.zeros(e * capacity + 1, dtype=F32, device=xt.device)
+    slot_w[kept] = gate_vals[keep]
+    # row e * capacity is the dropped pairs' zero row
+    weighted = torch.cat([out_buf, out_buf.new_zeros(1, d)]) * slot_w[:, None].to(out_buf.dtype)
+    del out_buf
+    slots = torch.sort(slot, dim=-1).values  # dropped pairs last
+    out = torch.zeros((T, d), dtype=xt.dtype, device=xt.device)
+    for j in range(k):
+        out = out + weighted[slots[:, j]]
+    return out, probs, gate_idx
+
+
+def _moe_aux(probs, gate_idx, e):
+    """Switch load-balancing loss from the routing stats."""
+    me = probs.mean(dim=0)
+    ce = F.one_hot(gate_idx[:, 0], e).to(F32).mean(dim=0)
+    return e * torch.sum(me * ce)
+
+
+def moe_capacity(cfg: ArchConfig, n_tokens: int) -> int:
+    """Slots per expert for ``n_tokens`` tokens: the reference's
+    ``int(capacity_factor * k * T / e) or 1``."""
+    return int(cfg.moe.capacity_factor * cfg.moe.top_k * n_tokens / cfg.moe.n_experts) or 1
+
+
+def moe_apply(p, cfg: ArchConfig, x, *, capacity: Optional[int] = None):
+    """Global-dispatch MoE (one card).  Token -> expert assignment is
+    resolved as the graph engine resolves conflicting ops: the (expert,
+    phase) pairs sorted, a segmented position count granting capacity slots
+    in phase (= token) order, the losers dropped deterministically.
+    Returns (out, aux_loss)."""
+    B, S, d = x.shape
+    T = B * S
+    if capacity is None:
+        capacity = moe_capacity(cfg, T)
+    out, probs, gate_idx = _moe_local(p["router"], p["wi"], p["wg"], p["wo"], cfg,
+                                      x.reshape(T, d), capacity)
+    return out.reshape(B, S, d), _moe_aux(probs, gate_idx, cfg.moe.n_experts)

@@ -1,16 +1,24 @@
-"""Decoder LM assembly for the dense, ssm and hybrid families, inference only.
+"""Decoder LM assembly for every family, inference only.
 
-Port of ``repro.models.lm.LM`` for ``family`` in ``dense`` (attention
-blocks), ``ssm`` (rwkv6 blocks) and ``hybrid`` (mamba2 blocks with one
-shared attention block after every ``shared_attn_every`` layers, zamba2):
-parameter meta and init, the prefill forward (``hidden_states`` +
-``_logits``, with the recurrent states in and out) and the one-token decode
-step over a KV cache and/or recurrent states.  Parameters are a nested dict
-of tensors laid out as the reference's pytree, with the repeated blocks
-stacked along a leading layer dim; the reference scans over that dim, the
-port loops over it in Python.  Remat and sequence-parallel constraints have
-no meaning for inference on one card and are not carried over; a ``run``
-dict may still name them and they are ignored.
+Port of ``repro.models.lm.LM``: ``family`` in ``dense``, ``moe`` (the MoE
+FFN in every attention block: mixtral, granite), ``vlm`` (llama-3.2-vision:
+groups of ``xattn_every`` attention layers, each followed by a gated
+cross-attention block to image tokens) and ``audio`` (musicgen: sinusoid
+positions and summed multi-codebook embeddings, per-codebook logits) run
+attention blocks; ``ssm`` rwkv6 blocks; ``hybrid`` mamba2 blocks with one
+shared attention block after every ``shared_attn_every`` layers (zamba2).
+It holds the parameter meta and init, the prefill forward (``hidden_states``
++ ``_logits``, with the recurrent states in and out, and the MoE blocks'
+summed balancing loss) and the one-token decode step over a KV cache, the
+vlm's precomputed cross K/V and/or recurrent states.  Parameters are a
+nested dict of tensors laid out as the reference's pytree, with the
+repeated blocks stacked along a leading layer dim; the reference scans over
+that dim, the port loops over it in Python.  Remat and sequence-parallel
+constraints have no meaning for inference on one card and are not carried
+over; a ``run`` dict may still name them.  Where the reference's ``sp``
+(prefill) or ``decode_moe_shardmap`` (decode) would pick its shard_map MoE
+engine, the port raises ``NotImplementedError``: experts over several cards
+wait for a multi-card slice (ROADMAP.md queue 1).
 
 :func:`params_from_numpy` carries the reference's parameter pytree (numpy
 leaves) into the port, and serves as the port's checkpoint-in;
@@ -18,8 +26,6 @@ leaves) into the port, and serves as the port's checkpoint-in;
 
 The model lives on the card unless the caller asks for another device:
 ``device=None`` means ``"cuda"``, and raises where no card is present.
-The moe, vlm and audio families raise ``NotImplementedError`` (ROADMAP.md
-queue 1).
 """
 
 from __future__ import annotations
@@ -42,7 +48,8 @@ DEFAULT_RUN: Dict[str, Any] = {
     "scan_impl": "chunked",   # "chunked" | "reference" (the recurrent prefill's scan)
 }
 
-_BLOCK_KINDS = {"dense": "attn", "ssm": "rwkv6", "hybrid": "mamba2"}
+_BLOCK_KINDS = {"dense": "attn", "moe": "attn", "audio": "attn", "vlm": "attn",
+                "ssm": "rwkv6", "hybrid": "mamba2"}
 
 
 def _layer(blocks, i: int):
@@ -60,10 +67,8 @@ class LM:
     """Config-driven decoder LM: meta / init / forward / decode."""
 
     def __init__(self, cfg: ArchConfig, device=None):
-        if cfg.family not in _BLOCK_KINDS or cfg.moe is not None:
-            raise NotImplementedError(
-                f"LM family {cfg.family!r}: ROADMAP.md queue 1, the other LM families"
-            )
+        if cfg.family not in _BLOCK_KINDS:
+            raise ValueError(f"unknown LM family {cfg.family!r}")
         self.cfg = cfg
         self.block_kind = _BLOCK_KINDS[cfg.family]
         self.device = resolve_device(device, "LM")
@@ -74,7 +79,7 @@ class LM:
             return B.rwkv6_block_meta(self.cfg)
         if self.block_kind == "mamba2":
             return B.mamba2_block_meta(self.cfg)
-        return B.attn_block_meta(self.cfg)
+        return B.attn_block_meta(self.cfg, moe=self.cfg.moe is not None)
 
     def meta(self):
         cfg = self.cfg
@@ -85,6 +90,8 @@ class LM:
         }
         if cfg.shared_attn_every:
             m["shared_attn"] = B.attn_block_meta(cfg)
+        if cfg.xattn_every:
+            m["xattn"] = stack_meta(B.xattn_block_meta(cfg), cfg.n_layers // cfg.xattn_every)
         return m
 
     def init(self, generator: torch.Generator):
@@ -93,13 +100,15 @@ class LM:
         return build_params(self.meta(), generator, self.device)
 
     # -- forward (prefill) ----------------------------------------------------
-    def hidden_states(self, params, tokens, *, run=None, positions=None, states=None):
+    def hidden_states(self, params, tokens, *, memory=None, run=None, positions=None,
+                      states=None):
         """Embeds and runs the block stack.  Returns (hidden, aux_loss,
-        new_states) as the reference does: the families here have no aux
-        loss; ``new_states`` are the stacked recurrent states after the
-        prompt (ssm/hybrid, for the prefill-to-decode handoff), None for
-        dense.  ``states`` are the stacked states to start from (None: a
-        fresh start)."""
+        new_states) as the reference does: ``aux_loss`` is the sum of the
+        MoE blocks' balancing losses (0.0 without MoE); ``new_states`` are
+        the stacked recurrent states after the prompt (ssm/hybrid, for the
+        prefill-to-decode handoff), None for attention stacks.  ``states``
+        are the stacked states to start from (None: a fresh start);
+        ``memory`` (B, M, d) the vlm's image tokens."""
         cfg = self.cfg
         run = {**DEFAULT_RUN, **(run or {})}
         x = L.embed_apply(params["embed"], cfg, tokens)
@@ -108,20 +117,40 @@ class LM:
                 pos = positions if positions is not None else torch.arange(x.shape[1],
                                                                            device=x.device)
                 x = x + L.sinusoid_embed(pos, cfg.d_model)[None].to(x.dtype)
-            for i in range(cfg.n_layers):
-                x = self._attn_block(_layer(params["blocks"], i), x, run, positions)
+            x, aux = self._attn_stack(params, x, memory, run, positions)
             new_states = None
         else:
             x, new_states = self._recurrent_stack(params, x, run, positions, states)
+            aux = 0.0
         x = L.norm_apply(params["ln_f"], cfg, x)
-        return x, 0.0, new_states
+        return x, aux, new_states
 
-    def _attn_block(self, p, x, run, positions):
-        x, _, _ = B.attn_block_apply(
-            p, self.cfg, x, positions=positions, attn_impl=run["attn_impl"],
-            block_q=run["attn_block_q"], block_k=run["attn_block_k"],
+    def _attn_block(self, p, x, run, positions, moe=False):
+        """One attention block of the prefill; returns (x', aux)."""
+        x, _, aux = B.attn_block_apply(
+            p, self.cfg, x, moe=moe, positions=positions, attn_impl=run["attn_impl"],
+            shard=bool(run.get("sp")), block_q=run["attn_block_q"],
+            block_k=run["attn_block_k"],
         )
-        return x
+        return x, aux
+
+    def _attn_stack(self, params, x, memory, run, positions):
+        """Every layer (dense, moe, audio), or the vlm's ``n_layers //
+        every`` groups of ``every`` layers, each followed by its
+        cross-attention block; like the reference, the vlm stack runs
+        ``blocks[: n_groups * every]``.  Returns (x, summed aux)."""
+        cfg = self.cfg
+        moe = cfg.moe is not None
+        every = cfg.xattn_every or cfg.n_layers
+        aux = 0.0
+        for g in range(cfg.n_layers // every):
+            for i in range(g * every, (g + 1) * every):
+                x, a = self._attn_block(_layer(params["blocks"], i), x, run, positions, moe)
+                aux = aux + a
+            if cfg.xattn_every:
+                x = B.xattn_block_apply(_layer(params["xattn"], g), cfg, x, memory,
+                                        attn_impl=run["attn_impl"])
+        return x, aux
 
     def _shared_after(self, i: int) -> bool:
         """Whether the hybrid stack runs its shared attention block after
@@ -145,7 +174,7 @@ class LM:
                           scan_impl=run["scan_impl"])
             new.append(ns)
             if hybrid and self._shared_after(i):
-                x = self._attn_block(params["shared_attn"], x, run, positions)
+                x, _ = self._attn_block(params["shared_attn"], x, run, positions)
         return x, {name: torch.stack([ns[name] for ns in new]) for name in new[0]}
 
     def init_recurrent_states(self, batch: int, dtype):
@@ -162,14 +191,23 @@ class LM:
                                   device=t.device) for name, t in one.items()}
 
     def _logits(self, params, x):
-        return L.logits_apply(params["embed"], self.cfg, x)
+        """(B, S, Vp), or (B, S, n_codebooks, Vp) for audio."""
+        cfg = self.cfg
+        if cfg.n_codebooks > 1:
+            return torch.stack([L.logits_apply(params["embed"], cfg, x, codebook=c)
+                                for c in range(cfg.n_codebooks)], dim=2)
+        return L.logits_apply(params["embed"], cfg, x)
 
     # -- decode ---------------------------------------------------------------
-    def decode_init(self, batch: int, max_len: int):
+    def decode_init(self, batch: int, max_len: int, *, params=None, memory=None):
         """Allocate the decode cache: the shared length, plus per-layer ring
         buffers of K and V (of capacity ``window`` for sliding-window archs)
-        for dense, the stacked recurrent states for ssm, and both for hybrid,
-        whose KV buffers hold one entry per occurrence of the shared block."""
+        for attention stacks, the stacked recurrent states for ssm, and both
+        for hybrid, whose KV buffers hold one entry per occurrence of the
+        shared block.  For vlm archs given ``params`` and the image
+        ``memory``, the cross-attention K/V are projected here once (``xkv``,
+        stacked per cross-attention block) instead of at every step; without
+        them decode runs the text layers alone, as the reference's does."""
         cfg = self.cfg
         dt, dev = cfg.param_dtype, self.device
         cache: Dict[str, Any] = {"len": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -182,42 +220,64 @@ class LM:
 
         if self.block_kind == "attn":
             cache["kv"] = kv(cfg.n_layers)
+            if cfg.xattn_every and memory is not None and params is not None:
+                pairs = [B.xattn_precompute_kv(_layer(params["xattn"], i), cfg, memory)
+                         for i in range(cfg.n_layers // cfg.xattn_every)]
+                cache["xkv"] = {"k": torch.stack([k for k, _ in pairs]),
+                                "v": torch.stack([v for _, v in pairs])}
         else:
             cache["states"] = self.init_recurrent_states(batch, dt)
         if self.block_kind == "mamba2":
             cache["shared_kv"] = kv(cfg.n_layers // cfg.shared_attn_every)
         return cache
 
-    def decode_step(self, params, tokens, cache, *, run=None):
-        """One token per sequence; tokens (B, 1).  Returns (logits, cache').
-        The new K/V rows and recurrent states are written into ``cache``'s
-        tensors in place, and ``cache'`` holds those tensors with the
-        advanced length; a slot's ``cache["start"]`` offset masks the KV rows
-        of its predecessor."""
+    def decode_step(self, params, tokens, cache, *, memory=None, run=None):
+        """One token per sequence; tokens (B, 1), or (B, 1, n_codebooks) for
+        audio.  Returns (logits, cache').  The new K/V rows and recurrent
+        states are written into ``cache``'s tensors in place, and ``cache'``
+        holds those tensors with the advanced length; a slot's
+        ``cache["start"]`` offset masks the KV rows of its predecessor.  The
+        vlm's cross attention reads ``cache["xkv"]`` (see
+        :meth:`decode_init`); ``memory`` is taken for the reference's
+        signature and, as there, not read."""
         cfg = self.cfg
+        run = {**DEFAULT_RUN, **(run or {})}
         pos = cache["len"]
         x = L.embed_apply(params["embed"], cfg, tokens)
         if self.block_kind == "attn":
             if not cfg.rope:
                 x = x + L.sinusoid_embed(pos.reshape(1), cfg.d_model)[None].to(x.dtype)
-            x = self._attn_decode(params, x, cache)
+            x = self._attn_decode(params, x, cache, run)
         else:
             x = self._recurrent_decode(params, x, cache)
         x = L.norm_apply(params["ln_f"], cfg, x)
         return self._logits(params, x), {**cache, "len": pos + 1}
 
-    def _attn_decode_block(self, p, x, k, v, cache):
+    def _attn_decode_block(self, p, x, k, v, cache, moe=False, shard=False):
         """One attention block's decode step against its K/V ring buffers."""
         pos = cache["len"]
         kv = {"k": k, "v": v, "len": pos, "start": cache.get("start")}
-        x, _, _ = B.attn_block_apply(p, self.cfg, x, kv_cache=kv,
+        x, _, _ = B.attn_block_apply(p, self.cfg, x, moe=moe, kv_cache=kv, shard=shard,
                                      positions=pos + torch.arange(x.shape[1], device=x.device))
         return x
 
-    def _attn_decode(self, params, x, cache):
-        for i in range(self.cfg.n_layers):
-            x = self._attn_decode_block(_layer(params["blocks"], i), x, cache["kv"]["k"][i],
-                                      cache["kv"]["v"][i], cache)
+    def _attn_decode(self, params, x, cache, run):
+        """Every layer's decode step, or with the vlm's ``xkv`` the group walk
+        of :meth:`_attn_stack`, each group's cross-attention block reading
+        its precomputed K/V."""
+        cfg = self.cfg
+        moe, shard = cfg.moe is not None, bool(run.get("decode_moe_shardmap"))
+        cross = bool(cfg.xattn_every) and "xkv" in cache
+        every = cfg.xattn_every if cross else cfg.n_layers
+        for g in range(cfg.n_layers // every):
+            for i in range(g * every, (g + 1) * every):
+                x = self._attn_decode_block(_layer(params["blocks"], i), x,
+                                            cache["kv"]["k"][i], cache["kv"]["v"][i], cache,
+                                            moe, shard)
+            if cross:
+                x = B.xattn_block_apply(_layer(params["xattn"], g), cfg, x,
+                                        kv_override=(cache["xkv"]["k"][g],
+                                                     cache["xkv"]["v"][g]))
         return x
 
     def _recurrent_decode(self, params, x, cache):

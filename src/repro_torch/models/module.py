@@ -82,3 +82,10 @@ def stack_meta(meta_tree, n: int):
         meta_tree,
     )
 
+
+def param_count(meta_tree) -> int:
+    return sum(math.prod(m.shape) for m in tree_leaves(meta_tree))
+
+
+def param_bytes(meta_tree) -> int:
+    return sum(math.prod(m.shape) * m.dtype.itemsize for m in tree_leaves(meta_tree))

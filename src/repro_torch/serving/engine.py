@@ -1,6 +1,6 @@
 """Continuous-batching serving engine over the wait-free page table.
 
-Port of ``repro.serving.engine`` for the dense, ssm and hybrid families:
+Port of ``repro.serving.engine``, for every family:
 
   * **slot-based continuous batching** — ``max_batch`` cache slots step
     together every engine tick; a slot still consuming its prompt feeds the
@@ -11,6 +11,10 @@ Port of ``repro.serving.engine`` for the dense, ssm and hybrid families:
     slot's rows in every cache leaf (KV rows, the hybrid's shared-block KV
     rows, recurrent states) and sets ``cache["start"][slot]`` so attention
     never sees the predecessor's rows.
+  * **audio** — a prompt is (P, n_codebooks); a prompt row fills every
+    codebook of the tick's token, a generated id is fed to all of them, and
+    codebook 0's logits are sampled.  **vlm** serving is text-only: the
+    cache holds no image K/V, as in the reference.
   * **wait-free page accounting** — every tick builds one op batch
     (admit/extend/finish) for :class:`PagedKVManager`, whose page table is
     the port's ``WaitFreeGraph`` in FPSP mode.
@@ -44,7 +48,7 @@ from .paged_cache import PagedKVManager
 @dataclasses.dataclass
 class Request:
     id: int
-    prompt: np.ndarray                      # (P,) int32
+    prompt: np.ndarray                      # (P,) int32, or (P, n_codebooks)
     max_new_tokens: int = 16
     temperature: float = 0.0                # 0 = greedy
     generated: List[int] = dataclasses.field(default_factory=list)
@@ -92,8 +96,11 @@ class ServingEngine:
 
     # -- public API ----------------------------------------------------------
     def submit(self, req: Request) -> None:
-        if req.prompt.ndim != 1 or len(req.prompt) < 1:
-            raise ValueError("a request needs a non-empty 1-d prompt")
+        rows = () if self.cfg.n_codebooks == 1 else (self.cfg.n_codebooks,)
+        p = req.prompt
+        if p.ndim != 1 + len(rows) or p.shape[1:] != rows or len(p) < 1:
+            raise ValueError(f"a request needs a non-empty prompt of shape (P,) + {rows}, "
+                             f"got {p.shape}")
         if len(req.prompt) + req.max_new_tokens > self.max_len:
             raise ValueError("prompt + max_new_tokens exceeds max_len")
         req.submit_tick = self.ticks
@@ -146,7 +153,8 @@ class ServingEngine:
                 self.obs.hist("serving.admission_wait_ticks", self.ticks - req.submit_tick)
 
         # this tick's forced/sampled token per active slot
-        tokens = np.zeros((self.max_batch, 1), np.int32)
+        ncb = self.cfg.n_codebooks
+        tokens = np.zeros((self.max_batch, 1) + ((ncb,) if ncb > 1 else ()), np.int32)
         for slot, req in enumerate(self.slots):
             if req is None:
                 continue
@@ -160,7 +168,7 @@ class ServingEngine:
         logits, self.cache = self.model.decode_step(
             self.params, torch.as_tensor(tokens, device=self.device), self.cache
         )
-        logits = logits[:, -1].float().cpu().numpy()
+        logits = logits[:, -1].float().cpu().numpy()  # (slots, [ncb,] Vp)
 
         # fold logits back: sample where the prompt is exhausted
         for slot, req in enumerate(self.slots):
@@ -195,6 +203,8 @@ class ServingEngine:
         self.cache["start"][slot] = pos
 
     def _sample(self, req: Request, logits_row: np.ndarray, position: int) -> int:
+        if self.cfg.n_codebooks > 1:
+            logits_row = logits_row[0]  # the first codebook drives the id stream
         logits_row = logits_row[: self.cfg.vocab]
         if req.temperature <= 0.0:
             return int(np.argmax(logits_row))

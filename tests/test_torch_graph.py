@@ -99,17 +99,25 @@ def test_default_device_is_the_card(monkeypatch):
         WaitFreeGraph()
 
 
-# keyword arguments of WaitFreeGraph, or {"family": arch} for an LM of a
-# family the port does not run yet; shards on several devices wait for a
-# multi-card slice
-@pytest.mark.parametrize("kwargs", [{"family": "mixtral-8x7b"},
+# keyword arguments of WaitFreeGraph, or {"family": arch, "run": run} for
+# an LM prefill (or, with "decode_moe_shardmap", decode step) whose run picks
+# the reference's MoE engine over several cards: shards and experts on
+# several devices wait for a multi-card slice
+@pytest.mark.parametrize("kwargs", [{"family": "mixtral-8x7b", "run": {"sp": True}},
                                     {"n_shards": 2, "mesh": ["cpu", "meta"]},
-                                    {"family": "llama-3.2-vision-11b"},
-                                    {"family": "musicgen-medium"}])
+                                    {"family": "granite-moe-3b-a800m", "run": {"sp": True}},
+                                    {"family": "mixtral-8x7b",
+                                     "run": {"decode_moe_shardmap": True}}])
 def test_later_slices_are_refused(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if "family" in kwargs:
-            LM(get_smoke_config(kwargs["family"]), device="cpu")
+            model = LM(get_smoke_config(kwargs["family"]), device="cpu")
+            params = model.init(torch.Generator().manual_seed(0))
+            toks = torch.zeros((1, 1), dtype=torch.int32)
+            if "decode_moe_shardmap" in kwargs["run"]:
+                model.decode_step(params, toks, model.decode_init(1, 4), run=kwargs["run"])
+            else:
+                model.hidden_states(params, toks, run=kwargs["run"])
         else:
             WaitFreeGraph(device="cpu", **kwargs)
 

@@ -90,7 +90,10 @@ def test_configs_match_the_reference():
             assert L.padded_vocab(port) == JL.padded_vocab(ref)
 
 
-@pytest.mark.parametrize("arch", ARCHS + REC_ARCHS)
+NEW_ARCHS = ["granite-moe-3b-a800m", "mixtral-8x7b", "llama-3.2-vision-11b", "musicgen-medium"]
+
+
+@pytest.mark.parametrize("arch", ARCHS + REC_ARCHS + NEW_ARCHS)
 def test_params_round_trip_and_meta(arch):
     jcfg, cfg, jp, tp = _setup(arch)
     back = params_to_numpy(tp)
@@ -316,9 +319,30 @@ def test_recurrent_block_helpers():
         _close_tree(tinit(pc, 3, torch.float32, "cpu"), jinit(jc, 3, jnp.float32), name)
 
 
-def test_other_families_are_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(get_smoke_config("mixtral-8x7b"), device="cpu")
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "granite-moe-3b-a800m"])
+def test_sharded_moe_is_refused(arch):
+    """Every family runs; the MoE FFN with its experts over several cards
+    (the reference's ``moe_apply_shardmap``, which its ``sp`` prefill and
+    ``decode_moe_shardmap`` decode pick) is refused."""
+    from repro_torch.models import blocks as TB
+
+    cfg = get_smoke_config(arch)
+    model = LM(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    model.hidden_states(params, toks)
+    with pytest.raises(NotImplementedError, match="several cards"):
+        model.hidden_states(params, toks, run={"sp": True})
+    with pytest.raises(NotImplementedError, match="several cards"):
+        model.decode_step(params, toks[:, :1], model.decode_init(1, 8),
+                          run={"decode_moe_shardmap": True})
+    with pytest.raises(NotImplementedError, match="several cards"):
+        TB.attn_block_apply(_layer_of(params["blocks"], 0), cfg,
+                            torch.zeros(1, 4, cfg.d_model), moe=True, shard=True)
+
+
+def _layer_of(tree, i):
+    return {k: _layer_of(v, i) for k, v in tree.items()} if isinstance(tree, dict) else tree[i]
 
 
 def test_default_device_is_the_card(monkeypatch):
