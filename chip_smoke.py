@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA card: the wait-free graph (one
 shard and hash-prefix sharded), the serving paths of seven LMs (one of each
-family: dense, ssm, hybrid, two MoE, vlm and audio) and the paged decode
-attention on the serving page table's own block tables.
+family: dense, ssm, hybrid, two MoE, vlm and audio), the paged decode
+attention on the serving page table's own block tables, and training
+(zamba2-1.2b at full width, gradients through the two LM kernels).
 
 Run from the root of a checkout, with one card visible:
 
@@ -238,6 +239,38 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    whose (B, 1, 4, Vp) logits are held as phase 6 holds its own; serving
    with (P, 4) prompts and all of phase 6's checks; ``flash_attention``
    timed at B 2, H 24, S 4,096, D 64, causal.
+20. Training zamba2-1.2b at full width (38 mamba2 layers, the shared
+   block after every 6, vocab 32,000), weights drawn on the card from
+   ``--seed``.  Both kernels run forward under autograd, inside the
+   ``torch.autograd.Function`` of their ``ops.py``, whose backward
+   recomputes and differentiates the plain version (``repro`` has no
+   backward kernel; XLA differentiates its plain code).  (a) The f32
+   gradient gate: on an f32 copy of the weights, one microbatch of 1 x
+   4,096 tokens of ``LM.loss`` and its backward through the kernels and
+   with both plain versions forced: the loss within 1e-5 relative and every
+   parameter leaf's gradient within 1e-3 relative L2 (the worst leaf
+   printed).  (b) bf16 training: ``TrainRunner``'s step function
+   (``build_train_step``, accum 2, ``AdamWConfig(warmup_steps=1)``) for 3
+   steps of 4 x 4,096 tokens from ``SyntheticTokenStream``; every loss and
+   gradient norm finite, a line a step (loss, grad_norm, lr, s, tokens/s),
+   step 2 under the profiler (the card's activity only: busy share,
+   launches, heaviest kernels); each step's
+   ``flash_attention`` and ``ssd_scan`` launches equal to the count the code
+   derives (each call twice under remat: the forward and the backward's
+   recompute); the loss of step 1's batch lower after the 3 steps than at
+   step 1; the peak device memory.  (c) Resume, bit for bit, under
+   ``torch.use_deterministic_algorithms(True)`` (``CUBLAS_WORKSPACE_CONFIG``
+   is set before CUDA starts), cut to the first group (6 mamba2 layers and
+   one shared-block application; the whole state would be a 17 GB
+   checkpoint on disk): run A trains 4 steps and saves its state at step 2
+   into a directory under ``build/`` that the phase deletes, run B, a fresh
+   ``TrainRunner``, restores it and trains to step 4; parameters, m, v,
+   master, count and the data step equal; the checkpoint's bytes and save
+   and restore seconds printed.  The zamba2-1.2b ``flash_attention`` and
+   ``ssd_scan`` rows of the ``kernels`` line gain the phase's launches
+   (``launches_train_path``; the f32 gate's are not counted) and the time of
+   one call of their backward, the plain version's gradient, at a
+   microbatch's shapes (``plain_backward_ms``).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``kernels`` record.  Without a card, or outside a checkout of the repository,
@@ -246,19 +279,27 @@ it exits non-zero and prints no result.
 
 from __future__ import annotations
 
-import argparse
-import contextlib
-import itertools
-import json
-import re
-import statistics
-import subprocess
-import sys
-import time
-from pathlib import Path
+import os
 
-import numpy as np
-import torch
+# cuBLAS needs a fixed workspace for deterministic products (phase 20's
+# resume runs under torch.use_deterministic_algorithms), set before CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import argparse  # noqa: E402
+import contextlib  # noqa: E402
+import itertools  # noqa: E402
+import json  # noqa: E402
+import re  # noqa: E402
+import shutil  # noqa: E402
+import statistics  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+import tempfile  # noqa: E402
+import time  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
@@ -284,6 +325,7 @@ from repro_torch.kernels.compact import ops as compact_ops  # noqa: E402
 from repro_torch.kernels.compact.ref import probe_place_device_rounds  # noqa: E402
 from repro_torch.kernels.flash_attention import attention  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fak  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
 from repro_torch.kernels.frontier import frontier_expand  # noqa: E402
 from repro_torch.kernels.frontier import kernel as fk  # noqa: E402
 from repro_torch.kernels.hash_probe import hash_probe  # noqa: E402
@@ -292,12 +334,17 @@ from repro_torch.kernels.paged_attention import kernel as pak  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as ssk  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
-from repro_torch.launch.steps import build_prefill_step  # noqa: E402
+from repro_torch.checkpoint import CheckpointStore  # noqa: E402
+from repro_torch.data import DataConfig, SyntheticTokenStream  # noqa: E402
+from repro_torch.launch.steps import build_prefill_step, build_run  # noqa: E402
+from repro_torch.launch.train import TrainRunner  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import blocks as model_blocks  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
-from repro_torch.models.module import param_bytes, param_count, tree_map  # noqa: E402
+from repro_torch.models.module import param_bytes, param_count, tree_leaves, tree_map  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.obs import probes as obs_probes  # noqa: E402
 from repro_torch.serving import PagedKVManager, Request, ServingEngine  # noqa: E402
 
@@ -315,6 +362,7 @@ PAGE_TABLE = ("hash_probe", "masked_compact", "probe_place")
 SERVE_PATH = ("flash_attention", "paged_attention") + PAGE_TABLE
 RWKV_PATH = ("ssd_scan",) + PAGE_TABLE
 ZAMBA_PATH = ("ssd_scan", "flash_attention", "paged_attention") + PAGE_TABLE
+TRAIN_PATH = ("flash_attention", "ssd_scan")  # phase 20: training zamba2-1.2b
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 ALU_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores, the
@@ -463,6 +511,22 @@ PAGED_FULL_REL_TOL = 1e-2
 # context of 32,768 (arXiv:2407.10671), and 1,024-4,096 for zamba2-1.2b
 PAGED_DECODE_BATCH, PAGED_PRELOAD = 16, 24
 PAGED_LENS = {LM_ARCH: (4096, 32768), HYBRID_ARCH: (1024, 4096)}
+
+# phase 20: training zamba2-1.2b at full width (its train state, about 17 GB
+# of bf16 weights and f32 m, v and master, fits one card; the reference's
+# TRAIN_ACCUM of 2), from the token stream of --seed
+TRAIN_ARCH = HYBRID_ARCH
+# 3 steps: a step took 26-30 s on the card, the plain backward most of it,
+# and 4 took phase 20 to 246 s and chip_smoke to 1,019 s of its 1,200
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS = 4, 4096, 2, 3
+TRAIN_PROFILE_STEP = 2          # the step run under the profiler
+TRAIN_OPT = dict(warmup_steps=1)
+GATE_BATCH = 1                  # the f32 gradient gate's microbatch: 1 x 4,096
+GATE_LOSS_RTOL, GATE_GRAD_REL_L2 = 1e-5, 1e-3
+# the resume runs are cut to the first group (6 mamba2 layers and one
+# shared-block application): the whole model's state would be a 17 GB
+# checkpoint on disk, twice
+RESUME_LAYERS, RESUME_AT, RESUME_STEPS = 6, 2, 4
 
 
 def log(msg: str) -> None:
@@ -669,6 +733,36 @@ def profile_window(step, n: int, unit: str):
         f"kernel_launches_per_{unit}": sum(e.count for e in kernels) / n,
         f"top_kernels_us_per_{unit}": {e.key[:80]: e.self_device_time_total / n for e in top},
     }
+
+
+def profile_device(step):
+    """``step()`` once under torch.profiler recording the card's activity
+    only, read from the profiler's raw events: a training step launches
+    hundreds of thousands of kernels, and parsing their host-side events
+    into ``key_averages`` took minutes.  Returns the result and the
+    device's busy share of the wall time, its kernel launches and its
+    heaviest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = step()
+        sync()
+        wall_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    by_name, launches = {}, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            by_name[e.name()] = by_name.get(e.name(), 0) + e.duration_ns()
+            launches += 1
+    busy_s = sum(by_name.values()) / 1e9
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return result, {"wall_s": wall_s, "device_busy_s": busy_s,
+                    "device_busy_share": busy_s / wall_s, "kernel_launches": launches,
+                    "top_kernels_ms": {name[:80]: ns / 1e6 for name, ns in top},
+                    "read_s": time.perf_counter() - t0}
 
 
 def fig4_windows(g, oracle, rng, n_keys, phase: int) -> dict:
@@ -2612,6 +2706,261 @@ def ssd_sass(sass: str, report: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: training zamba2-1.2b at full width
+# ---------------------------------------------------------------------------
+
+
+def _leaf_paths(tree, prefix: str = "") -> list:
+    """The "/"-joined key paths of a parameter tree, in its leaves' order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _leaf_paths(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
+def _loss_and_grads(model, params, batch, run):
+    """``LM.loss`` of ``batch`` and its gradient for every parameter leaf."""
+    wrt = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    it = iter(wrt)
+    loss = model.loss(tree_map(lambda _: next(it), params), batch, run=run)
+    return loss.detach(), torch.autograd.grad(loss, wrt)
+
+
+def _train_launches(cfg, run, microbatches: int) -> dict:
+    """The launches that ``microbatches`` of the loss and its backward make,
+    as the code derives them: each mamba2 layer's scan (three launches a
+    call) and each application of the shared block's attention (one), once
+    in the forward and once more in the backward's recompute under remat;
+    the backward's own recompute of the plain versions launches nothing."""
+    fwd = 2 if run["remat"] else 1
+    n_shared = cfg.n_layers // cfg.shared_attn_every
+    return {"flash_attention": microbatches * n_shared * fwd,
+            "ssd_scan": microbatches * cfg.n_layers * fwd * len(ssk.PASSES)}
+
+
+def train_grad_gate(cfg, params, tokens, dev) -> dict:
+    """Part 1: one microbatch of the loss on an f32 copy of the weights,
+    through the kernels and with both plain versions forced; the loss
+    within ``GATE_LOSS_RTOL`` and each leaf's gradient within
+    ``GATE_GRAD_REL_L2`` relative L2.  Launches made to compare are not
+    counted."""
+    cfg32 = cfg.scaled(dtype="float32")
+    model = LM(cfg32, dev)
+    p32 = tree_map(lambda t: t.float(), params)
+    mb = {k: v[:GATE_BATCH] for k, v in tokens.items()}
+    run = build_run(cfg32)
+    with uncounted():
+        before = _launch_counts()
+        (loss, grads), kernel_s = wall_s(lambda: _loss_and_grads(model, p32, mb, run))
+        launched = {n: WRAPPERS[n].launches - before[n] for n in TRAIN_PATH}
+        plain_run = {**run, "attn_impl": "reference", "scan_impl": "reference"}
+        (want, want_g), plain_s = wall_s(lambda: _loss_and_grads(model, p32, mb, plain_run))
+    if launched != _train_launches(cfg32, run, 1):
+        raise SystemExit(f"phase 20: the f32 loss and backward launched {launched}, not "
+                         f"{_train_launches(cfg32, run, 1)}")
+    loss_rel = abs(float(loss) - float(want)) / abs(float(want))
+    rels = {name: ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+            for name, a, b in zip(_leaf_paths(params), grads, want_g)}
+    worst = max(rels, key=rels.get)
+    out = {"batch": GATE_BATCH, "seq": TRAIN_SEQ, "loss": float(loss), "plain_loss": float(want),
+           "loss_rel": loss_rel, "worst_leaf": worst, "worst_rel_l2": rels[worst],
+           "rel_l2": rels, "kernel_s": kernel_s, "plain_s": plain_s, "launches": launched}
+    log(f"phase 20: f32 gradient gate, {GATE_BATCH} x {TRAIN_SEQ} tokens on an f32 copy of the "
+        f"weights: loss {float(loss):.7f} through the kernels against {float(want):.7f} with the "
+        f"plain versions ({loss_rel:.3e} relative, limit {GATE_LOSS_RTOL}); the worst of "
+        f"{len(rels)} leaves' gradients {worst} at {rels[worst]:.3e} relative L2 (limit "
+        f"{GATE_GRAD_REL_L2}); {kernel_s:.2f} s through the kernels ({json.dumps(launched)} "
+        f"launches), {plain_s:.2f} s plain")
+    if not (torch.isfinite(loss) and loss_rel <= GATE_LOSS_RTOL
+            and rels[worst] <= GATE_GRAD_REL_L2):
+        raise SystemExit(f"phase 20: the f32 gate failed: loss {loss_rel}, {worst} {rels[worst]}")
+    return out
+
+
+def train_steps(cfg, params, seed: int, dev) -> dict:
+    """Part 2: ``TRAIN_STEPS`` bf16 steps of ``TrainRunner``'s step function
+    (``build_train_step``, accum 2) on the token stream, one of them under
+    the profiler; every loss and gradient norm finite, each step's launches
+    equal to the count the code derives, and step 1's batch's loss lower
+    after the steps than at step 1."""
+    runner = TrainRunner(cfg, ckpt_dir=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                         accum=TRAIN_ACCUM, seed=seed, opt_cfg=AdamWConfig(**TRAIN_OPT),
+                         device=dev)
+    runner.params, runner.opt_state = params, adamw_init(params)
+    want = _train_launches(cfg, runner.run, TRAIN_ACCUM)
+    n_tok = TRAIN_BATCH * TRAIN_SEQ
+    steps, first, prof = [], None, None
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(1, TRAIN_STEPS + 1):
+        batch = runner.data.next_batch()
+        first = batch if first is None else first
+
+        def one():
+            runner.params, runner.opt_state, m = runner.step_fn(runner.params, runner.opt_state,
+                                                                batch)
+            runner.step += 1
+            return m
+
+        before = _launch_counts()
+        if i == TRAIN_PROFILE_STEP:
+            m, prof = profile_device(one)
+            dt = prof["wall_s"]
+        else:
+            m, dt = wall_s(one)
+        launched = {n: WRAPPERS[n].launches - before[n] for n in TRAIN_PATH}
+        row = {"step": i, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "lr": float(m["lr"]), "s": dt, "tokens_per_s": n_tok / dt,
+               "profiled": i == TRAIN_PROFILE_STEP}
+        steps.append(row)
+        log(f"phase 20: step {i}: loss {row['loss']:.4f}, grad_norm {row['grad_norm']:.4f}, lr "
+            f"{row['lr']:.3e}, {dt:.3f} s, {row['tokens_per_s']:.1f} tokens/s"
+            f"{' (under the profiler)' if row['profiled'] else ''}; launches "
+            f"{json.dumps(launched)}")
+        if not (np.isfinite(row["loss"]) and np.isfinite(row["grad_norm"])):
+            raise SystemExit(f"phase 20: step {i} gave a loss or grad norm that is not finite")
+        if launched != want:
+            raise SystemExit(f"phase 20: step {i} launched {launched}, not {want}")
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        again = float(runner.model.loss(
+            runner.params, {k: torch.as_tensor(v, device=dev) for k, v in first.items()},
+            run=runner.run))
+    log(f"phase 20: step 1's batch: loss {steps[0]['loss']:.4f} at step 1, {again:.4f} after "
+        f"{TRAIN_STEPS} steps; peak device memory {peak / 1e9:.2f} GB; the profiled step: "
+        + json.dumps(prof))
+    if not again < steps[0]["loss"]:
+        raise SystemExit(f"phase 20: step 1's batch's loss did not fall ({again} after "
+                         f"{TRAIN_STEPS} steps, {steps[0]['loss']} at step 1)")
+    timed = [r["s"] for r in steps[1:] if not r["profiled"]]
+    del runner
+    return {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "accum": TRAIN_ACCUM, "opt": TRAIN_OPT,
+            "steps": steps, "median_s": statistics.median(timed),
+            "tokens_per_s": n_tok / statistics.median(timed), "first_batch_loss_after": again,
+            "peak_bytes": peak, "launches_per_step": want, "profile": prof}
+
+
+def _train_state(runner) -> list:
+    return tree_leaves({"params": runner.params, "opt": runner.opt_state})
+
+
+def train_resume(cfg, seed: int, dev) -> dict:
+    """Part 3: kill and resume, bit for bit, under deterministic
+    algorithms, on the first group of the model (``RESUME_LAYERS``).  Run A
+    trains ``RESUME_STEPS`` steps and saves its whole state at step
+    ``RESUME_AT`` into a directory the phase deletes; run B, a fresh
+    runner, restores the latest valid checkpoint (step ``RESUME_AT``) and
+    trains on to ``RESUME_STEPS``.  Parameters, m, v, master, count and the
+    data step must be equal."""
+    cut = cfg.scaled(n_layers=RESUME_LAYERS)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=ROOT / "build")
+
+    def runner(ckpt):
+        return TrainRunner(cut, ckpt_dir=ckpt, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                           accum=TRAIN_ACCUM, seed=seed, opt_cfg=AdamWConfig(**TRAIN_OPT),
+                           device=dev)
+
+    def quiet(_msg):
+        return None
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        a = runner(None)
+        a.init_or_restore()
+        a.train(RESUME_AT, log_every=1, save_every=0, log=quiet)
+        a.store = CheckpointStore(tmp)
+        _, save_s = wall_s(lambda: a.save(sync=True))
+        a.store = None  # the phase writes one checkpoint
+        a.train(RESUME_STEPS, log_every=1, save_every=0, log=quiet)
+        ckpt_bytes = sum(f.stat().st_size for f in Path(tmp).rglob("*") if f.is_file())
+        b = runner(tmp)
+        how, restore_s = wall_s(b.init_or_restore)  # validates the sha256, then loads
+        if how != "restored" or b.step != RESUME_AT or b.data.step != RESUME_AT:
+            raise SystemExit(f"phase 20: run B {how} at step {b.step} (data step "
+                             f"{b.data.step}), not restored at {RESUME_AT}")
+        b.store = None
+        b.train(RESUME_STEPS, log_every=1, save_every=0, log=quiet)
+        names = _leaf_paths({"params": a.params, "opt": a.opt_state})
+        differ = [n for n, x, y in zip(names, _train_state(a), _train_state(b))
+                  if x.dtype != y.dtype or not torch.equal(x, y)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if differ or a.data.step != b.data.step:
+        raise SystemExit(f"phase 20: resumed run differs from the whole run in {differ[:8]} "
+                         f"(data steps {a.data.step}, {b.data.step})")
+    out = {"layers": RESUME_LAYERS, "params": param_count(LM(cut, "meta").meta()),
+           "checkpoint_bytes": ckpt_bytes, "save_s": save_s, "restore_s": restore_s,
+           "leaves_equal": len(names), "data_step": b.data.step}
+    log(f"phase 20: resume at {cut.n_layers} layers ({out['params']} parameters), deterministic "
+        f"algorithms: run A trained {RESUME_STEPS} steps, saving step {RESUME_AT} "
+        f"({ckpt_bytes} bytes in {save_s:.2f} s); run B restored it ({restore_s:.2f} s, sha256 "
+        f"checked) and trained to step {RESUME_STEPS}: all {len(names)} leaves (params, m, v, "
+        f"master, count) and the data step ({b.data.step}) equal bit for bit")
+    return out
+
+
+def train_backward_ms(cfg, dev) -> dict:
+    """The kernels' backward (the plain versions' gradient, ``*_vjp``) at one
+    microbatch's shapes, bf16, timed as in phase 4: one call of each of the
+    38 scans and 6 attentions a microbatch's backward makes."""
+    b = TRAIN_BATCH // TRAIN_ACCUM
+    _, hds, hd, n_state = model_blocks._mamba_dims(cfg)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k = (0.3 * torch.randn(b, hds, TRAIN_SEQ, n_state, generator=gen, device=dev)
+            for _ in range(2))
+    v, gy = (torch.randn(b, hds, TRAIN_SEQ, hd, generator=gen, device=dev) for _ in range(2))
+    w = torch.rand(b, hds, TRAIN_SEQ, 1, generator=gen, device=dev) * 0.1 + 0.9
+    q, k, v, gy, w = (t.bfloat16() for t in (q, k, v, gy, w))
+    h0 = torch.zeros(b, hds, n_state, hd, device=dev)
+    chunk = model_blocks._pick_chunk(TRAIN_SEQ)
+    out = {"ssd_scan": cuda_ms(lambda: ssd_ref.linear_scan_chunked_vjp(
+        q, k, v, w, h0, gy, None, chunk=chunk), 3)}
+    del q, k, v, gy, w, h0
+    qa, ka, va, ga = (torch.randn(b, cfg.n_heads, TRAIN_SEQ, cfg.head_dim, generator=gen,
+                                  device=dev).bfloat16() for _ in range(4))
+    out["flash_attention"] = cuda_ms(lambda: flash_ref.mha_chunked_vjp(qa, ka, va, ga,
+                                                                       q_offset=0), 3)
+    log(f"phase 20: the kernels' backward (the plain versions' gradient) at a microbatch's "
+        f"shapes, bf16: ssd_scan {out['ssd_scan']:.1f} ms a call (B {b}, H {hds}, S "
+        f"{TRAIN_SEQ}, K {n_state}, V {hd}), flash_attention {out['flash_attention']:.1f} ms "
+        f"(B {b}, H {cfg.n_heads}, S {TRAIN_SEQ}, D {cfg.head_dim}, causal)")
+    return out
+
+
+def train_path(seed: int, dev) -> dict:
+    """Phase 20: the f32 gradient gate, bf16 training at full width and the
+    bit-exact resume, the weights drawn on the card from ``seed``."""
+    cfg = get_config(TRAIN_ARCH)
+    model = LM(cfg, dev)
+    params, init_s = wall_s(lambda: model.init(torch.Generator(device=dev).manual_seed(seed)))
+    log(f"phase 20: {cfg.name} at full width ({param_count(model.meta())} parameters, "
+        f"{param_bytes(model.meta()) / 1e9:.2f} GB bf16) drawn on the card in {init_s:.2f} s; "
+        f"train state with f32 m, v and master {param_count(model.meta()) * 14 / 1e9:.2f} GB")
+    stream = SyntheticTokenStream(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                             global_batch=TRAIN_BATCH, seed=seed))
+    tokens = {k: torch.as_tensor(v, device=dev) for k, v in stream.next_batch().items()}
+    out = {"arch": cfg.name, "params": param_count(model.meta())}
+    t = [time.perf_counter()]
+    out["f32_gate"] = train_grad_gate(cfg, params, tokens, dev)
+    del tokens
+    torch.cuda.empty_cache()
+    t.append(time.perf_counter())
+    out["train"] = train_steps(cfg, params, seed, dev)
+    del params
+    torch.cuda.empty_cache()
+    t.append(time.perf_counter())
+    out["resume"] = train_resume(cfg, seed, dev)
+    torch.cuda.empty_cache()
+    t.append(time.perf_counter())
+    with uncounted():
+        out["backward_ms"] = train_backward_ms(cfg, dev)
+    t.append(time.perf_counter())
+    out["seconds"] = dict(zip(("f32_gate", "train", "resume", "backward_ms"),
+                              np.diff(t).tolist()))
+    log(f"phase 20: seconds by part {json.dumps(out['seconds'])}")
+    return out
+
+
 def run_counted(path, fn):
     """Run one main path with every launch (and call) count set to 0 just
     before it; exits if a kernel of ``path`` was launched no time in it."""
@@ -2788,6 +3137,17 @@ def main(argv=None) -> int:
     phase_s["13"] = time.perf_counter() - t0
 
     family_phases(args.seed, dev, rows, summary, phase_s)
+
+    # phase 20: training, with every launch count read around it
+    t0 = time.perf_counter()
+    summary["train"] = run_counted(TRAIN_PATH, lambda: train_path(args.seed, dev))
+    train_launches = _launch_counts()
+    for row in rows:
+        if row["name"] in (f"flash_attention[{TRAIN_ARCH}]", f"ssd_scan[{TRAIN_ARCH}]"):
+            name = row["name"].split("[")[0]
+            row["launches_train_path"] = train_launches[name]
+            row["plain_backward_ms"] = summary["train"]["backward_ms"][name]
+    phase_s["20"] = time.perf_counter() - t0
 
     summary["card"] = smi
     summary["sass"] = sass

@@ -9,9 +9,13 @@ per-channel decay w_t in (0, 1]^K:
 * :func:`linear_scan_reference` is the exact sequential recurrence.
 * :func:`linear_scan_chunked` is the chunked form with every exponent
   ≤ 0; it is what :func:`..ops.ssd_scan` runs for CPU tensors and what
-  ``chip_smoke.py`` holds the CUDA kernel against.  The reference wraps its
-  chunk body in ``jax.checkpoint`` for training; the port is inference only
-  and loops over the chunks in Python.
+  ``chip_smoke.py`` holds the CUDA kernel against.  It loops over the
+  chunks in Python; under autograd each chunk body runs under a checkpoint,
+  as the reference's under ``jax.checkpoint``, so only the (B, H, K, V)
+  states are kept between chunks.
+* :func:`linear_scan_chunked_vjp` is its gradient, chunk by chunk from the
+  carried states, as XLA takes the reference's; the kernel's backward
+  (``ops.KernelScan``) is this.
 * :func:`linear_scan_step` is the O(1) decode step.
 * :func:`linear_scan_passes` is the CUDA kernel's decomposition of the
   chunked form (chunk states, a state pass, chunk outputs, and the
@@ -26,6 +30,8 @@ w broadcast over K: these functions take it in that per-channel form.
 from __future__ import annotations
 
 import torch
+
+from .._grad import checkpointed
 
 F32 = torch.float32
 
@@ -72,26 +78,96 @@ def linear_scan_chunked(q, k, v, w, h0=None, *, chunk: int = 64, strict: bool = 
     V = v.shape[-1]
     if S % chunk:
         raise ValueError(f"sequence length {S} is not a multiple of the chunk {chunk}")
-    dev = q.device
-    h = torch.zeros(B, H, K, V, dtype=F32, device=dev) if h0 is None else h0
-    mask = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool, device=dev),
-                      diagonal=-1 if strict else 0)
+    h = torch.zeros(B, H, K, V, dtype=F32, device=q.device) if h0 is None else h0
     ys = []
     for c0 in range(0, S, chunk):
-        qt, kt, vt, wt = (x[:, :, c0:c0 + chunk].to(F32) for x in (q, k, v, w))
-        logw = torch.log(torch.clamp(wt, min=1e-30))
-        L = torch.cumsum(logw, dim=2)                                   # (B,H,C,K)
-        Lq = (L - logw) if strict else L
-        y = torch.einsum("bhck,bhkv->bhcv", qt * torch.exp(Lq), h)
-        diff = Lq[:, :, :, None, :] - L[:, :, None, :, :]               # (B,H,C,C,K)
-        scores = torch.einsum("bhtk,bhsk,bhtsk->bhts", qt, kt,
-                              torch.exp(torch.clamp(diff, max=0.0)))
-        scores = torch.where(mask, scores, torch.zeros((), dtype=F32, device=dev))
-        ys.append(y + torch.einsum("bhts,bhsv->bhtv", scores, vt))
-        Lc = L[:, :, -1:, :]
-        k_out = kt * torch.exp(Lc - L)
-        h = h * torch.exp(Lc[:, :, 0, :, None]) + torch.einsum("bhck,bhcv->bhkv", k_out, vt)
+        y, h = checkpointed(lambda *xs: _chunk(*xs, strict=strict),
+                            *(x[:, :, c0:c0 + chunk] for x in (q, k, v, w)), h)
+        ys.append(y)
     return torch.cat(ys, dim=2).to(q.dtype), h
+
+
+def _chunk(q, k, v, w, h, *, strict: bool):
+    """One chunk of :func:`linear_scan_chunked`: (y in f32, the state after
+    it)."""
+    chunk = q.shape[2]
+    qt, kt, vt, wt = (x.to(F32) for x in (q, k, v, w))
+    mask = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool, device=q.device),
+                      diagonal=-1 if strict else 0)
+    logw, L = _log_decays(wt)
+    Lq = (L - logw) if strict else L
+    y = torch.einsum("bhck,bhkv->bhcv", qt * torch.exp(Lq), h)
+    diff = Lq[:, :, :, None, :] - L[:, :, None, :, :]                   # (B,H,C,C,K)
+    scores = torch.einsum("bhtk,bhsk,bhtsk->bhts", qt, kt,
+                          torch.exp(torch.clamp(diff, max=0.0)))
+    scores = torch.where(mask, scores, torch.zeros((), dtype=F32, device=q.device))
+    y = y + torch.einsum("bhts,bhsv->bhtv", scores, vt)
+    return y, _state_after(kt, vt, L, h)
+
+
+def _log_decays(wt):
+    """log w (clamped at 1e-30) and its within-chunk cumulative sum L."""
+    logw = torch.log(torch.clamp(wt, min=1e-30))
+    return logw, torch.cumsum(logw, dim=2)                              # (B,H,C,K)
+
+
+def _state_after(kt, vt, L, h):
+    """H_out = diag(e^{L_C}) H_in + Σ_t (k_t ⊙ e^{L_C - L_t}) ⊗ v_t."""
+    Lc = L[:, :, -1:, :]
+    k_out = kt * torch.exp(Lc - L)
+    return h * torch.exp(Lc[:, :, 0, :, None]) + torch.einsum("bhck,bhcv->bhkv", k_out, vt)
+
+
+def linear_scan_chunked_vjp(q, k, v, w, h0, grad_y, grad_hT, *, chunk: int = 64,
+                            strict: bool = False):
+    """The gradient of :func:`linear_scan_chunked` with respect to q, k, v,
+    w and ``h0`` (None for ``h0=None``), given the gradients of y and of the
+    final state (either may be None).  w may be one decay a step (B, H, S,
+    1), broadcast over K as ``ops.ssd_scan``'s plain route does.
+
+    As XLA differentiates the reference's scan over a checkpointed chunk
+    body, whose carries it keeps: the states entering each chunk come from
+    one pass forward of the state update alone (the same ops as
+    :func:`_chunk`'s, without the pairwise term), then each chunk, last
+    first, is recomputed under autograd and differentiated, its state's
+    gradient handed to the chunk before it."""
+    B, H, S, K = q.shape
+    if S % chunk:
+        raise ValueError(f"sequence length {S} is not a multiple of the chunk {chunk}")
+    n = S // chunk
+
+    def part(x, c):
+        return x[:, :, c * chunk:(c + 1) * chunk]
+
+    def wide(wc):
+        return wc.expand(*wc.shape[:3], K)
+
+    with torch.no_grad():
+        h = torch.zeros(B, H, K, v.shape[-1], dtype=F32, device=q.device) if h0 is None else h0
+        states = []
+        for c in range(n):
+            states.append(h)
+            h = _state_after(part(k, c).to(F32), part(v, c).to(F32),
+                             _log_decays(wide(part(w, c)).to(F32))[1], h)
+    gh = grad_hT
+    grads = [[] for _ in range(4)]
+    for c in reversed(range(n)):
+        with torch.enable_grad():
+            xs = [part(x, c).detach().requires_grad_() for x in (q, k, v, w)]
+            h_in = states[c].detach().requires_grad_()
+            y, h_out = _chunk(xs[0], xs[1], xs[2], wide(xs[3]), h_in, strict=strict)
+            outs = [(o, g) for o, g in ((y, None if grad_y is None else part(grad_y, c)),
+                                        (h_out, gh)) if g is not None]
+            if outs:
+                got = torch.autograd.grad([o for o, _ in outs], xs + [h_in],
+                                          [g.to(o.dtype) for o, g in outs], allow_unused=True)
+            else:
+                got = [None] * 5
+        for acc, g, x in zip(grads, got[:4], xs):
+            acc.append(torch.zeros_like(x) if g is None else g)
+        gh = got[4]
+    dq, dk, dv, dw = (torch.cat(acc[::-1], dim=2) for acc in grads)
+    return dq, dk, dv, dw, (None if h0 is None else gh)
 
 
 SUB = 16  # the sub-chunk of the per-channel intra-chunk term (the kernel's mma tile rows)

@@ -1,4 +1,5 @@
-"""Decoder LM assembly for every family, inference only.
+"""Decoder LM assembly for every family: prefill, decode and the training
+loss.
 
 Port of ``repro.models.lm.LM``: ``family`` in ``dense``, ``moe`` (the MoE
 FFN in every attention block: mixtral, granite), ``vlm`` (llama-3.2-vision:
@@ -9,16 +10,26 @@ attention blocks; ``ssm`` rwkv6 blocks; ``hybrid`` mamba2 blocks with one
 shared attention block after every ``shared_attn_every`` layers (zamba2).
 It holds the parameter meta and init, the prefill forward (``hidden_states``
 + ``_logits``, with the recurrent states in and out, and the MoE blocks'
-summed balancing loss) and the one-token decode step over a KV cache, the
-vlm's precomputed cross K/V and/or recurrent states.  Parameters are a
-nested dict of tensors laid out as the reference's pytree, with the
-repeated blocks stacked along a leading layer dim; the reference scans over
-that dim, the port loops over it in Python.  Remat and sequence-parallel
-constraints have no meaning for inference on one card and are not carried
-over; a ``run`` dict may still name them.  Where the reference's ``sp``
-(prefill) or ``decode_moe_shardmap`` (decode) would pick its shard_map MoE
-engine, the port raises ``NotImplementedError``: experts over several cards
-wait for a multi-card slice (ROADMAP.md queue 1).
+summed balancing loss), the training loss (``loss``: the chunked
+cross-entropy of :func:`_xent_chunked` plus 0.01 times the balancing loss)
+and the one-token decode step over a KV cache, the vlm's precomputed cross
+K/V and/or recurrent states.  Parameters are a nested dict of tensors laid
+out as the reference's pytree, with the repeated blocks stacked along a
+leading layer dim; the reference scans over that dim, the port unbinds it
+once and loops over the layers in Python (one unbind, so a layer's gradient
+lands in the stacked leaf through one stack, not a full-size zero tensor a
+layer).
+
+``run["remat"]`` checkpoints as the reference's ``jax.checkpoint`` does,
+while grad mode is on: each layer of an attention or rwkv6 stack; the vlm's
+groups with each of their layers nested inside; the hybrid's groups (its
+mamba2 layers and the shared block) and each layer of its mamba2 tail
+(``torch.utils.checkpoint``, non-reentrant).  Sequence-parallel constraints
+have no meaning on one card and are not carried over; a ``run`` dict may
+still name them.  Where the reference's ``sp`` (prefill) or
+``decode_moe_shardmap`` (decode) would pick its shard_map MoE engine, the
+port raises ``NotImplementedError``: experts over several cards wait for a
+multi-card slice (ROADMAP.md queue 1).
 
 :func:`params_from_numpy` carries the reference's parameter pytree (numpy
 leaves) into the port, and serves as the port's checkpoint-in;
@@ -36,6 +47,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels._grad import checkpointed
 from . import blocks as B
 from . import layers as L
 from .config import ArchConfig
@@ -46,6 +58,8 @@ DEFAULT_RUN: Dict[str, Any] = {
     "attn_block_q": 512,      # chunk sizes of the plain attention
     "attn_block_k": 512,
     "scan_impl": "chunked",   # "chunked" | "reference" (the recurrent prefill's scan)
+    "remat": True,            # per-layer activation checkpointing under autograd
+    "loss_chunk": 512,        # sequence chunk of the cross-entropy
 }
 
 _BLOCK_KINDS = {"dense": "attn", "moe": "attn", "audio": "attn", "vlm": "attn",
@@ -54,6 +68,19 @@ _BLOCK_KINDS = {"dense": "attn", "moe": "attn", "audio": "attn", "vlm": "attn",
 
 def _layer(blocks, i: int):
     return tree_map(lambda a: a[i], blocks)
+
+
+def _unstack(blocks, n: int) -> list:
+    """The first ``n`` layers of a stacked parameter tree, one dict each
+    (one ``unbind`` a leaf)."""
+    cols = tree_map(lambda a: a.unbind(0), blocks)
+    return [tree_map(lambda parts: parts[i], cols) for i in range(n)]
+
+
+def _remat(run, fn, *args):
+    """``fn(*args)``, checkpointed while grad mode is on when ``run`` asks
+    for remat."""
+    return checkpointed(fn, *args) if run["remat"] else fn(*args)
 
 
 def _write_state(states, i: int, new) -> None:
@@ -142,14 +169,29 @@ class LM:
         cfg = self.cfg
         moe = cfg.moe is not None
         every = cfg.xattn_every or cfg.n_layers
-        aux = 0.0
-        for g in range(cfg.n_layers // every):
+        n_groups = cfg.n_layers // every
+        blocks = _unstack(params["blocks"], n_groups * every)
+        xblocks = _unstack(params["xattn"], n_groups) if cfg.xattn_every else None
+
+        def layer(i, x):
+            return self._attn_block(blocks[i], x, run, positions, moe)
+
+        def group(g, x):
+            aux = 0.0
             for i in range(g * every, (g + 1) * every):
-                x, a = self._attn_block(_layer(params["blocks"], i), x, run, positions, moe)
+                x, a = _remat(run, lambda x, i=i: layer(i, x), x)
                 aux = aux + a
             if cfg.xattn_every:
-                x = B.xattn_block_apply(_layer(params["xattn"], g), cfg, x, memory,
-                                        attn_impl=run["attn_impl"])
+                x = B.xattn_block_apply(xblocks[g], cfg, x, memory, attn_impl=run["attn_impl"])
+            return x, aux
+
+        aux = 0.0
+        for g in range(n_groups):
+            if cfg.xattn_every:
+                x, a = _remat(run, lambda x, g=g: group(g, x), x)
+            else:
+                x, a = group(g, x)
+            aux = aux + a
         return x, aux
 
     def _shared_after(self, i: int) -> bool:
@@ -167,14 +209,30 @@ class LM:
         cfg = self.cfg
         hybrid = self.block_kind == "mamba2"
         apply = B.mamba2_block_apply if hybrid else B.rwkv6_block_apply
-        new = []
-        for i in range(cfg.n_layers):
+        blocks = _unstack(params["blocks"], cfg.n_layers)
+
+        def layer(i, x):
             st = None if states is None else _layer(states, i)
-            x, ns = apply(_layer(params["blocks"], i), cfg, x, state=st,
-                          scan_impl=run["scan_impl"])
-            new.append(ns)
-            if hybrid and self._shared_after(i):
+            return apply(blocks[i], cfg, x, state=st, scan_impl=run["scan_impl"])
+
+        def group(i0, i1, x):
+            new = []
+            for i in range(i0, i1):
+                x, ns = layer(i, x)
+                new.append(ns)
+            if hybrid and self._shared_after(i1 - 1):
                 x, _ = self._attn_block(params["shared_attn"], x, run, positions)
+            return x, new
+
+        # the checkpointed spans: each group of the hybrid's head, else one layer
+        every = cfg.shared_attn_every if hybrid else 1
+        n_head = (cfg.n_layers // every) * every
+        spans = [(i, i + every) for i in range(0, n_head, every)] + \
+            [(i, i + 1) for i in range(n_head, cfg.n_layers)]
+        new = []
+        for i0, i1 in spans:
+            x, ns = _remat(run, lambda x, i0=i0, i1=i1: group(i0, i1, x), x)
+            new += ns
         return x, {name: torch.stack([ns[name] for ns in new]) for name in new[0]}
 
     def init_recurrent_states(self, batch: int, dtype):
@@ -197,6 +255,23 @@ class LM:
             return torch.stack([L.logits_apply(params["embed"], cfg, x, codebook=c)
                                 for c in range(cfg.n_codebooks)], dim=2)
         return L.logits_apply(params["embed"], cfg, x)
+
+    # -- loss -----------------------------------------------------------------
+    def loss(self, params, batch, *, run=None):
+        """The training loss of ``batch``: dict(tokens (B, S), or (B, S,
+        n_codebooks) for audio, targets the same, mask (B, S) or absent, and
+        the vlm's image tokens ``memory``).  The masked mean cross-entropy
+        (:func:`_xent_chunked`) plus 0.01 times the MoE balancing loss, from
+        zero recurrent states, as the reference's ``LM.loss``."""
+        cfg = self.cfg
+        run = {**DEFAULT_RUN, **(run or {})}
+        tokens = batch["tokens"]
+        states = self.init_recurrent_states(tokens.shape[0], cfg.param_dtype)
+        hid, aux, _ = self.hidden_states(params, tokens, memory=batch.get("memory"), run=run,
+                                         states=states)
+        nll = _xent_chunked(params["embed"], cfg, hid, batch["targets"], batch.get("mask"),
+                            chunk=run["loss_chunk"])
+        return nll + 0.01 * aux
 
     # -- decode ---------------------------------------------------------------
     def decode_init(self, batch: int, max_len: int, *, params=None, memory=None):
@@ -297,6 +372,49 @@ class LM:
                                           cache["shared_kv"]["v"][occ], cache)
                 occ += 1
         return x
+
+
+# ---------------------------------------------------------------------------
+# chunked cross-entropy (full logits never live at once)
+# ---------------------------------------------------------------------------
+
+def _xent_chunked(embed_params, cfg: ArchConfig, hidden, targets, mask, *, chunk: int):
+    """Masked mean cross-entropy of the logits of ``hidden`` (B, S, d)
+    against ``targets`` (B, S), or (B, S, n_codebooks) whose codebooks'
+    losses are averaged, weighted by ``mask`` (B, S; all ones when None),
+    over sequence chunks: ``chunk`` halved until it divides S, as in the
+    reference.  A chunk's f32 logits, with the padded vocab held off by a
+    -1e30 penalty, live only inside it: under autograd each chunk runs
+    under a checkpoint and is recomputed in the backward."""
+    B_, S, _ = hidden.shape
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk //= 2
+    dev = hidden.device
+    pad = torch.where(torch.arange(L.padded_vocab(cfg), device=dev) >= cfg.vocab, -1e30, 0.0)
+    msk = torch.ones(B_, S, device=dev) if mask is None else mask.to(torch.float32)
+    tot = cnt = torch.zeros((), device=dev)
+    for c0 in range(0, S, chunk):
+        m = msk[:, c0:c0 + chunk]
+        tot = tot + checkpointed(lambda h, t, m: _xent_chunk(embed_params, cfg, pad, h, t, m),
+                                 hidden[:, c0:c0 + chunk], targets[:, c0:c0 + chunk], m)
+        cnt = cnt + m.sum()
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def _xent_chunk(embed_params, cfg: ArchConfig, pad, h, t, m):
+    """Σ mask × nll over one chunk."""
+    def nll(logits, tgt):
+        lg = logits.to(torch.float32) + pad
+        gold = torch.gather(lg, -1, tgt.long()[..., None])[..., 0]
+        return torch.logsumexp(lg, dim=-1) - gold
+
+    if cfg.n_codebooks > 1:
+        out = sum(nll(L.logits_apply(embed_params, cfg, h, codebook=c), t[..., c])
+                  for c in range(cfg.n_codebooks)) / cfg.n_codebooks
+    else:
+        out = nll(L.logits_apply(embed_params, cfg, h), t)
+    return torch.sum(out * m)
 
 
 # ---------------------------------------------------------------------------

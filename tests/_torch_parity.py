@@ -39,3 +39,14 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels run only there")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def one_thread():
+    """One torch thread for the test: the suite runs in several worker
+    processes, and eight threads in each made small train steps 50 times
+    slower than one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
