@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card: the wait-free graph (one
 shard and hash-prefix sharded), the serving paths of seven LMs (one of each
 family: dense, ssm, hybrid, two MoE, vlm and audio), the paged decode
-attention on the serving page table's own block tables, and training
-(zamba2-1.2b at full width, gradients through the two LM kernels).
+attention on the serving page table's own block tables, training
+(zamba2-1.2b at full width, gradients through the two LM kernels), and the
+dry run's counts held against what the card measured.
 
 Run from the root of a checkout, with one card visible:
 
@@ -271,6 +272,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    (``launches_train_path``; the f32 gate's are not counted) and the time of
    one call of their backward, the plain version's gradient, at a
    microbatch's shapes (``plain_backward_ms``).
+21. The dry run (``repro_torch.launch.dryrun.run_cell``) of the steps that
+   phases 6 and 20 ran: qwen2-7b's prefill of 2 x 4,096 and zamba2-1.2b's
+   train step of 4 x 4,096 at accum 2, bf16, counted on ``meta`` in a worker
+   process on the host while the card runs phase 20 (it needs no card).
+   Its argument bytes must equal the bytes of the tensors the phase passed
+   to its step (the parameters, the optimizer state, the batch), its
+   arguments plus temporaries be within 15% of the phase's
+   ``max_memory_allocated``, and its budget (``dryrun.H100_BYTES``) within
+   the card's ``total_memory``.  Printed beside them: its ops against the
+   phase's launches, and its flops over the phase's median time as TFLOP/s
+   and a share of 989 TFLOP/s bf16 dense, with the card's name and power
+   limit.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``kernels`` record.  Without a card, or outside a checkout of the repository,
@@ -289,6 +302,7 @@ import argparse  # noqa: E402
 import contextlib  # noqa: E402
 import itertools  # noqa: E402
 import json  # noqa: E402
+import multiprocessing  # noqa: E402
 import re  # noqa: E402
 import shutil  # noqa: E402
 import statistics  # noqa: E402
@@ -338,6 +352,7 @@ from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.checkpoint import CheckpointStore  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticTokenStream  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.steps import build_prefill_step, build_run  # noqa: E402
 from repro_torch.launch.train import TrainRunner  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
@@ -527,6 +542,17 @@ GATE_LOSS_RTOL, GATE_GRAD_REL_L2 = 1e-5, 1e-3
 # shared-block application): the whole model's state would be a 17 GB
 # checkpoint on disk, twice
 RESUME_LAYERS, RESUME_AT, RESUME_STEPS = 6, 2, 4
+
+# phase 21: the dry run (``repro_torch.launch.dryrun``) of the steps that
+# phases 6 and 20 ran, counted on the host in a worker process while the
+# card runs phase 20 (the count needs no card, and takes about a minute)
+DRYRUN_CELLS = {
+    "prefill": (LM_ARCH, dict(seq_len=PREFILL_LEN, global_batch=PREFILL_BATCH, kind="prefill")),
+    "train": (TRAIN_ARCH, dict(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, kind="train")),
+}
+DRYRUN_PEAK_RTOL = 0.15  # its arguments and temporaries against the phase's peak
+DRYRUN_WAIT_S = 600
+BF16_DENSE_FLOPS = 989e12  # H100 SXM, bf16 dense, at 700 W (NVIDIA data sheet)
 
 
 def log(msg: str) -> None:
@@ -2017,6 +2043,7 @@ def lm_serve_path(arch: str, phase: int, seed: int, dev, *, plain_run: dict,
         "batch": PREFILL_BATCH, "prompt_len": prefill_len, "warmup_s": warm_s,
         "s": times, "median_s": med, "prompt_tokens_per_s": n_tok / med,
         "plain_s": plain_s, "plain_run": plain_run, "peak_bytes": peak,
+        "argument_bytes": _tree_bytes({"params": params, "batch": batch}),
         "calls_per_prefill": counts, "launches_per_prefill": launched,
         "logits_rel_l2": rel, "top1_agree": top1, "profile": prof,
     }
@@ -2793,7 +2820,10 @@ def train_steps(cfg, params, seed: int, dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for i in range(1, TRAIN_STEPS + 1):
         batch = runner.data.next_batch()
-        first = batch if first is None else first
+        if first is None:  # what the step is given: the train state and the batch
+            first = batch
+            arg_bytes = _tree_bytes({"params": runner.params, "opt": runner.opt_state}) + \
+                sum(v.nbytes for v in batch.values())
 
         def one():
             runner.params, runner.opt_state, m = runner.step_fn(runner.params, runner.opt_state,
@@ -2836,7 +2866,8 @@ def train_steps(cfg, params, seed: int, dev) -> dict:
     return {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "accum": TRAIN_ACCUM, "opt": TRAIN_OPT,
             "steps": steps, "median_s": statistics.median(timed),
             "tokens_per_s": n_tok / statistics.median(timed), "first_batch_loss_after": again,
-            "peak_bytes": peak, "launches_per_step": want, "profile": prof}
+            "peak_bytes": peak, "argument_bytes": arg_bytes, "launches_per_step": want,
+            "profile": prof}
 
 
 def _train_state(runner) -> list:
@@ -2958,6 +2989,81 @@ def train_path(seed: int, dev) -> dict:
     out["seconds"] = dict(zip(("f32_gate", "train", "resume", "backward_ms"),
                               np.diff(t).tolist()))
     log(f"phase 20: seconds by part {json.dumps(out['seconds'])}")
+    return out
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def start_dry_run():
+    """Phase 21's counts, started in a worker process on the host (spawned:
+    the worker never touches the card).  Returns the pool and the pending
+    result of ``dryrun.run_cell`` a cell of ``DRYRUN_CELLS``."""
+    pool = multiprocessing.get_context("spawn").Pool(1, initializer=torch.set_num_threads,
+                                                     initargs=(1,))
+    pending = {key: pool.apply_async(dryrun.run_cell, (arch, shape), {"verbose": False})
+               for key, (arch, shape) in DRYRUN_CELLS.items()}
+    return pool, pending
+
+
+def dry_run_against_card(pending, summary: dict, smi: str) -> dict:
+    """Phase 21: the dry run of the steps that phases 6 and 20 ran, against
+    what the card measured there: its argument bytes equal to the bytes of
+    the tensors the phase passed to its step, its arguments and
+    temporaries within ``DRYRUN_PEAK_RTOL`` of the phase's
+    ``max_memory_allocated``, and its budget within the card's memory.  Its
+    ops are printed beside the phase's launches (the card runs cuBLAS and the
+    kernels where the count on ``meta`` runs the plain versions), and its
+    flops over the measured median time as TFLOP/s and a share of the bf16
+    dense peak."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    if dryrun.H100_BYTES > total:
+        raise SystemExit(f"phase 21: the dry run's budget {dryrun.H100_BYTES} is past the "
+                         f"card's {total} bytes")
+    prefill, train = summary["lm"]["prefill"], summary["train"]["train"]
+    measured = {
+        "prefill": (prefill["argument_bytes"], prefill["peak_bytes"], prefill["median_s"],
+                    prefill["profile"]["kernel_launches_per_prefill"], "phase 6"),
+        "train": (train["argument_bytes"], train["peak_bytes"], train["median_s"],
+                  train["profile"]["kernel_launches"], "phase 20"),
+    }
+    out = {"budget_bytes": dryrun.H100_BYTES, "total_memory": total}
+    for key, (arch, shape) in DRYRUN_CELLS.items():
+        r = pending[key].get(timeout=DRYRUN_WAIT_S)
+        args, peak, med, launches, phase = measured[key]
+        mem = r["memory"]
+        pred = mem["argument_bytes"] + mem["temp_bytes"]
+        rel = (pred - peak) / peak
+        tflops = r["flops"] / med / 1e12
+        row = {"arch": arch, "shape": shape, "trace_s": r["trace_s"], "flops": r["flops"],
+               "bytes_accessed": r["bytes_accessed"], "ops": r["exec"]["ops"],
+               "launches": launches, "memory": mem, "predicted_peak_bytes": pred,
+               "measured_peak_bytes": peak, "peak_rel": rel, "measured_argument_bytes": args,
+               "median_s": med, "tflops": tflops, "bf16_dense_share": tflops * 1e12 /
+               BF16_DENSE_FLOPS, "fits": r["fits"], "top": r["exec"]["top"]}
+        if key == "train":
+            row["microbatches"] = r["microbatches"]
+        out[key] = row
+        log(f"phase 21: {arch} {key} ({shape['global_batch']} x {shape['seq_len']}) dry run "
+            f"(counted in {r['trace_s']:.1f} s on the host): argument bytes {mem['argument_bytes']}"
+            f" against {args} passed in {phase}; arguments + temporaries "
+            f"{pred / 1e9:.3f} GB against the measured peak {peak / 1e9:.3f} GB ({rel:+.2%}, "
+            f"limit {DRYRUN_PEAK_RTOL:.0%}); {r['exec']['ops']:.0f} ops counted against "
+            f"{launches:.0f} launches; {r['flops']:.4e} flops over the median {med:.4f} s: "
+            f"{tflops:.1f} TFLOP/s, {row['bf16_dense_share']:.2%} of "
+            f"{BF16_DENSE_FLOPS / 1e12:.0f} TFLOP/s bf16 dense ({smi})")
+        if r["status"] != "ok" or r["n_devices"] != 1:
+            raise SystemExit(f"phase 21: the {key} cell's dry run gave {r['status']}")
+        if mem["argument_bytes"] != args:
+            raise SystemExit(f"phase 21: {key} argument bytes {mem['argument_bytes']}, the "
+                             f"step was given {args}")
+        if abs(rel) > DRYRUN_PEAK_RTOL:
+            raise SystemExit(f"phase 21: {key} predicted peak {pred} is {rel:+.2%} off the "
+                             f"measured {peak}")
+        if key == "train" and r["microbatches"] != TRAIN_ACCUM:
+            raise SystemExit(f"phase 21: the dry run took {r['microbatches']} microbatches, "
+                             f"phase 20 {TRAIN_ACCUM}")
     return out
 
 
@@ -3138,16 +3244,25 @@ def main(argv=None) -> int:
 
     family_phases(args.seed, dev, rows, summary, phase_s)
 
-    # phase 20: training, with every launch count read around it
+    # phase 20: training, with every launch count read around it; phase
+    # 21's dry run counted on the host meanwhile
     t0 = time.perf_counter()
-    summary["train"] = run_counted(TRAIN_PATH, lambda: train_path(args.seed, dev))
-    train_launches = _launch_counts()
-    for row in rows:
-        if row["name"] in (f"flash_attention[{TRAIN_ARCH}]", f"ssd_scan[{TRAIN_ARCH}]"):
-            name = row["name"].split("[")[0]
-            row["launches_train_path"] = train_launches[name]
-            row["plain_backward_ms"] = summary["train"]["backward_ms"][name]
-    phase_s["20"] = time.perf_counter() - t0
+    pool, pending = start_dry_run()
+    try:
+        summary["train"] = run_counted(TRAIN_PATH, lambda: train_path(args.seed, dev))
+        train_launches = _launch_counts()
+        for row in rows:
+            if row["name"] in (f"flash_attention[{TRAIN_ARCH}]", f"ssd_scan[{TRAIN_ARCH}]"):
+                name = row["name"].split("[")[0]
+                row["launches_train_path"] = train_launches[name]
+                row["plain_backward_ms"] = summary["train"]["backward_ms"][name]
+        phase_s["20"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        summary["dryrun"] = dry_run_against_card(pending, summary, smi)
+        phase_s["21"] = time.perf_counter() - t0
+    finally:
+        pool.terminate()
+        pool.join()
 
     summary["card"] = smi
     summary["sass"] = sass

@@ -1,7 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
 Port of ``repro.configs`` (the same ten published configurations, kept as
-data in this package).  Each module exports ``CONFIG`` and the registry
+data in this package, and the input-shape cells ``SHAPES`` with
+``cell_is_runnable``, copies of ``src/repro/configs/__init__.py:29-51``).  Each module exports ``CONFIG`` and the registry
 derives the reduced smoke config via
 ``repro_torch.models.config.reduced_for_smoke``.  Every family runs in the
 port (``repro_torch.models.LM``); only MoE experts over several cards wait
@@ -29,6 +30,14 @@ _MODULES = {
 
 ARCH_NAMES = tuple(_MODULES)
 
+# input-shape cells shared by the LM family (seq_len, global_batch, step kind)
+SHAPES = {
+    "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32768, global_batch=32, kind="prefill"),
+    "decode_32k": dict(seq_len=32768, global_batch=128, kind="decode"),
+    "long_500k": dict(seq_len=524288, global_batch=1, kind="decode"),
+}
+
 
 def get_config(name: str) -> ArchConfig:
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
@@ -38,3 +47,10 @@ def get_config(name: str) -> ArchConfig:
 def get_smoke_config(name: str) -> ArchConfig:
     return reduced_for_smoke(get_config(name))
 
+
+
+def cell_is_runnable(cfg: ArchConfig, shape: str) -> bool:
+    """long_500k requires sub-quadratic attention (DESIGN.md §5)."""
+    if shape == "long_500k":
+        return cfg.sub_quadratic
+    return True

@@ -1,8 +1,9 @@
-"""Step builders for training and serving.
+"""Step builders for training and serving, and the stand-ins of their
+inputs.
 
 Port of ``build_run``, ``TRAIN_ACCUM``, ``build_train_step``,
-``build_prefill_step`` and ``build_decode_step`` of ``repro.launch.steps``.
-Each builder returns ``(step_fn, model, run)``:
+``build_prefill_step``, ``build_decode_step`` and the input-spec builders of
+``repro.launch.steps``.  Each builder returns ``(step_fn, model, run)``:
 
 * ``train``   — the loss and its gradients over ``accum`` microbatches,
   accumulated in f32, then the AdamW update;
@@ -13,9 +14,17 @@ Each builder returns ``(step_fn, model, run)``:
 PyTorch runs eagerly, so the step is the plain function the reference
 hands to ``jax.jit``.  The reference's mesh and sharding settings (``sp``,
 ``dp_axes``, ``attn_seq_shard``, pinning the gradients to the parameters'
-layout) and its input-spec builders have no meaning on one card and are not
-carried over; a ``run`` may still name them.  The model lives on the card
-unless ``device`` says otherwise.
+layout) have no meaning on one card and are not carried over; a ``run`` may
+still name them.  The model lives on the card unless ``device`` says
+otherwise.
+
+``param_specs``, ``opt_state_specs``, ``batch_specs``, ``cache_specs``,
+``decode_token_specs`` and ``input_specs`` are the shape half of the
+reference's builders of the same names (``src/repro/launch/steps.py:178-267``):
+tensors on the ``meta`` device with the reference's shapes and dtypes, keyed
+as the step's arguments, which the dry run (``launch/dryrun.py``) hands to
+the step.  They take no mesh: the reference's shardings wait for the
+several-cards slice (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -25,11 +34,14 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ..configs import SHAPES
 from ..models import LM
 from ..models.config import ArchConfig
 from ..models.lm import DEFAULT_RUN
 from ..models.module import tree_leaves, tree_map
 from ..optim import AdamWConfig, adamw_update
+
+META = torch.device("meta")
 
 
 def build_run(cfg: ArchConfig, *, run_overrides: Dict[str, Any] = None) -> Dict[str, Any]:
@@ -63,10 +75,17 @@ def build_train_step(cfg: ArchConfig, *, opt_cfg: AdamWConfig = None, accum: int
     ``batch`` holds tokens, targets and mask (numpy arrays or tensors; the
     vlm's ``memory`` too), split along the batch into ``accum`` microbatches
     of consecutive rows.  Each microbatch's gradients (``torch.autograd.grad``
-    of ``LM.loss`` over the parameter leaves) are added in f32, and the sum
-    and the loss divided by ``accum``, as the reference does; with ``accum``
-    1 the gradients go to the update as autograd gives them.  The given
-    trees are left as they are."""
+    of ``LM.loss`` over the parameter leaves) are added into f32 zeros, and
+    the sum and the loss divided by ``accum``, as the reference's scan does;
+    with ``accum`` 1 the gradients go to the update as autograd gives them.
+    The given trees are left as they are.
+
+    The step's parts are its attributes, for the dry run, which counts the
+    loop's body once and weights it by ``accum``: ``train_step.begin(params)``
+    (the f32 zeros), ``train_step.microbatch(params, mb, gsum)`` (one
+    microbatch's loss; its gradients added into ``gsum``) and
+    ``train_step.finish(params, opt_state, gsum, loss_sum)`` (the division
+    and the update); ``train_step.accum`` is ``accum``."""
     model = LM(cfg, device)
     opt_cfg = opt_cfg or AdamWConfig()
     run = build_run(cfg, run_overrides=run_overrides)
@@ -80,36 +99,47 @@ def build_train_step(cfg: ArchConfig, *, opt_cfg: AdamWConfig = None, accum: int
         g = torch.autograd.grad(loss, wrt, allow_unused=True)
         return loss.detach(), [torch.zeros_like(t) if d is None else d for t, d in zip(wrt, g)]
 
+    def update(params, grads, opt_state, loss):
+        it = iter(grads)
+        new_params, new_opt, metrics = adamw_update(
+            opt_cfg, params, tree_map(lambda _: next(it), params), opt_state)
+        return new_params, new_opt, {"loss": loss, **metrics}
+
+    def begin(params):
+        return [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+                for t in tree_leaves(params)]
+
+    def microbatch(params, mb, gsum):
+        with torch.enable_grad():
+            loss, g = grads_of(params, mb)
+        for acc, t in zip(gsum, g):
+            acc.add_(t)
+        return loss
+
+    def finish(params, opt_state, gsum, loss_sum):
+        for t in gsum:
+            t.div_(accum)
+        return update(params, gsum, opt_state, loss_sum / accum)
+
     def train_step(params, opt_state, batch):
         batch = {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v,
                                     device=model.device) for k, v in batch.items()}
         n = next(iter(batch.values())).shape[0]
         if n % accum:
             raise ValueError(f"batch of {n} rows does not split into {accum} microbatches")
-        with torch.enable_grad():
-            if accum == 1:
+        if accum == 1:
+            with torch.enable_grad():
                 loss, grads = grads_of(params, batch)
-            else:
-                rows = n // accum
-                loss, grads = 0.0, None
-                for i in range(accum):
-                    l, g = grads_of(params, {k: v[i * rows:(i + 1) * rows]
-                                             for k, v in batch.items()})
-                    loss = loss + l
-                    if grads is None:
-                        grads = [t.to(torch.float32) for t in g]
-                    else:
-                        for acc, t in zip(grads, g):
-                            acc.add_(t)
-                    del g
-                loss = loss / accum
-                for t in grads:
-                    t.div_(accum)
-        it = iter(grads)
-        new_params, new_opt, metrics = adamw_update(
-            opt_cfg, params, tree_map(lambda _: next(it), params), opt_state)
-        return new_params, new_opt, {"loss": loss, **metrics}
+            return update(params, grads, opt_state, loss)
+        rows = n // accum
+        gsum, loss = begin(params), 0.0
+        for i in range(accum):
+            loss = loss + microbatch(params, {k: v[i * rows:(i + 1) * rows]
+                                              for k, v in batch.items()}, gsum)
+        return finish(params, opt_state, gsum, loss)
 
+    train_step.begin, train_step.microbatch, train_step.finish = begin, microbatch, finish
+    train_step.accum = accum
     return train_step, model, run
 
 
@@ -137,3 +167,72 @@ def build_decode_step(cfg: ArchConfig, *, run_overrides: dict = None, device=Non
         return model.decode_step(params, tokens, cache, memory=memory, run=run)
 
     return decode_step, model, run
+
+
+# ---------------------------------------------------------------------------
+# input stand-ins on the meta device (the shape half of the reference's
+# input specs; no mesh, no sharding)
+# ---------------------------------------------------------------------------
+
+def _cell(shape) -> dict:
+    """A name of ``SHAPES``, or a dict with its keys (``seq_len``,
+    ``global_batch``, ``kind``)."""
+    return SHAPES[shape] if isinstance(shape, str) else shape
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=META)
+
+
+def param_specs(cfg: ArchConfig):
+    return LM(cfg, META).shapes()
+
+
+def opt_state_specs(cfg: ArchConfig):
+    """``adamw_init``'s tree: f32 ``m``, ``v`` and ``master``, int32 ``count``."""
+    pshapes = param_specs(cfg)
+
+    def f32(t):
+        return _meta(t.shape, torch.float32)
+
+    return {"m": tree_map(f32, pshapes), "v": tree_map(f32, pshapes),
+            "master": tree_map(f32, pshapes), "count": _meta((), torch.int32)}
+
+
+def batch_specs(cfg: ArchConfig, shape):
+    sh = _cell(shape)
+    B, S = sh["global_batch"], sh["seq_len"]
+    tok_shape = (B, S) if cfg.n_codebooks == 1 else (B, S, cfg.n_codebooks)
+    out = {"tokens": _meta(tok_shape, torch.int32), "targets": _meta(tok_shape, torch.int32),
+           "mask": _meta((B, S), torch.float32)}
+    if cfg.xattn_every:
+        out["memory"] = _meta((B, cfg.n_img_tokens, cfg.d_model), cfg.param_dtype)
+    return out
+
+
+def cache_specs(cfg: ArchConfig, shape):
+    """The decode cache of ``LM.decode_init`` (without the vlm's
+    precomputed cross K/V, as the reference's ``eval_shape`` of it)."""
+    sh = _cell(shape)
+    return LM(cfg, META).decode_init(sh["global_batch"], sh["seq_len"])
+
+
+def decode_token_specs(cfg: ArchConfig, shape):
+    B = _cell(shape)["global_batch"]
+    return _meta((B, 1) if cfg.n_codebooks == 1 else (B, 1, cfg.n_codebooks), torch.int32)
+
+
+def input_specs(cfg: ArchConfig, shape):
+    """Everything the cell's step takes, as its keyword arguments."""
+    sh = _cell(shape)
+    if sh["kind"] == "train":
+        return {"params": param_specs(cfg), "opt_state": opt_state_specs(cfg),
+                "batch": batch_specs(cfg, sh)}
+    if sh["kind"] == "prefill":
+        return {"params": param_specs(cfg), "batch": batch_specs(cfg, sh)}
+    out = {"params": param_specs(cfg), "tokens": decode_token_specs(cfg, sh),
+           "cache": cache_specs(cfg, sh)}
+    if cfg.xattn_every:
+        out["memory"] = _meta((sh["global_batch"], cfg.n_img_tokens, cfg.d_model),
+                              cfg.param_dtype)
+    return out

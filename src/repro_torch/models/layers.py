@@ -365,13 +365,16 @@ def _moe_local(router, wi, wg, wo, cfg: ArchConfig, xt, capacity: int):
     gives the same bits on every run."""
     T, d = xt.shape
     e, k = cfg.moe.n_experts, cfg.moe.top_k
-    probs, gate_vals, gate_idx, keep, slot = moe_dispatch(router, cfg, xt, capacity)
-    kept = slot[keep]
-    src_tok = torch.arange(T, device=xt.device)[:, None].expand(T, k)[keep]
-    slot_tok = torch.full((e * capacity,), T, dtype=torch.long, device=xt.device)
-    slot_tok[kept] = src_tok
+    probs, gate_vals, gate_idx, _, slot = moe_dispatch(router, cfg, xt, capacity)
+    # every pair writes through its slot, the dropped ones into the spare row
+    # e * capacity, which is then cut off: kept slots are unique, so no mask
+    # gather (a host sync, and no meta shape) is needed
+    flat = slot.reshape(T * k)
+    src_tok = torch.arange(T, device=xt.device)[:, None].expand(T, k).reshape(T * k)
+    slot_tok = torch.full((e * capacity + 1,), T, dtype=torch.long, device=xt.device)
+    slot_tok[flat] = src_tok
     xtp = torch.cat([xt, xt.new_zeros(1, d)])
-    buf = xtp[slot_tok].reshape(e, capacity, d)
+    buf = xtp[slot_tok[:-1]].reshape(e, capacity, d)
     del xtp, slot_tok
 
     h = torch.bmm(buf, wi)
@@ -383,7 +386,8 @@ def _moe_local(router, wi, wg, wo, cfg: ArchConfig, xt, capacity: int):
     del h
 
     slot_w = torch.zeros(e * capacity + 1, dtype=F32, device=xt.device)
-    slot_w[kept] = gate_vals[keep]
+    slot_w[flat] = gate_vals.reshape(T * k)
+    slot_w[-1] = 0.0
     # row e * capacity is the dropped pairs' zero row
     weighted = torch.cat([out_buf, out_buf.new_zeros(1, d)]) * slot_w[:, None].to(out_buf.dtype)
     del out_buf

@@ -51,7 +51,7 @@ from ..kernels._grad import checkpointed
 from . import blocks as B
 from . import layers as L
 from .config import ArchConfig
-from .module import build_params, stack_meta, tree_map
+from .module import build_params, build_shapes, stack_meta, tree_map
 
 DEFAULT_RUN: Dict[str, Any] = {
     "attn_impl": "chunked",   # "chunked" | "kernel" | "reference"
@@ -125,6 +125,11 @@ class LM:
         """Random parameters drawn with ``generator`` (on the model's
         device) and materialised there."""
         return build_params(self.meta(), generator, self.device)
+
+    def shapes(self):
+        """The parameters' stand-ins on the ``meta`` device (shapes and
+        dtypes; nothing allocated)."""
+        return build_shapes(self.meta())
 
     # -- forward (prefill) ----------------------------------------------------
     def hidden_states(self, params, tokens, *, memory=None, run=None, positions=None,

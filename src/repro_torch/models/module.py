@@ -5,7 +5,8 @@ tree* (nested dicts) of :class:`ParamMeta` leaves giving each parameter's
 shape, dtype and init rule.  :func:`build_params` materialises it as a tree
 of tensors on the device it is given, drawing from an explicit
 ``torch.Generator`` on that device, so a full-width model is drawn on the
-card and never on the host.
+card and never on the host; :func:`build_shapes` gives its stand-ins on the
+``meta`` device.
 
 ``spec`` keeps the reference's logical FSDP/TP axis names as data; on one
 card nothing reads them.
@@ -71,6 +72,13 @@ def build_params(meta_tree, generator: torch.Generator, device=None):
     ``device`` (default: the generator's device)."""
     device = torch.device(device) if device is not None else generator.device
     return tree_map(lambda m: _leaf_init(m, generator, device), meta_tree)
+
+
+def build_shapes(meta_tree):
+    """Stand-ins of the parameters on the ``meta`` device, with their shapes
+    and dtypes: nothing is drawn or allocated (the reference's
+    ``ShapeDtypeStruct`` tree, for counting a step without running it)."""
+    return tree_map(lambda m: torch.empty(m.shape, dtype=m.dtype, device="meta"), meta_tree)
 
 
 def stack_meta(meta_tree, n: int):

@@ -164,7 +164,8 @@ def test_package_imports_without_jax_or_repro():
     assert res.returncode == 0, res.stderr
     assert len(mods) >= 20
     assert {"repro_torch.core.sharding", "repro_torch.obs", "repro_torch.obs.metrics",
-            "repro_torch.obs.probes"} <= set(mods)
+            "repro_torch.obs.probes", "repro_torch.launch.opcost",
+            "repro_torch.launch.dryrun"} <= set(mods)
 
 
 def test_no_source_file_names_jax_or_repro():

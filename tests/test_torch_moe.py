@@ -10,8 +10,11 @@ its slots: they are read from the one ``jnp.where`` of its dispatch
 its module's ``jnp``.  Cases: random routing with and without drops, a zero
 router (every expert ties), capacity 1, every token's first choice on one
 expert, and a token count that is not a multiple of the expert count.  The
-card twins at the end hold the dispatch on the card equal to the CPU's,
-and the bf16 combine the same bit for bit across runs.
+dispatch and combine are shape-static (index writes, no boolean-mask
+gather), so both MoE LMs' smoke prefill and train step run on the ``meta``
+device, as the dry run needs.  The card twins at the end hold the dispatch
+on the card equal to the CPU's, and the bf16 combine the same bit for bit
+across runs.
 """
 
 from types import SimpleNamespace
@@ -180,6 +183,21 @@ def _cpu_and_card(dev, cfg, w, xt, capacity):
                              torch.as_tensor(xt, device=where), capacity)
         got[str(where)] = [to_np(t) for t in out]
     return got.values()
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "mixtral-8x7b"])
+def test_moe_steps_run_on_meta(arch):
+    from repro_torch.launch import steps as S
+
+    cfg = get_smoke_config(arch)
+    specs = S.input_specs(cfg, {"seq_len": 16, "global_batch": 4, "kind": "train"})
+    prefill, _, _ = S.build_prefill_step(cfg, device="meta")
+    logits = prefill(specs["params"], specs["batch"])
+    assert logits.device.type == "meta" and logits.shape == (4, 1, L.padded_vocab(cfg))
+    train, _, _ = S.build_train_step(cfg, device="meta")
+    new_params, new_opt, metrics = train(**specs)
+    assert train.accum == 2 and metrics["loss"].device.type == "meta"
+    assert new_params["blocks"]["ffn"]["wi"].shape == specs["params"]["blocks"]["ffn"]["wi"].shape
 
 
 @pytest.mark.cuda
