@@ -3,8 +3,10 @@
 shard and hash-prefix sharded), the serving paths of seven LMs (one of each
 family: dense, ssm, hybrid, two MoE, vlm and audio), the paged decode
 attention on the serving page table's own block tables, training
-(zamba2-1.2b at full width, gradients through the two LM kernels), and the
-dry run's counts held against what the card measured.
+(zamba2-1.2b at full width, gradients through the two LM kernels), the
+dry run's counts held against what the card measured, and several ranks
+on one mesh (NCCL with one rank, gloo with four sharing the card, graph
+shards on the card and the host).
 
 Run from the root of a checkout, with one card visible:
 
@@ -156,9 +158,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    are those of the drain checks of phases 6 and 10: the engine itself
    decodes over a dense cache.
 14. Run right after phase 4, on phase 3's graph and oracle (Cv = Ce =
-   2^23): the delta CSR maintenance and the baseline engines.  Eight fold
-   epochs, one 65,536-op batch each (``traversal`` and ``update`` mixes in
-   turns), queued on the cached snapshot and folded by the next
+   2^23): the delta CSR maintenance and the baseline engines.  Four fold
+   epochs (eight before phase 22 came), one 65,536-op batch each
+   (``traversal`` and ``update`` mixes in turns), queued on the cached
+   snapshot and folded by the next
    ``traversal_csr()`` (timed, host clock ended by a sync, beside
    ``build_csr``), which must take the device merge (``masked_compact`` and
    ``hash_probe`` launched, no host splice) and equal ``build_csr`` and the
@@ -171,10 +174,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    from the final size (timed in turns with the plain rehash) equal the host
    rehash and ``build_csr`` of its state.  Then the engines from one
    pre-state (the grown state), per Fig. 4 mix: ``apply_lockfree`` at
-   65,536 lanes, ``apply_serial`` at 512 and ``apply_coarse`` at 128 (the
-   caps of ``benchmarks/graph_throughput.py``), the wait-free and FPSP
-   engines at all three, each timed (ops/s), its bits and live set equal to
-   the oracle after the same lanes, and the lock-free rounds reported.  The
+   65,536 lanes, ``apply_serial`` and ``apply_coarse`` at 128 (serial at
+   512, the cap of ``benchmarks/graph_throughput.py``, before phase 22
+   came), the wait-free and FPSP engines at 128, 512 and 65,536, each timed
+   (ops/s), its bits and live set equal to the oracle after the same lanes,
+   and the lock-free rounds reported.  The
    launch counts are read around this phase: every graph kernel must run.
    The ``kernels`` line gains a ``masked_compact`` row at the fold's shape
    (the survivors' 3 rows of 2^23 lanes), and each graph row the launches
@@ -182,14 +186,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 15. Run right after phase 14: the hash-prefix sharded graph at the same
    scale, four logical shards on the card.  ``WaitFreeGraph(n_shards=4)``
    at its default capacities (256 vertex and 1,024 edge slots a shard)
-   takes phase 3's build stream from the same seed, every batch's bits
+   takes phase 3's build stream from the same seed, its vertex loads and
+   first 16 traversal batches (all 80 before phase 22 came), every batch's bits
    checked against a sequential oracle fed the same batches; it grows
    shard by shard through the endpoint rehash.  The growth steps, the
    sub-batch balance, the build's ``apply`` time and one timed window of
    ``apply`` a Fig. 4 mix (with a profile of three balanced batches) are
    printed, and the snapshot must equal the oracle's.  Then the fused
    snapshot: ``traversal_csr()`` (the device fuse), then the device and the
-   host fuse (``impl="host"``) timed in turns and equal field for field,
+   host fuse (``impl="host"``) timed once each and equal field for field,
    ``n_edges`` and ``n_live`` equal to the oracle, and the queries of phase
    3 checked the same way.  ``WaitFreeGraph(n_shards=2, mode="fpsp")`` on
    the stream's first 30 batches must give the 4-shard bits.  Telemetry:
@@ -215,8 +220,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    must give the same tokens.  ``flash_attention`` is then timed at the
    prefill's shape (B 2, Hq 24, Hkv 8, S 4,096, D 64, causal) as in phase 7.
 17. mixtral-8x7b (moe; arXiv:2401.04088) at full width (d_model 4096, GQA
-   32/8 of 128, 8 experts top-2 of width 14,336, window 4,096), 16 of its 32
-   layers (about 47 GB; all 32 would be about 93 GB, past the card's 80), as
+   32/8 of 128, 8 experts top-2 of width 14,336, window 4,096), 8 of its 32
+   layers (about 24 GB; 16 before phase 22 came; all 32 would be about 93
+   GB, past the card's 80), as
    phase 16, with a prefill of 2 x 8,192 tokens so that the window masks
    keys; ``flash_attention`` timed at B 2, Hq 32, Hkv 8, S 8,192, D 128,
    causal, window 4,096, beside SDPA with the window's boolean mask.
@@ -246,26 +252,27 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``torch.autograd.Function`` of their ``ops.py``, whose backward
    recomputes and differentiates the plain version (``repro`` has no
    backward kernel; XLA differentiates its plain code).  (a) The f32
-   gradient gate: on an f32 copy of the weights, one microbatch of 1 x
+   gradient gate: on an f32 copy of the first 12 layers' weights (two
+   groups: two applications of the shared block), one microbatch of 1 x
    4,096 tokens of ``LM.loss`` and its backward through the kernels and
    with both plain versions forced: the loss within 1e-5 relative and every
    parameter leaf's gradient within 1e-3 relative L2 (the worst leaf
    printed).  (b) bf16 training: ``TrainRunner``'s step function
-   (``build_train_step``, accum 2, ``AdamWConfig(warmup_steps=1)``) for 3
+   (``build_train_step``, accum 2, ``AdamWConfig(warmup_steps=1)``) for 2
    steps of 4 x 4,096 tokens from ``SyntheticTokenStream``; every loss and
    gradient norm finite, a line a step (loss, grad_norm, lr, s, tokens/s),
-   step 2 under the profiler (the card's activity only: busy share,
-   launches, heaviest kernels); each step's
+   step 1 under the profiler (the card's activity only: busy share,
+   launches, heaviest kernels) and step 2 timed; each step's
    ``flash_attention`` and ``ssd_scan`` launches equal to the count the code
    derives (each call twice under remat: the forward and the backward's
-   recompute); the loss of step 1's batch lower after the 3 steps than at
+   recompute); the loss of step 1's batch lower after the 2 steps than at
    step 1; the peak device memory.  (c) Resume, bit for bit, under
    ``torch.use_deterministic_algorithms(True)`` (``CUBLAS_WORKSPACE_CONFIG``
    is set before CUDA starts), cut to the first group (6 mamba2 layers and
    one shared-block application; the whole state would be a 17 GB
-   checkpoint on disk): run A trains 4 steps and saves its state at step 2
+   checkpoint on disk): run A trains 2 steps and saves its state at step 1
    into a directory under ``build/`` that the phase deletes, run B, a fresh
-   ``TrainRunner``, restores it and trains to step 4; parameters, m, v,
+   ``TrainRunner``, restores it and trains to step 2; parameters, m, v,
    master, count and the data step equal; the checkpoint's bytes and save
    and restore seconds printed.  The zamba2-1.2b ``flash_attention`` and
    ``ssd_scan`` rows of the ``kernels`` line gain the phase's launches
@@ -284,6 +291,39 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    phase's launches, and its flops over the phase's median time as TFLOP/s
    and a share of 989 TFLOP/s bf16 dense, with the card's name and power
    limit.
+
+22. Several ranks on one mesh (``parallel/mesh.py``, ``parallel/spec.py``,
+   ``parallel/collectives.py``, ``launch/shardings.py``), every launch count
+   read around the phase ((b)'s summed over its ranks).  (a) A world of one rank on NCCL, a (1, 1)
+   ("data", "model") mesh: granite-moe-3b-a800m at full width and depth on
+   phase 16's prefill (2 x 4,096, parameters and prompt from the seed): the
+   ``sp`` prefill through ``moe_apply_shardmap`` on the rank's blocks gives
+   the one-device prefill's hidden states, balancing loss and logits bit for
+   bit, two ``decode_moe_shardmap`` decode steps the same logits, and
+   ``compressed_psum`` over the NCCL world its quantized mean and residual.
+   (b) Four ranks, one process each, sharing the card over gloo (NCCL takes
+   one rank a card), a (2, 2) mesh: granite at full width cut to 2 layers,
+   a global batch of 4 x 4,096, every rank holding its FSDP/TP blocks.  Each
+   data shard's ``sp`` prefill against the one-device prefill of its rows:
+   an f32 copy within 1e-5 relative L2 of the logits, bf16 within 2e-2, and
+   layer 0's dispatch int for int (later layers' differences printed); two
+   f32 train steps (``build_train_step(mesh=...)``, accum 1, the token
+   stream's rows of the rank's data coordinate), every gradient leaf within
+   1e-3 relative L2 of one device (phase 20's gate; the oracle, on rank 0,
+   runs each data shard's rows alone, as the sharded MoE dispatches
+   token-locally, and steps its own whole state with the gathered
+   gradients),
+   the last under the profiler (the ranks' kernel time summed over the
+   slowest rank's wall time) with its collectives timed; that step's
+   ``compressed_psum`` of three gradient leaves over the world, alike on
+   every rank and equal to numpy on the host bit for bit; a checkpoint (the
+   f32 parameters and the optimizer state: m, v, master and the count)
+   saved on (2, 2), a leaf and a layer at a time, and restored on a (4, 1)
+   mesh of the same world and on one device, bit for bit.  (c) The 4-shard
+   graph on the mesh [cuda:0, cpu] against the 4 shards on the card, over
+   the first 8 batches of phase 15's stream and its first 2 traversal
+   batches: each batch's answers and every shard's tables, then the fused
+   snapshot and ``reachable`` on 256 pairs, bit for bit.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``kernels`` record.  Without a card, or outside a checkout of the repository,
@@ -353,13 +393,18 @@ from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.checkpoint import CheckpointStore  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticTokenStream  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
-from repro_torch.launch.steps import build_prefill_step, build_run  # noqa: E402
+from repro_torch.launch.shardings import data_rows  # noqa: E402
+from repro_torch.parallel import collectives as mesh_collectives  # noqa: E402
+from repro_torch.parallel.mesh import make_host_mesh  # noqa: E402
+from repro_torch.parallel.spec import local_shard  # noqa: E402
+from repro_torch.launch.steps import build_prefill_step, build_run, build_train_step  # noqa: E402
 from repro_torch.launch.train import TrainRunner  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import blocks as model_blocks  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models.module import param_bytes, param_count, tree_leaves, tree_map  # noqa: E402
-from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, opt_pspecs  # noqa: E402
+from repro_torch.optim.compress import compressed_psum, ef_init  # noqa: E402
 from repro_torch.obs import probes as obs_probes  # noqa: E402
 from repro_torch.serving import PagedKVManager, Request, ServingEngine  # noqa: E402
 
@@ -393,20 +438,23 @@ BATCH = 65_536
 TRAVERSAL_BATCHES = 80
 TIMED_BATCHES = 10
 FIG4_MIXES = ("lookup", "balanced", "update")
-FOLD_EPOCHS = 8
+FOLD_EPOCHS = 2             # 8 before phase 22 came, then 4: cut for its time
 FOLD_MIXES = ("traversal", "update")  # in turns, epoch by epoch
 FOLD_PAIRS = 32
-# phase 14's engines, each at its lanes from one pre-state: the baselines at
-# benchmarks/graph_throughput.py's caps (coarse pays a read back an op; its
-# sweep there stops at 128, serial at 512), lock-free at the batch, and the
-# wait-free and FPSP engines at all three
-BASELINE_LANES = {"lockfree": BATCH, "serial": 512, "coarse": 128}
+# phase 14's engines, each at its lanes from one pre-state: lock-free at the
+# batch, coarse and serial at 128 (one op at a time; coarse pays a read back
+# an op; serial ran at 512 before phase 22 came, 9 s a mix, cut for its time),
+# and the wait-free and FPSP engines at 128, 512 and the batch
+BASELINE_LANES = {"lockfree": BATCH, "serial": 128, "coarse": 128}
 ENGINE_FNS = dict(baselines.ENGINES, waitfree=engine.apply_batch,
                   fpsp=fastpath.apply_batch_fpsp)
 ENGINE_RUNS = [(name, lanes) for name, lanes in BASELINE_LANES.items()] + [
     (name, lanes) for name in ("waitfree", "fpsp") for lanes in (128, 512, BATCH)]
 PLACE_M, PLACE_CAP = 1 << 21, 1 << 22  # the vertex rehash from 2^21 to 2^22 slots
 SHARDS = 4                   # phase 15's shard count, logical shards on one card
+SHARDED_TRAVERSAL_BATCHES = 16  # phase 15's build: phase 3's first 16 traversal
+                                # batches (80 before phase 22 came, then 32: cut for
+                                # its time)
 SHARDED_FPSP_BATCHES = 30    # phase 15's 2-shard FPSP run: the stream's first batches
 OBS_BATCHES = 26             # phase 15's telemetry: the vertex loads and 8 traversal batches
 # ... on edge tables (2^21 slots in all) that those 8 batches' ~315,000 edge
@@ -482,10 +530,11 @@ PROFILE_TICKS = 6
 # phases 16-19: the moe, vlm and audio families at published width
 GRANITE_ARCH, MIXTRAL_ARCH = "granite-moe-3b-a800m", "mixtral-8x7b"
 VLM_ARCH, AUDIO_ARCH = "llama-3.2-vision-11b", "musicgen-medium"
-# mixtral's 32 layers are about 93 GB in bf16, past the card's 80: 16 of
-# them (about 47 GB) are run, a cut in depth only (the other 16 would be a
-# second pipeline stage)
-MIXTRAL_LAYERS = 16
+# mixtral's 32 layers are about 93 GB in bf16, past the card's 80: 8 of them
+# (about 24 GB) are run, a cut in depth only (16 before phase 22 came, cut
+# for its time; at 4 layers the bf16 prefill missed its plain version by
+# 0.589 relative L2, a top-1 flipped: random routing amplifies rounding)
+MIXTRAL_LAYERS = 8
 MIXTRAL_PREFILL_LEN = 8192  # twice its 4,096 window, so the window masks keys
 XATTN_DECODE_TOKENS = 16    # phase 18's decode over the cross K/V against the prefill
 
@@ -531,17 +580,24 @@ PAGED_LENS = {LM_ARCH: (4096, 32768), HYBRID_ARCH: (1024, 4096)}
 # of bf16 weights and f32 m, v and master, fits one card; the reference's
 # TRAIN_ACCUM of 2), from the token stream of --seed
 TRAIN_ARCH = HYBRID_ARCH
-# 3 steps: a step took 26-30 s on the card, the plain backward most of it,
-# and 4 took phase 20 to 246 s and chip_smoke to 1,019 s of its 1,200
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS = 4, 4096, 2, 3
-TRAIN_PROFILE_STEP = 2          # the step run under the profiler
+# a step took 26-30 s on the card, the plain backward most of it; 2 steps (3
+# before phase 22 came: cut for its time), the first profiled, so the second,
+# timed alone, is a step past the first call's warm-ups
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS = 4, 4096, 2, 2
+TRAIN_PROFILE_STEP = 1          # the step run under the profiler
 TRAIN_OPT = dict(warmup_steps=1)
 GATE_BATCH = 1                  # the f32 gradient gate's microbatch: 1 x 4,096
+# the gate runs the first two groups (12 mamba2 layers, two applications of
+# the shared block): both kernels' backward at the step's shapes, and the
+# shared weights' gradient summed over applications (all 38 layers before
+# phase 22's checkpoint grew: cut for its time)
+GATE_LAYERS = 12
 GATE_LOSS_RTOL, GATE_GRAD_REL_L2 = 1e-5, 1e-3
 # the resume runs are cut to the first group (6 mamba2 layers and one
 # shared-block application): the whole model's state would be a 17 GB
 # checkpoint on disk, twice
-RESUME_LAYERS, RESUME_AT, RESUME_STEPS = 6, 2, 4
+# (run A 2 steps saving step 1, run B 1 step; 4 and 2 before phase 22 came)
+RESUME_LAYERS, RESUME_AT, RESUME_STEPS = 6, 1, 2
 
 # phase 21: the dry run (``repro_torch.launch.dryrun``) of the steps that
 # phases 6 and 20 ran, counted on the host in a worker process while the
@@ -552,6 +608,22 @@ DRYRUN_CELLS = {
 }
 DRYRUN_PEAK_RTOL = 0.15  # its arguments and temporaries against the phase's peak
 DRYRUN_WAIT_S = 600
+
+# phase 22: several ranks on one mesh.  (a) one rank on NCCL, a (1, 1) mesh,
+# granite at full width and depth on phase 16's prefill; (b) four ranks
+# sharing the card over gloo, a (2, 2) ("data", "model") mesh, granite at
+# full width cut to 2 layers (4 until its checkpoint took the optimizer
+# state too: 8.87 GB written and read three times), a global batch of
+# 4 x 4,096; (c) the 4-shard graph on the mesh [cuda:0, cpu]
+MESH_ARCH = GRANITE_ARCH
+MESH_SHAPE, MESH_LAYERS, MESH_BATCH = (2, 2), 2, 4
+MESH_RANKS = MESH_SHAPE[0] * MESH_SHAPE[1]
+MESH_F32_REL_L2, MESH_BF16_REL_L2 = 1e-5, 2e-2   # (b)'s prefill against one device
+MESH_TRAIN_STEPS, MESH_ACCUM = 2, 1  # one microbatch a step: half the gathers
+MESH_COMPRESS_LEAVES = ("blocks/attn/wq", "blocks/ffn/router", "ln_f/scale")
+MESH_TIMEOUT_S = 300         # a collective that waits longer raises
+MESH_GRAPH_LOADS, MESH_GRAPH_TRAVERSALS = 8, 2  # (c): phase 15's first batches
+MESH_PATH = ("flash_attention",) + GRAPH_PATH
 BF16_DENSE_FLOPS = 989e12  # H100 SXM, bf16 dense, at 700 W (NVIDIA data sheet)
 
 
@@ -1341,7 +1413,7 @@ def delta_path(g, oracle, seed: int, dev):
         t_part = time.perf_counter()
         ops, us, vs = sample_batch(rng, BATCH, mix, key_space=n_keys)
         bits, want_keys, lo = [], {}, 0
-        for cut in sorted(set(BASELINE_LANES.values())):
+        for cut in sorted({lanes for _, lanes in ENGINE_RUNS}):
             bits.append(_oracle_apply(oracle, ops[lo:cut], us[lo:cut], vs[lo:cut]))
             want_keys[cut], lo = _oracle_keys(oracle), cut
         exp = np.concatenate(bits)
@@ -1379,16 +1451,16 @@ def delta_path(g, oracle, seed: int, dev):
 # ---------------------------------------------------------------------------
 
 
-def build_stream(rng):
+def build_stream(rng, traversals: int = TRAVERSAL_BATCHES):
     """Phase 3's build stream, given a generator made from the same seed:
-    the vertex loads, then TRAVERSAL_BATCHES ``traversal`` batches, as
-    (label, ops, us, vs); ``rng`` is left where phase 3's Fig. 4 batches
-    start."""
+    the vertex loads, then ``traversals`` ``traversal`` batches (phase 3's
+    first ones), as (label, ops, us, vs); with all TRAVERSAL_BATCHES,
+    ``rng`` is left where phase 3's Fig. 4 batches start."""
     n_keys = COM_YOUTUBE_VERTICES
     for lo in range(0, n_keys, BATCH):
         us = np.arange(lo, min(lo + BATCH, n_keys), dtype=np.int32)
         yield "vertex load", np.full(us.shape, OP_ADD_VERTEX, np.int32), us, np.zeros_like(us)
-    for i in range(TRAVERSAL_BATCHES):
+    for i in range(traversals):
         yield (f"traversal batch {i}", *sample_batch(rng, BATCH, "traversal", key_space=n_keys))
 
 
@@ -1413,7 +1485,7 @@ def sharded_path(seed: int, dev):
     caps_seen = [_shard_caps(g)]
     bits, balance, apply_s, n_ops = [], [], 0.0, 0
     rng = np.random.default_rng(seed)
-    for label, ops, us, vs in build_stream(rng):
+    for label, ops, us, vs in build_stream(rng, SHARDED_TRAVERSAL_BATCHES):
         if label.startswith("traversal"):
             balance.append(_balance(sharding.route_ops(ops, us, vs, SHARDS)[0]))
         if label == "traversal batch 0":
@@ -1451,7 +1523,7 @@ def sharded_path(seed: int, dev):
     if int(csr.n_edges) != len(oracle.edges) or int(csr.n_live) != len(oracle.vertices):
         raise SystemExit("phase 15: the fused snapshot's counts differ from the oracle")
     fuse_ms = {"device": [], "host": []}
-    for impl in ("device", "host", "host", "device"):
+    for impl in ("device", "host"):  # twice each, in turns, before phase 22 came
         fused, dt = wall_s(lambda: sharding.fuse_partitioned(g.shards, impl=impl))
         require_csr_equal(f"phase 15 {impl} fuse", fused, csr)
         fuse_ms[impl].append(dt * 1e3)
@@ -1462,7 +1534,7 @@ def sharded_path(seed: int, dev):
     out.update(queries)
     log(f"phase 15: fused snapshot (directory Cv={csr.v_capacity}, {csr.e_capacity} edge lanes) "
         f"{out['fuse_ms_first']:.3f} ms as the graph's first query; the device fuse "
-        f"{fuse_ms['device']} ms and the host fuse {fuse_ms['host']} ms in turns, field for "
+        f"{fuse_ms['device']} ms and the host fuse {fuse_ms['host']} ms, field for "
         f"field equal; n_edges and n_live equal to the oracle; " + query_summary(out))
     del csr, oracle
     out["seconds"]["fuse_and_queries"] = time.perf_counter() - t_part
@@ -2771,9 +2843,10 @@ def train_grad_gate(cfg, params, tokens, dev) -> dict:
     within ``GATE_LOSS_RTOL`` and each leaf's gradient within
     ``GATE_GRAD_REL_L2`` relative L2.  Launches made to compare are not
     counted."""
-    cfg32 = cfg.scaled(dtype="float32")
+    cfg32 = cfg.scaled(dtype="float32", n_layers=GATE_LAYERS)
     model = LM(cfg32, dev)
-    p32 = tree_map(lambda t: t.float(), params)
+    p32 = {k: tree_map((lambda t: t[:GATE_LAYERS].float()) if k == "blocks" else
+                       (lambda t: t.float()), v) for k, v in params.items()}
     mb = {k: v[:GATE_BATCH] for k, v in tokens.items()}
     run = build_run(cfg32)
     with uncounted():
@@ -2789,11 +2862,12 @@ def train_grad_gate(cfg, params, tokens, dev) -> dict:
     rels = {name: ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
             for name, a, b in zip(_leaf_paths(params), grads, want_g)}
     worst = max(rels, key=rels.get)
-    out = {"batch": GATE_BATCH, "seq": TRAIN_SEQ, "loss": float(loss), "plain_loss": float(want),
+    out = {"batch": GATE_BATCH, "seq": TRAIN_SEQ, "layers": GATE_LAYERS,
+           "loss": float(loss), "plain_loss": float(want),
            "loss_rel": loss_rel, "worst_leaf": worst, "worst_rel_l2": rels[worst],
            "rel_l2": rels, "kernel_s": kernel_s, "plain_s": plain_s, "launches": launched}
     log(f"phase 20: f32 gradient gate, {GATE_BATCH} x {TRAIN_SEQ} tokens on an f32 copy of the "
-        f"weights: loss {float(loss):.7f} through the kernels against {float(want):.7f} with the "
+        f"first {GATE_LAYERS} of {cfg.n_layers} layers' weights: loss {float(loss):.7f} through the kernels against {float(want):.7f} with the "
         f"plain versions ({loss_rel:.3e} relative, limit {GATE_LOSS_RTOL}); the worst of "
         f"{len(rels)} leaves' gradients {worst} at {rels[worst]:.3e} relative L2 (limit "
         f"{GATE_GRAD_REL_L2}); {kernel_s:.2f} s through the kernels ({json.dumps(launched)} "
@@ -3128,6 +3202,489 @@ def family_phases(seed: int, dev, rows: list, summary: dict, phase_s: dict) -> N
         phase_s[str(phase)] = time.perf_counter() - t0
 
 
+# ---------------------------------------------------------------------------
+# phase 22: several ranks on one mesh
+# ---------------------------------------------------------------------------
+
+
+def _bits_equal(a, b) -> bool:
+    """Bit for bit (NaNs and the sign of zero too)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return torch.equal(a.contiguous().reshape(-1).view(torch.uint8),
+                       b.contiguous().reshape(-1).view(torch.uint8))
+
+
+def mesh_one_rank(seed: int, dev, tmp: Path) -> dict:
+    """(a) A world of one rank on NCCL and a (1, 1) mesh: granite-moe at full
+    width and depth on phase 16's prefill (its parameters and prompt drawn
+    from the seed as there).  The ``sp`` prefill (``moe_apply_shardmap``) on
+    the rank's blocks gives the one-device prefill's hidden states, balancing
+    loss and logits bit for bit, and two ``decode_moe_shardmap`` decode steps
+    its logits; ``compressed_psum`` over the NCCL world gives the quantized
+    value and residual bit for bit."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp / 'nccl_rendezvous'}", rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        backend = dist.get_backend()
+        mesh = make_host_mesh((1, 1), device_type="cuda")
+        cfg = get_config(MESH_ARCH)
+        model = LM(cfg, dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(seed))
+        blocks = tree_map(lambda t, sp: local_shard(t, sp, mesh), params,
+                          model.pspecs(multi_pod=False))
+        rng = np.random.default_rng(seed)
+        prompt = rng.integers(0, cfg.vocab, (PREFILL_BATCH, PREFILL_LEN))
+        nxt = rng.integers(0, cfg.vocab, (PREFILL_BATCH, 1))
+        toks = torch.as_tensor(prompt.astype(np.int32), device=dev)
+        steps = [torch.as_tensor(nxt.astype(np.int32), device=dev), toks[:, :1]]
+        run = {"sp": True, "mesh": mesh}
+        out = {"backend": backend, "params": param_count(model.meta())}
+        with torch.no_grad():
+            (hid_m, aux_m, _), t_m = wall_s(lambda: model.hidden_states(blocks, toks, run=run))
+            (lg_m, _, _), tl_m = wall_s(lambda: model.prefill(blocks, toks, run=run))
+            with uncounted():
+                hid_1, aux_1, _ = model.hidden_states(params, toks)
+                lg_1, _, _ = model.prefill(params, toks)
+            same = {"hidden": _bits_equal(hid_m, hid_1), "aux": _bits_equal(aux_m, aux_1),
+                    "logits": _bits_equal(lg_m, lg_1)}
+            del hid_m, hid_1
+            cache_m, cache_1 = model.decode_init(PREFILL_BATCH, 8), model.decode_init(
+                PREFILL_BATCH, 8)
+            for i, t in enumerate(steps):
+                dl_m, cache_m = model.decode_step(blocks, t, cache_m,
+                                                  run={"decode_moe_shardmap": True, "mesh": mesh})
+                with uncounted():
+                    dl_1, cache_1 = model.decode_step(params, t, cache_1)
+                same[f"decode_{i}"] = _bits_equal(dl_m, dl_1)
+        x = {"logits": lg_m[..., :cfg.vocab].float().reshape(-1)}
+        mean, resid = compressed_psum(x, ef_init(x))
+        host_mean, (host_resid,) = _host_compressed_mean([x["logits"]], 1)
+        same["compressed_psum"] = (
+            np.array_equal(mean["logits"].cpu().numpy().view(np.uint32), host_mean.view(np.uint32))
+            and np.array_equal(resid["logits"].cpu().numpy().view(np.uint32),
+                               host_resid.view(np.uint32)))
+        out.update(bit_equal=same, sp_prefill_s=t_m, sp_logits_s=tl_m)
+        if not all(same.values()):
+            raise SystemExit(f"phase 22 (a): the (1, 1) mesh differs from one device: {same}")
+        log(f"phase 22 (a): a world of 1 rank on {backend}, a (1, 1) mesh: {cfg.name} at full "
+            f"width and depth ({out['params']} parameters), the sp prefill of {PREFILL_BATCH} x "
+            f"{PREFILL_LEN} through moe_apply_shardmap ({t_m:.3f} s hidden states, {tl_m:.3f} s "
+            f"logits) equal to the one-device prefill bit for bit (hidden states, balancing "
+            f"loss, logits), two decode_moe_shardmap steps' logits bit for bit, compressed_psum "
+            f"of the logits over the world equal to numpy on the host bit for bit: "
+            f"{json.dumps(same)}")
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def _timed_collectives(acc: dict):
+    """Every all-reduce and all-gather of ``launch.collectives`` timed on the
+    host clock (waits for the other ranks included) into ``acc``."""
+    def timed(fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            res = fn(*args, **kwargs)
+            acc["s"] += time.perf_counter() - t0
+            acc["calls"] += 1
+            return res
+        return wrapper
+
+    mesh_collectives.all_reduce = timed(mesh_collectives.all_reduce)
+    mesh_collectives._gather_one = timed(mesh_collectives._gather_one)
+
+
+def _mesh_oracle_grads(model, cfg, whole, batch, accum: int, n_dp: int, dev) -> list:
+    """The f32 gradient of the sharded step's loss on one device: for each
+    microbatch, each data shard's rows run alone (their token-local MoE
+    capacity), their cross-entropy sums over the microbatch's token count,
+    plus 0.01 times the data-mean of their balancing losses; one backward a
+    shard's rows."""
+    from repro_torch.models.lm import _xent_sums
+
+    leaves = [t.detach().requires_grad_() for t in whole]
+    it = iter(leaves)
+    tree = tree_map(lambda _: next(it), model.shapes())
+    grads = [torch.zeros_like(t) for t in leaves]
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    per = b["tokens"].shape[0] // accum
+    for i in range(accum):
+        cnt = b["mask"][i * per:(i + 1) * per].sum()
+        for d in range(n_dp):
+            r = slice(i * per + d * per // n_dp, i * per + (d + 1) * per // n_dp)
+            with torch.enable_grad():
+                hid, aux, _ = model.hidden_states(tree, b["tokens"][r])
+                tot, _ = _xent_sums(tree["embed"], cfg, hid, b["targets"][r], b["mask"][r],
+                                    chunk=512)
+                term = (tot / cnt + 0.01 * aux / n_dp) / accum
+                for acc, g in zip(grads, torch.autograd.grad(term, leaves, allow_unused=True)):
+                    if g is not None:
+                        acc.add_(g)
+    return grads
+
+
+def _host_compressed_mean(parts, n: int):
+    """``compressed_psum``'s mean and each member's residual, in numpy on the
+    host, from every member's gradient (zero residuals in)."""
+    xs = [p.cpu().numpy().astype(np.float32) for p in parts]
+    amax = np.float32(max(float(np.abs(x).max()) for x in xs))
+    scale = np.maximum(amax, np.float32(1e-12)) / np.float32(127.0)
+    qs = [np.clip(np.rint(x / scale), -127, 127).astype(np.int8) for x in xs]
+    total = np.sum([q.astype(np.int32) for q in qs], axis=0, dtype=np.int32)
+    mean = (total.astype(np.float32) * scale) / np.float32(n)
+    return mean, [x - q.astype(np.float32) * scale for x, q in zip(xs, qs)]
+
+
+def _mesh_rank(rank: int, world: int, rdv: str, out_dir: str, seed: int) -> None:
+    """(b): one rank of the gloo world sharing the card; writes its results
+    to ``out_dir/rank<r>.pt``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products stay f32
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()  # built by the parent: loaded
+    dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    coll = {"s": 0.0, "calls": 0}
+    _timed_collectives(coll)
+    out = {"rank": rank, "backend": dist.get_backend(), "seconds": {}}
+    t_rank = time.perf_counter()
+    try:
+        mesh = make_host_mesh(MESH_SHAPE, device_type="cuda")
+        n_dp, d = MESH_SHAPE[0], mesh.get_local_rank("data")
+        out["coordinate"] = tuple(mesh.get_coordinate())
+        for w in WRAPPERS.values():
+            w.launches = w.calls = 0
+        cfg = get_config(MESH_ARCH).scaled(n_layers=MESH_LAYERS)
+        model = LM(cfg, dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(seed))
+        specs = model.pspecs(multi_pod=False)
+        spec_leaves = tree_leaves(specs)
+        blocks = tree_map(lambda t, sp: local_shard(t, sp, mesh), params, specs)
+        rng = np.random.default_rng(seed)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (MESH_BATCH, PREFILL_LEN))
+                               .astype(np.int32), device=dev)
+        per = MESH_BATCH // n_dp
+        mine = {"tokens": toks[d * per:(d + 1) * per]}
+
+        # the prefill per data shard against one device, bf16 then f32
+        t0 = time.perf_counter()
+        gates = {}
+        for dtype in ("bfloat16", "float32"):
+            c = cfg.scaled(dtype=dtype)
+            p = params if dtype == "bfloat16" else tree_map(lambda t: t.float(), params)
+            b = blocks if dtype == "bfloat16" else tree_map(lambda t: t.float(), blocks)
+            sharded, _, _ = build_prefill_step(c, device=dev, mesh=mesh)
+            one, _, _ = build_prefill_step(c, device=dev)
+            with _moe_dispatches(range(MESH_LAYERS)) as (kept_m, _):
+                lg_m, t_m = wall_s(lambda: sharded(b, mine))
+            with uncounted(), _moe_dispatches(range(MESH_LAYERS)) as (kept_1, _):
+                lg_1, t_1 = wall_s(lambda: one(p, mine))
+            a, w = lg_m[..., :cfg.vocab].float(), lg_1[..., :cfg.vocab].float()
+            if not (torch.isfinite(a).all() and torch.isfinite(w).all()):
+                raise RuntimeError(f"phase 22 (b): {dtype} prefill logits are not finite")
+            slots = [int(sum((x != y).sum() for x, y in zip(kept_m[i][0][2:], kept_1[i][0][2:])))
+                     + int(kept_m[i][1] != kept_1[i][1]) for i in range(MESH_LAYERS)]
+            gates[dtype] = {"rel_l2": _rel_l2(a, w), "sharded_s": t_m, "one_device_s": t_1,
+                            "dispatch_differences_by_layer": slots}
+            limit = MESH_F32_REL_L2 if dtype == "float32" else MESH_BF16_REL_L2
+            if gates[dtype]["rel_l2"] > limit or slots[0]:
+                raise RuntimeError(f"phase 22 (b) rank {rank}: the {dtype} prefill of the data "
+                                   f"shard's rows against one device: {gates[dtype]} (limit "
+                                   f"{limit}, layer 0's dispatch int for int)")
+            del lg_m, lg_1, kept_m, kept_1, p, b
+        out["prefill"] = gates
+        out["seconds"]["prefill"] = time.perf_counter() - t0
+
+        # two f32 train steps; each step's gradients against one device
+        t0 = time.perf_counter()
+        cfg32 = cfg.scaled(dtype="float32")
+        model32 = LM(cfg32, dev)
+        p = tree_map(lambda t: t.float(), blocks)
+        # rank 0's one-device state: the whole f32 parameters, updated by a
+        # one-device AdamW with the gathered gradients (no gather of them)
+        whole_p = tree_map(lambda t: t.float(), params) if rank == 0 else None
+        whole_opt = adamw_init(whole_p) if rank == 0 else None
+        del blocks, params
+        opt = adamw_init(p)
+        step, _, _ = build_train_step(cfg32, accum=MESH_ACCUM, opt_cfg=AdamWConfig(**TRAIN_OPT),
+                                      device=dev, mesh=mesh)
+        dcfg = DataConfig(vocab=cfg.vocab, seq_len=PREFILL_LEN, global_batch=MESH_BATCH, seed=seed)
+        stream = SyntheticTokenStream(dcfg, rows=data_rows(MESH_BATCH, MESH_ACCUM, n_dp, d))
+        whole_stream = SyntheticTokenStream(dcfg)
+        steps_out = []
+        for s in range(MESH_TRAIN_STEPS):
+            batch = stream.next_batch()
+            whole_batch = whole_stream.next_batch()
+            rows = len(stream.rows) // MESH_ACCUM
+
+            def run_step():
+                gsum, loss = step.begin(p), 0.0
+                for i in range(MESH_ACCUM):
+                    mb = {k: torch.as_tensor(v[i * rows:(i + 1) * rows], device=dev)
+                          for k, v in batch.items()}
+                    loss = loss + step.microbatch(p, mb, gsum)
+                return gsum, step.finish(p, opt, gsum, loss)
+
+            coll0 = dict(coll)
+            if s == MESH_TRAIN_STEPS - 1:
+                (gsum, (p_new, opt, m)), prof = profile_device(run_step)
+            else:
+                (gsum, (p_new, opt, m)), step_s = wall_s(run_step)
+                prof = {"wall_s": step_s}
+            rec = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                   "collective_s": coll["s"] - coll0["s"],
+                   "collective_calls": coll["calls"] - coll0["calls"], **prof}
+            # the gate (the gather and the oracle outside the step's clock)
+            whole_g = [mesh_collectives.whole(g, mesh, sp) for g, sp in zip(gsum, spec_leaves)]
+            if rank == 0:
+                with uncounted():
+                    want = _mesh_oracle_grads(model32, cfg32, tree_leaves(whole_p), whole_batch,
+                                              MESH_ACCUM, n_dp, dev)
+                errs = [_rel_l2(g, w) if w.norm() > 0 else float(g.norm())
+                        for g, w in zip(whole_g, want)]
+                worst = int(np.argmax(errs))
+                rec["grad_rel_l2_worst"] = errs[worst]
+                rec["grad_rel_l2_worst_leaf"] = _leaf_paths(specs)[worst]
+                if errs[worst] > GATE_GRAD_REL_L2 or not np.isfinite(rec["loss"]):
+                    raise RuntimeError(f"phase 22 (b): step {s + 1}'s f32 gradient leaf "
+                                       f"{rec['grad_rel_l2_worst_leaf']} within "
+                                       f"{errs[worst]:.3e} of one device (limit "
+                                       f"{GATE_GRAD_REL_L2}); loss {rec['loss']}")
+                del want
+                it = iter(whole_g)
+                whole_p, whole_opt, _ = adamw_update(
+                    AdamWConfig(**TRAIN_OPT), whole_p, tree_map(lambda _: next(it), whole_p),
+                    whole_opt)
+            del whole_g
+            steps_out.append(rec)
+            p = p_new
+        out["train"] = steps_out
+        out["seconds"]["train"] = time.perf_counter() - t0
+
+        # the last step's compressed_psum over the world, against the host
+        t0 = time.perf_counter()
+        by_path = dict(zip(_leaf_paths(specs), gsum))
+        sel = {name.replace("/", "."): by_path[name] for name in MESH_COMPRESS_LEAVES}
+        mean, resid = compressed_psum(sel, ef_init(sel))
+        comp = {}
+        for name, g in sel.items():
+            parts = [torch.empty_like(g) for _ in range(world)]
+            dist.all_gather(parts, g.contiguous())
+            means = [torch.empty_like(mean[name]) for _ in range(world)]
+            dist.all_gather(means, mean[name].contiguous())
+            alike = all(_bits_equal(x, means[0]) for x in means)
+            host_mean, host_resid = _host_compressed_mean(parts, world)
+            host = (np.array_equal(mean[name].cpu().numpy().view(np.uint32),
+                                   host_mean.view(np.uint32))
+                    and np.array_equal(resid[name].cpu().numpy().view(np.uint32),
+                                       host_resid[rank].view(np.uint32)))
+            comp[name] = {"elements": g.numel(), "alike_on_every_rank": alike,
+                          "equal_to_host": host}
+            if not (alike and host):
+                raise RuntimeError(f"phase 22 (b) rank {rank}: compressed_psum of {name}: {comp}")
+        out["compressed_psum"] = comp
+        out["seconds"]["compressed_psum"] = time.perf_counter() - t0
+
+        # the parameters and the optimizer state saved on (2, 2), restored on
+        # (4, 1) and on one device; each leaf gathered whole one at a time to
+        # compare
+        t0 = time.perf_counter()
+        del whole_p, whole_opt
+        mesh41 = make_host_mesh((MESH_RANKS, 1), device_type="cuda")
+        store = CheckpointStore(os.path.join(out_dir, "ckpt"), keep=1)
+        tree = {"params": p, "opt": opt}
+        tspecs = {"params": specs, "opt": opt_pspecs(specs)}
+        torch.cuda.synchronize()
+        peak_before, resident = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _, save_s = wall_s(lambda: store.save(MESH_TRAIN_STEPS, tree, mesh=mesh, specs=tspecs))
+        save_extra = torch.cuda.max_memory_allocated() - resident
+        like = {"params": model32.shapes()}
+        like["opt"] = adamw_init(like["params"])
+        back, restore_s = wall_s(lambda: store.restore(MESH_TRAIN_STEPS, like, device=dev,
+                                                       mesh=mesh41, specs=tspecs))
+        one, one_s = (wall_s(lambda: store.restore(MESH_TRAIN_STEPS, like, device=dev))
+                      if rank == 0 else (None, None))
+        ok41 = ok1 = True
+        ones = tree_leaves(one) if one is not None else [None] * len(tree_leaves(tree))
+        for blk, b41, o, sp in zip(tree_leaves(tree), tree_leaves(back), ones,
+                                   tree_leaves(tspecs)):
+            w = mesh_collectives.whole(blk, mesh, sp)
+            ok41 = ok41 and _bits_equal(b41, local_shard(w, sp, mesh41))
+            if o is not None:
+                ok1 = ok1 and _bits_equal(o, w)
+            del w
+        del ones
+        ckpt = {"save_s": save_s, "restore_4x1_s": restore_s, "restored_4x1_bit_equal": ok41,
+                "save_card_bytes_above_resident": save_extra,
+                "bytes": sum(t.numel() * t.element_size() for t in tree_leaves(like))}
+        if rank == 0:
+            ckpt.update(restore_one_device_s=one_s, restored_one_device_bit_equal=ok1)
+        del back, one
+        dist.barrier()
+        if not ok41 or not ckpt.get("restored_one_device_bit_equal", True):
+            raise RuntimeError(f"phase 22 (b) rank {rank}: the checkpoint's restore: {ckpt}")
+        out["checkpoint"] = ckpt
+        out["seconds"]["checkpoint"] = time.perf_counter() - t0
+        out["launches"] = _launch_counts()
+        out["peak_bytes"] = max(peak_before, torch.cuda.max_memory_allocated())
+    finally:
+        dist.destroy_process_group()
+    out["seconds"]["rank"] = time.perf_counter() - t_rank
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def mesh_four_ranks(seed: int, tmp: Path) -> dict:
+    """(b): the gloo world of four ranks, one process each, sharing the
+    card; every rank's gates raise in it, and a failed rank fails the
+    phase."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(_mesh_rank, args=(MESH_RANKS, str(tmp / "gloo_rendezvous"),
+                                                  str(tmp), seed), nprocs=MESH_RANKS)
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(MESH_RANKS)]
+    backends = {r["backend"] for r in ranks}
+    last = [r["train"][-1] for r in ranks]
+    busy = sum(x["device_busy_s"] for x in last) / max(x["wall_s"] for x in last)
+    out = {
+        "backend": backends.pop() if len(backends) == 1 else sorted(backends),
+        "wall_s": wall, "ranks": ranks,
+        "launches": {name: sum(r["launches"][name] for r in ranks) for name in WRAPPERS},
+        "last_step_busy_share": busy,
+        "train_step_s": [max(r["train"][s]["wall_s"] for r in ranks)
+                         for s in range(MESH_TRAIN_STEPS)],
+        "collective_s_per_step": [max(r["train"][s]["collective_s"] for r in ranks)
+                                  for s in range(MESH_TRAIN_STEPS)],
+    }
+    r0 = ranks[0]
+    log(f"phase 22 (b): {MESH_RANKS} ranks sharing the card, backend {out['backend']}, a "
+        f"{MESH_SHAPE} (data, model) mesh, {MESH_ARCH} at full width cut to {MESH_LAYERS} "
+        f"layers, global batch {MESH_BATCH} x {PREFILL_LEN}; {wall:.1f} s for the world "
+        f"(start-up included); coordinates {[r['coordinate'] for r in ranks]}")
+    for dtype in ("bfloat16", "float32"):
+        g = [r["prefill"][dtype] for r in ranks]
+        log(f"phase 22 (b): {dtype} sp prefill of each data shard's {MESH_BATCH // MESH_SHAPE[0]}"
+            f" rows against the one-device prefill of those rows: logits within "
+            f"{max(x['rel_l2'] for x in g):.3e} relative L2 (limit "
+            f"{MESH_F32_REL_L2 if dtype == 'float32' else MESH_BF16_REL_L2}); dispatch "
+            f"differences by layer (layer 0 int for int) "
+            f"{[x['dispatch_differences_by_layer'] for x in g]}; sharded "
+            f"{[round(x['sharded_s'], 3) for x in g]} s, one device "
+            f"{[round(x['one_device_s'], 3) for x in g]} s")
+    for s in range(MESH_TRAIN_STEPS):
+        rec = r0["train"][s]
+        log(f"phase 22 (b): f32 train step {s + 1} (accum {MESH_ACCUM}): loss {rec['loss']:.4f}, "
+            f"grad_norm {rec['grad_norm']:.4f}, {out['train_step_s'][s]:.2f} s (slowest rank), "
+            f"collectives {out['collective_s_per_step'][s]:.2f} s of it (slowest rank, host "
+            f"clock, waits included; {rec['collective_calls']} calls a rank); every gradient "
+            f"leaf within {rec['grad_rel_l2_worst']:.3e} relative L2 of one device (worst "
+            f"{rec['grad_rel_l2_worst_leaf']}; limit {GATE_GRAD_REL_L2})")
+    log(f"phase 22 (b): last step under the profiler: the card busy "
+        f"{busy:.3f} of the slowest rank's wall time (the four ranks' kernel time summed), "
+        f"{sum(x['kernel_launches'] for x in last)} kernel launches; "
+        f"compressed_psum of {list(r0['compressed_psum'])} over the world: alike on every rank "
+        f"and equal to the host's numpy bit for bit; checkpoint "
+        f"({r0['checkpoint']['bytes'] / 1e9:.2f} GB: the f32 parameters, m, v, master and the "
+        f"count) saved on {MESH_SHAPE} in {r0['checkpoint']['save_s']:.2f} s (card memory "
+        f"above a rank's own state during the save at most "
+        f"{max(r['checkpoint']['save_card_bytes_above_resident'] for r in ranks) / 1e9:.3f} GB)"
+        f", restored on ({MESH_RANKS}, 1) in "
+        f"{max(r['checkpoint']['restore_4x1_s'] for r in ranks):.2f} s and on one device in "
+        f"{r0['checkpoint']['restore_one_device_s']:.2f} s, bit for bit; peak "
+        f"{max(r['peak_bytes'] for r in ranks) / 1e9:.2f} GB a rank; seconds by part (rank 0) "
+        f"{json.dumps({k: round(v, 2) for k, v in r0['seconds'].items()})}")
+    return out
+
+
+def mesh_graph(seed: int, dev) -> dict:
+    """(c): four shards round-robined over the mesh [cuda:0, cpu] against
+    the four shards all on the card (phase 15's graph), on phase 15's first
+    batches: each batch's answers, every shard's tables after it, the fused
+    snapshot and ``reachable`` bit for bit."""
+    cpu = torch.device("cpu")
+    g_one = WaitFreeGraph(n_shards=SHARDS, device=dev)
+    g_mesh = WaitFreeGraph(n_shards=SHARDS, mesh=[dev, cpu])
+    rng = np.random.default_rng(seed)
+    stream = build_stream(rng)
+    batches = list(itertools.islice(stream, MESH_GRAPH_LOADS))
+    while len(batches) < MESH_GRAPH_LOADS + MESH_GRAPH_TRAVERSALS:
+        label, *b = next(stream)
+        if label.startswith("traversal"):
+            batches.append((label, *b))
+    apply_s = 0.0
+    for label, ops, us, vs in batches:
+        want = g_one.apply(ops, us, vs)
+        got, dt = wall_s(lambda: g_mesh.apply(ops, us, vs))
+        apply_s += dt
+        if not np.array_equal(got, want):
+            raise SystemExit(f"phase 22 (c): {label}: answers differ from one device")
+        for i, (a, b) in enumerate(zip(g_mesh.shards, g_one.shards)):
+            if a.v_key.device != (dev if i % 2 == 0 else cpu):
+                raise SystemExit(f"phase 22 (c): shard {i} is on {a.v_key.device}")
+            for f in GraphState._fields:
+                if not torch.equal(getattr(a, f).to(dev), getattr(b, f)):
+                    raise SystemExit(f"phase 22 (c): {label}: shard {i}'s {f} differs")
+    csr, fuse_s = wall_s(g_mesh.traversal_csr)
+    require_csr_equal("phase 22 (c) fused snapshot", csr, g_one.traversal_csr())
+    # the traversal batches' first 128 edge-op pairs and 128 drawn pairs
+    tr = [b for b in batches if b[0].startswith("traversal")]
+    eu = np.concatenate([b[2][np.isin(b[1], (OP_ADD_EDGE,))] for b in tr])[:128]
+    ev = np.concatenate([b[3][np.isin(b[1], (OP_ADD_EDGE,))] for b in tr])[:128]
+    keys = np.concatenate([b[2] for b in batches])
+    pairs = np.concatenate([np.stack([eu, ev]), rng.choice(keys, (2, 128))], 1).astype(np.int32)
+    reach, reach_s = wall_s(lambda: g_mesh.reachable(pairs[0], pairs[1]))
+    if not np.array_equal(reach, g_one.reachable(pairs[0], pairs[1])):
+        raise SystemExit("phase 22 (c): reachable differs from one device")
+    out = {"batches": len(batches), "ops": int(sum(b[1].size for b in batches)),
+           "apply_s": apply_s, "fuse_s": fuse_s, "reachable_s": reach_s,
+           "reached": int(reach.sum()), "shard_capacities": _shard_caps(g_mesh),
+           "fused_edges": int(csr.n_edges)}
+    log(f"phase 22 (c): {SHARDS} shards on the mesh [{dev}, cpu] (shards 0 and 2 on the card): "
+        f"the first {MESH_GRAPH_LOADS} batches of phase 15's stream and its first "
+        f"{MESH_GRAPH_TRAVERSALS} traversal batches ({out['ops']} ops, {apply_s:.2f} s of "
+        f"apply) answer as the 4 shards on the card, bit for bit, every shard's tables equal "
+        f"after every batch; shard capacities {out['shard_capacities']}; the fused snapshot "
+        f"({out['fused_edges']} edges, {fuse_s * 1e3:.1f} ms) field for field and reachable on "
+        f"{pairs.shape[1]} pairs (edge adds' endpoints and drawn keys; {out['reached']} "
+        f"reached) equal")
+    return out
+
+
+def mesh_phase(seed: int, dev) -> dict:
+    """Phase 22 with every launch count set to 0 just before it: (a) and
+    (c) counted in this process, (b)'s ranks each from its own start; the
+    path's kernels must have run."""
+    tmp = Path(tempfile.mkdtemp(prefix="mesh_phase_", dir=ROOT / "build"))
+    try:
+        for w in WRAPPERS.values():
+            w.launches = w.calls = 0
+        ck.probe_place.rounds = None
+        out = {"one_rank": mesh_one_rank(seed, dev, tmp)}
+        torch.cuda.empty_cache()
+        out["four_ranks"] = mesh_four_ranks(seed, tmp)
+        out["graph"] = mesh_graph(seed, dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    here = _launch_counts()
+    counts = {name: here[name] + out["four_ranks"]["launches"][name] for name in WRAPPERS}
+    out["launches"] = counts
+    log(f"phase 22: kernel launches on the path ((a) and (c) here, (b) summed over its ranks): "
+        f"{json.dumps(counts)}")
+    missing = [name for name in MESH_PATH if counts[name] == 0]
+    if missing:
+        raise SystemExit(f"phase 22 never launched: {missing}")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3263,6 +3820,14 @@ def main(argv=None) -> int:
     finally:
         pool.terminate()
         pool.join()
+
+    # phase 22: several ranks on one mesh, with every launch count read
+    # around it
+    t0 = time.perf_counter()
+    summary["mesh"] = mesh_phase(args.seed, dev)
+    for row in rows:
+        row["launches_mesh_path"] = summary["mesh"]["launches"][row["name"].split("[")[0]]
+    phase_s["22"] = time.perf_counter() - t0
 
     summary["card"] = smi
     summary["sass"] = sass

@@ -1,7 +1,8 @@
 """repro_torch — ``repro`` ported to PyTorch and hand-written CUDA kernels for
-an NVIDIA H100: the wait-free graph, and the serving path of the dense,
-ssm (rwkv6) and hybrid (zamba2) LM families, whose KV page table is that
-graph.  Its seven CUDA kernels (``kernels/``) are the counterparts of
+an NVIDIA H100: the wait-free graph (one shard, hash-prefix shards, shards
+on several devices), and every LM family's serving, training and dry run,
+on one card or on the ranks of a ``torch.distributed`` mesh; the serving
+path's KV page table is that graph.  Its seven CUDA kernels (``kernels/``) are the counterparts of
 ``repro``'s seven Pallas kernels; the last, ``paged_attention``, is decode
 attention over K/V pages addressed through the block tables of that page
 table.

@@ -21,9 +21,22 @@ bfloat16: a bf16 tensor is stored as its raw 2-byte words (``|V2``, what
 ``np.savez`` makes of the reference's ml_dtypes bfloat16 arrays) and the
 manifest records ``"dtypes": {key: "bfloat16"}``; :meth:`restore` takes the
 bits back as they were.  ``restore(step, like_tree, device=...)`` puts each
-leaf on ``device`` in the like leaf's dtype, where the reference re-shards
-onto a tree of shardings; ``device=None`` means the card, as everywhere in
-the port.
+leaf on ``device`` in the like leaf's dtype; ``device=None`` means the card,
+as everywhere in the port.
+
+**On a mesh** (the reference's elastic restore): ``save(..., mesh=,
+specs=)`` takes each rank's blocks and puts every leaf together on the host
+of global rank 0, which writes the same file and manifest as one card
+would.  The leaves are gathered one at a time, and a stacked leaf one slice
+of its first unsplit dim (one layer) at a time, each slice copied to the
+host and freed before the next is gathered (a collective: every rank calls
+it), so no card holds more than one such slice beyond its own blocks.
+``restore(..., mesh=, specs=)`` reads the whole leaves one at a time and
+keeps this rank's block of each, for whatever mesh it is given, so a run
+saved on one mesh resumes on another, or on one device, bit for bit.
+:meth:`CheckpointStore.wait` ends with a barrier over the process group
+once a save on a mesh was made, so no rank reads a checkpoint before it
+is written.
 """
 
 from __future__ import annotations
@@ -40,6 +53,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..parallel.collectives import whole
+from ..parallel.spec import axis_size, local_shard
 
 _BF16_WORD = np.dtype("V2")
 
@@ -61,6 +76,32 @@ def _host_array(leaf) -> np.ndarray:
             return t.view(torch.int16).numpy().view(_BF16_WORD)
         return t.numpy()
     return np.array(leaf, copy=True)
+
+
+def _whole_on_host(t: torch.Tensor, mesh, spec, keep: bool):
+    """The whole leaf of which ``t`` is this rank's block by ``spec``, as a
+    host array where ``keep`` (None elsewhere).  It is gathered one slice
+    along its first dim that no axis splits at a time (a stacked leaf's
+    layers), each slice freed on the card once copied to the host."""
+    entries = tuple(spec) + (None,) * (t.dim() - len(spec))
+    if all(axis_size(mesh, e) == 1 for e in entries):
+        return _host_array(t) if keep else None
+    free = next((d for d, e in enumerate(entries) if e is None and t.shape[d] > 1), None)
+    if free is None:
+        piece = whole(t, mesh, spec)  # a collective: on every rank
+        return _host_array(piece) if keep else None
+    out = None
+    for i in range(t.shape[free]):
+        piece = whole(t.narrow(free, i, 1), mesh, spec)
+        if keep:
+            host = _host_array(piece)
+            if out is None:
+                shape = list(host.shape)
+                shape[free] = t.shape[free]
+                out = np.empty(shape, host.dtype)
+            out[(slice(None),) * free + (slice(i, i + 1),)] = host
+        del piece
+    return out
 
 
 def _flatten(tree):
@@ -92,6 +133,7 @@ class CheckpointStore:
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._mesh_saved = False
 
     # -- discovery -----------------------------------------------------------
     def steps(self):
@@ -121,23 +163,52 @@ class CheckpointStore:
             return False
 
     # -- save ------------------------------------------------------------------
-    def save(self, step: int, tree, extra: Optional[Dict[str, Any]] = None):
+    def save(self, step: int, tree, extra: Optional[Dict[str, Any]] = None, *, mesh=None,
+             specs=None):
         self.wait()
-        flat, dtypes = _flatten(tree)  # the device-to-host copy happens here
-        self._write(step, flat, dtypes, extra or {})
+        flat, dtypes = self._snapshot(tree, mesh, specs)  # the device-to-host copy
+        if flat is not None:
+            self._write(step, flat, dtypes, extra or {})
+        self.wait()
 
-    def save_async(self, step: int, tree, extra: Optional[Dict[str, Any]] = None):
+    def save_async(self, step: int, tree, extra: Optional[Dict[str, Any]] = None, *,
+                   mesh=None, specs=None):
         self.wait()
-        flat, dtypes = _flatten(tree)  # a host snapshot now; the file in the background
-        self._thread = threading.Thread(target=self._write_caught,
-                                        args=(step, flat, dtypes, extra or {}), daemon=True)
-        self._thread.start()
+        flat, dtypes = self._snapshot(tree, mesh, specs)  # a host snapshot now
+        if flat is not None:  # the file in the background
+            self._thread = threading.Thread(target=self._write_caught,
+                                            args=(step, flat, dtypes, extra or {}), daemon=True)
+            self._thread.start()
+
+    def _snapshot(self, tree, mesh, specs):
+        """(flat host arrays, bf16 keys) of the tree, whole leaves on a mesh;
+        (None, None) on the ranks of a mesh that do not write."""
+        if mesh is None:
+            return _flatten(tree)
+        import torch.distributed as dist
+
+        self._mesh_saved = True
+        keep = dist.get_rank() == 0
+        flat, dtypes = {}, {}
+        for key, leaf in _paths(tree):
+            host = _whole_on_host(leaf, mesh, _at(specs, key), keep)
+            if keep:
+                flat[key] = host
+                if leaf.dtype == torch.bfloat16:
+                    dtypes[key] = "bfloat16"
+        return (flat, dtypes) if keep else (None, None)
 
     def wait(self):
-        """Join the background write; re-raises what it raised."""
+        """Join the background write; re-raises what it raised.  After a
+        save on a mesh, every rank waits here for the writer."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._mesh_saved:
+            import torch.distributed as dist
+
+            self._mesh_saved = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -172,15 +243,24 @@ class CheckpointStore:
             shutil.rmtree(os.path.join(self.dir, f"step_{s:010d}"), ignore_errors=True)
 
     # -- restore ---------------------------------------------------------------
-    def restore(self, step: int, like_tree, device=None):
+    def restore(self, step: int, like_tree, device=None, *, mesh=None, specs=None):
         """The checkpoint of ``step`` in the structure of ``like_tree``,
         whose leaves (tensors, on any device, "meta" too) give each leaf's
-        shape and dtype; every leaf lands on ``device``."""
+        whole shape and dtype; every leaf lands on ``device``.  With a mesh,
+        each leaf is this rank's block of it by ``specs``."""
         device = resolve_device(device, "CheckpointStore.restore")
         path = os.path.join(self.dir, f"step_{step:010d}")
+
+        def leaf(data, key, like):
+            t = _to_tensor(data[key], like, "cpu")
+            if mesh is not None:
+                t = local_shard(t, _at(specs, key), mesh)
+            return t.to(device)
+
+        # one leaf in host memory at a time: every rank of a mesh reads the
+        # whole file and keeps its blocks
         with np.load(os.path.join(path, "arrays.npz")) as data:
-            flat = {k: data[k] for k in data.files}
-        return _unflatten(like_tree, lambda key, like: _to_tensor(flat[key], like, device))
+            return _unflatten(like_tree, lambda key, like: leaf(data, key, like))
 
     def extra(self, step: int) -> Dict:
         path = os.path.join(self.dir, f"step_{step:010d}", "manifest.json")
@@ -192,6 +272,13 @@ def _unflatten(tree, leaf_fn, prefix=()):
     if isinstance(tree, dict):
         return {k: _unflatten(tree[k], leaf_fn, prefix + (str(k),)) for k in sorted(tree)}
     return leaf_fn("/".join(prefix), tree)
+
+
+def _at(tree, key: str):
+    """The leaf of nested dicts at a "/"-joined path."""
+    for k in key.split("/"):
+        tree = tree[k]
+    return tree
 
 
 def _sha256(path: str) -> str:

@@ -5,8 +5,7 @@ data in this package, and the input-shape cells ``SHAPES`` with
 ``cell_is_runnable``, copies of ``src/repro/configs/__init__.py:29-51``).  Each module exports ``CONFIG`` and the registry
 derives the reduced smoke config via
 ``repro_torch.models.config.reduced_for_smoke``.  Every family runs in the
-port (``repro_torch.models.LM``); only MoE experts over several cards wait
-for a multi-card slice (ROADMAP.md queue 1).
+port (``repro_torch.models.LM``), on one card or on a mesh.
 """
 
 from __future__ import annotations

@@ -79,9 +79,11 @@ def _used_slots(state: GraphState) -> Tuple[int, int]:
 
 
 def _live_counts(states: Sequence[GraphState]) -> List[List[int]]:
-    """``[v_live, e_live, v_used, e_used]`` per state, in one read."""
+    """``[v_live, e_live, v_used, e_used]`` per state, in one read (on the
+    first state's device)."""
+    dev = states[0].device
     flat = torch.stack([
-        x for st in states
+        x.to(dev) for st in states
         for x in (st.v_live.sum(), st.e_live.sum(), (st.v_key != EMPTY_KEY).sum(),
                   (st.e_key_u != EMPTY_KEY).sum())
     ]).tolist()
@@ -94,14 +96,17 @@ def _crowded(v_used: int, e_used: int, state: GraphState) -> bool:
     )
 
 
-def _upload(arrays: Sequence[np.ndarray], device) -> List[torch.Tensor]:
-    """The int32 ``arrays`` on ``device`` in one transfer, as views of one
-    buffer, each of its array's shape."""
-    flat = torch.as_tensor(np.concatenate([a.ravel() for a in arrays]), device=device)
-    out, off = [], 0
-    for a in arrays:
-        out.append(flat[off:off + a.size].view(a.shape))
-        off += a.size
+def _upload(arrays: Sequence[np.ndarray], devices) -> List[torch.Tensor]:
+    """The int32 ``arrays`` on their ``devices`` (one a array) in one
+    transfer a device, as views of one buffer, each of its array's shape."""
+    out: List[Optional[torch.Tensor]] = [None] * len(arrays)
+    for dev in dict.fromkeys(devices):
+        mine = [i for i, d in enumerate(devices) if d == dev]
+        flat = torch.as_tensor(np.concatenate([arrays[i].ravel() for i in mine]), device=dev)
+        off = 0
+        for i in mine:
+            out[i] = flat[off:off + arrays[i].size].view(arrays[i].shape)
+            off += arrays[i].size
     return out
 
 
@@ -163,9 +168,13 @@ class WaitFreeGraph:
     ``1/n_shards`` of the vertex and of the edge key space, ops are routed
     by the prefix of the hash the probe sequence uses, and a cross-shard
     stabbing wave answers endpoint liveness between the vertex and edge
-    settlement phases.  ``mesh`` is a sequence of ``torch.device`` naming one
-    device (default ``[device]``): every shard is a logical shard on it.
-    Any shard count gives identical answers.
+    settlement phases.  ``mesh`` is a sequence of devices (default
+    ``[device]``: every shard a logical shard on the graph's device): shard
+    ``i`` lives on ``mesh[i % len(mesh)]`` and runs its waves there, and the
+    cross-shard steps (the route's upload of the gather plan, the gathered
+    stab answers, the attempt's one read, the directory, the fused snapshot
+    and every query) run on ``mesh[0]``, the graph's ``device``.  Any shard
+    count and any placement give identical answers.
 
     ``obs`` enables telemetry (:mod:`repro_torch.obs`): ``None`` defers to
     the ``REPRO_OBS`` environment variable, ``True`` attaches a fresh
@@ -195,8 +204,10 @@ class WaitFreeGraph:
             raise ValueError("n_shards must be a power of two")
         maintenance.resolve_impl(maintenance_impl)
         if mesh is not None:
-            mesh_device = sharding._mesh_device(mesh)  # one device, or it raises
-            device = mesh_device if device is None else device
+            mesh = sharding.check_mesh(mesh)
+            if device is not None and torch.device(device) != mesh[0]:
+                raise ValueError("the graph's device must be its mesh's first device")
+            device = mesh[0]
         self.device = resolve_device(device, "WaitFreeGraph")
         if traversal_impl == "kernel" and self.device.type != "cuda":
             raise ValueError("traversal_impl='kernel' needs the graph on the card")
@@ -216,10 +227,7 @@ class WaitFreeGraph:
                 if cap % n_shards or not is_pow2(cap // n_shards):
                     raise ValueError(
                         f"{name} must split into power-of-two per-shard capacities")
-            self._mesh = (list(mesh) if mesh is not None
-                          else sharding.host_local_mesh(self.device))
-            if sharding._mesh_device(self._mesh) != self.device:
-                raise ValueError("mesh and device name different devices")
+            self._mesh = mesh if mesh is not None else [self.device]
             self.shards = sharding.place_shards(
                 sharding.make_shard_states(v_capacity // n_shards, e_capacity // n_shards,
                                            n_shards, device=self.device),
@@ -491,7 +499,11 @@ class WaitFreeGraph:
             plan[0, :idx.size][e] = pos[k[e]]
             plan[1, :idx.size][e] = pos[ne + k[e]]
             plans.append(plan)
-        dev_arrays = _upload(sub + q_pads + plans, dev)
+        # each shard's sub-batch and queries to its device, the gather plan
+        # to the graph's
+        sdev = [st.v_key.device for st in self._shards]
+        dev_arrays = _upload(sub + q_pads + plans,
+                             sdev + [sdev[t] for t in askers for _ in (0, 1)] + [dev] * S)
         batches = [OpBatch(*t) for t in dev_arrays[:S]]
         queries = {t: (dev_arrays[S + 2 * i], dev_arrays[S + 2 * i + 1])
                    for i, t in enumerate(askers)}
@@ -525,13 +537,14 @@ class WaitFreeGraph:
                     qk, qp = queries[t]
                     live, inc, over = engine.answer_stabs(pre[t], batches[t], *evs[t], qk, qp)
                     overs.append(over)
-                    ans_live.append(live[:q_sel[t].size])
-                    ans_inc.append(inc[:q_sel[t].size])
+                    ans_live.append(live[:q_sel[t].size].to(dev))
+                    ans_inc.append(inc[:q_sel[t].size].to(dev))
             with reg.span("phase.gather"):
                 a_live = torch.cat(ans_live + [sentinel[0]])
                 a_inc = torch.cat(ans_inc + [sentinel[1]])
-                ends = [(a_live[g[0]], a_inc[g[0]], a_live[g[1]], a_inc[g[1]])
-                        for g in gathers]
+                ends = [tuple(a.to(sdev[s]) for a in (a_live[g[0]], a_inc[g[0]],
+                                                       a_live[g[1]], a_inc[g[1]]))
+                        for s, g in enumerate(gathers)]
 
             # C. edge settlement per shard, fed the gathered answers
             with reg.span("phase.settle_edges"):
@@ -545,13 +558,13 @@ class WaitFreeGraph:
                     outs.append((v_res[s][:m] | e_res[:m]).to(torch.int32))
 
             # one read: overflow, used slots a shard, stats (obs), results
-            status = [torch.stack(overs).any().to(torch.int32)]
-            status += [c.to(torch.int32) for st in states_c
+            status = [torch.stack([o.to(dev) for o in overs]).any().to(torch.int32)]
+            status += [c.to(dev, torch.int32) for st in states_c
                        for c in ((st.v_key != EMPTY_KEY).sum(), (st.e_key_u != EMPTY_KEY).sum())]
             head = 1 + 2 * S
             if reg.enabled:
-                status += [x for st in v_stats + e_stats for x in st]
-            read = torch.cat([torch.stack(status)] + outs).cpu().numpy()
+                status += [x.to(dev) for st in v_stats + e_stats for x in st]
+            read = torch.cat([torch.stack(status)] + [o.to(dev) for o in outs]).cpu().numpy()
             used = read[1:head].reshape(S, 2)
             if not read[0] and not self._needs_growth_sharded(states_c, used):
                 self.shards = states_c

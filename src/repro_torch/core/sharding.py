@@ -50,10 +50,16 @@ states after every shard installed its post-batch tables; shards partition
 both key spaces, so the fused CSR is a consistent cut at that batch
 boundary.
 
-**Placement.**  On one card every shard is a logical shard on that card:
-:func:`host_local_mesh` is ``[device]``, and a mesh that names more than one
-device is refused (placing shards on several cards waits for a multi-card
-slice, ROADMAP.md queue 1).
+**Placement.**  A mesh is a list of devices; :func:`place_shards` puts
+shard ``i`` on ``mesh[i % len(mesh)]`` (round-robin), and each shard's waves
+run on its device.  The cross-shard steps run on the first shard's device
+(``mesh[0]``), with explicit copies: the stabbing wave's answers are
+gathered there, and so are the live vertices (:func:`gather_live_vertices`)
+and the edge columns (:func:`_edge_columns`) that the directory and the
+fused snapshot are made of.  Placement never changes a value.
+:func:`host_local_mesh` lists every local device of a type, as
+``jax.devices()`` does; a mesh naming a ``meta`` device, or a card that is
+not there, raises.
 """
 
 from __future__ import annotations
@@ -189,9 +195,10 @@ def gather_live_vertices(
         i = np.concatenate([st.v_inc.cpu().numpy()[m] for st, m in zip(states, live)])
         order = np.argsort(k, kind="stable")
         return k[order].astype(np.int32), i[order].astype(np.int32)
-    live = torch.cat([st.v_live for st in states])
-    k = torch.cat([st.v_key for st in states])[live]
-    i = torch.cat([st.v_inc for st in states])[live]
+    dev = states[0].device
+    live = torch.cat([st.v_live.to(dev) for st in states])
+    k = torch.cat([st.v_key.to(dev) for st in states])[live]
+    i = torch.cat([st.v_inc.to(dev) for st in states])[live]
     k, order = torch.sort(k, stable=True)
     return k, i[order]
 
@@ -282,8 +289,10 @@ def _lookup_sorted_np(sorted_key: np.ndarray, queries: np.ndarray):
 
 def _edge_columns(states: Sequence[GraphState]):
     """(e_key_u, e_key_v, e_live, e_inc_u, e_inc_v) concatenated across
-    shards: global lane = shard offset + local lane."""
-    return tuple(torch.cat([getattr(st, f) for st in states])
+    shards: global lane = shard offset + local lane; on the first shard's
+    device."""
+    dev = states[0].device
+    return tuple(torch.cat([getattr(st, f).to(dev) for st in states])
                  for f in ("e_key_u", "e_key_v", "e_live", "e_inc_u", "e_inc_v"))
 
 
@@ -404,30 +413,40 @@ def live_edges(
 
 
 def host_local_mesh(device="cpu") -> List[torch.device]:
-    """The one-device mesh: every shard is a logical shard on ``device``
-    (``repro``'s ``host_local_mesh`` on a one-device host)."""
-    return [torch.device(device)]
+    """Every local device of ``device``'s type: the cards ``cuda:0`` ..
+    ``cuda:n-1``, or the one CPU (``repro``'s ``host_local_mesh`` over
+    ``jax.devices()``)."""
+    kind = torch.device(device).type
+    if kind == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return check_mesh([device])
 
 
-def _mesh_device(mesh: Sequence) -> torch.device:
-    devs = {torch.device(d) for d in mesh}
-    if len(devs) != 1:
-        raise NotImplementedError(
-            "a mesh of more than one device: shards on several cards wait for a "
-            "multi-card slice (ROADMAP.md queue 1)"
-        )
-    return devs.pop()
+def check_mesh(mesh: Sequence) -> List[torch.device]:
+    """``mesh`` as a list of ``torch.device``; raises ``ValueError`` for an
+    empty mesh or a ``meta`` device (no values live there), and
+    ``RuntimeError`` for a card that is not there."""
+    devs = [torch.device(d) for d in mesh]
+    if not devs:
+        raise ValueError("an empty mesh")
+    for d in devs:
+        if d.type == "meta":
+            raise ValueError("a mesh of a meta device: graph shards hold values")
+        if d.type == "cuda":
+            idx = 0 if d.index is None else d.index
+            if not torch.cuda.is_available() or idx >= torch.cuda.device_count():
+                raise RuntimeError(f"the mesh names {d}, and no such card is present")
+    return devs
 
 
 def place_shards(
     states: Sequence[GraphState], mesh: Optional[Sequence] = None
 ) -> List[GraphState]:
-    """Put shard ``i`` on ``mesh[i % len(mesh)]``; ``mesh`` is a sequence of
-    ``torch.device`` and must name one device (see :func:`host_local_mesh`).
-    Placement never changes values."""
+    """Put shard ``i`` on ``mesh[i % len(mesh)]`` (round-robin); ``mesh`` is
+    a sequence of devices (default: :func:`host_local_mesh` of the first
+    shard's device).  Placement never changes values."""
     mesh = host_local_mesh(states[0].device if states else "cpu") if mesh is None else mesh
-    _mesh_device(mesh)
-    devs = [torch.device(d) for d in mesh]
+    devs = check_mesh(mesh)
     return [GraphState(*(c.to(devs[i % len(devs)]) for c in st))
             for i, st in enumerate(states)]
 

@@ -10,7 +10,9 @@ Every row of every step draws from its own PRNG stream, keyed by
   (the iterator's state is the step counter);
 * host h of H draws the global batch rows [h B / H, (h + 1) B / H) of the
   same step-keyed stream, so the global batch does not depend on the number
-  of hosts, and any host can recompute any other's shard.
+  of hosts, and any host can recompute any other's shard;
+* a rank of a mesh may name its rows instead (``rows=``, in the order it
+  takes them: ``launch.shardings.data_rows``).
 
 The "corpus" mixes Zipfian unigrams with short repeated motifs: enough
 structure for a loss that falls, with no data to fetch.
@@ -39,13 +41,18 @@ class DataConfig:
 class SyntheticTokenStream:
     """Stateful iterator whose state is the step counter (checkpointable)."""
 
-    def __init__(self, cfg: DataConfig, host_id: int = 0, n_hosts: int = 1):
+    def __init__(self, cfg: DataConfig, host_id: int = 0, n_hosts: int = 1, rows=None):
         if cfg.global_batch % n_hosts:
             raise ValueError(f"global batch {cfg.global_batch} does not split over {n_hosts} "
                              "hosts")
         self.cfg = cfg
         self.host_id = host_id
         self.n_hosts = n_hosts
+        per_host = cfg.global_batch // n_hosts
+        self.rows = (list(range(host_id * per_host, (host_id + 1) * per_host)) if rows is None
+                     else [int(r) for r in rows])
+        if any(not 0 <= r < cfg.global_batch for r in self.rows):
+            raise ValueError(f"rows outside the global batch of {cfg.global_batch}")
         self.step = 0
 
     # -- checkpoint interface ------------------------------------------------
@@ -58,12 +65,12 @@ class SyntheticTokenStream:
         self.step = int(state["step"])
 
     # -- batch generation ----------------------------------------------------
-    def _rows(self, step: int, row_lo: int, row_hi: int) -> np.ndarray:
+    def _rows(self, step: int, rows) -> np.ndarray:
         cfg = self.cfg
         shape = (cfg.seq_len + 1,) if cfg.n_codebooks == 1 else (cfg.seq_len + 1,
                                                                   cfg.n_codebooks)
-        out = np.empty((row_hi - row_lo,) + shape, np.int64)
-        for i, row in enumerate(range(row_lo, row_hi)):
+        out = np.empty((len(rows),) + shape, np.int64)
+        for i, row in enumerate(rows):
             rng = np.random.default_rng(np.random.SeedSequence([cfg.seed, step, row]))
             toks = rng.zipf(cfg.zipf_a, size=shape) % cfg.vocab
             # overlay repeated motifs (learnable local structure)
@@ -82,15 +89,12 @@ class SyntheticTokenStream:
     def next_batch(self) -> Dict[str, np.ndarray]:
         """tokens and targets (the tokens shifted by one), int32, and a mask
         of ones, for this host's rows of the next step."""
-        cfg = self.cfg
-        per_host = cfg.global_batch // self.n_hosts
-        lo = self.host_id * per_host
-        rows = self._rows(self.step, lo, lo + per_host)
+        rows = self._rows(self.step, self.rows)
         self.step += 1
         return {
             "tokens": np.ascontiguousarray(rows[:, :-1], np.int32),
             "targets": np.ascontiguousarray(rows[:, 1:], np.int32),
-            "mask": np.ones((per_host, cfg.seq_len), np.float32),
+            "mask": np.ones((len(self.rows), self.cfg.seq_len), np.float32),
         }
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:

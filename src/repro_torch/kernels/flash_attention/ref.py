@@ -7,8 +7,8 @@ Port of ``repro/kernels/flash_attention/ref.py``:
 * :func:`mha_chunked` is the online softmax over (q block, KV block) pairs,
   memory-linear.  It is what :func:`..ops.attention` runs for CPU tensors
   and what ``chip_smoke.py`` holds the CUDA kernel against.  The sequence
-  sharding pins of the reference (``seq_spec``) have no meaning on one card
-  and are left out.
+  sharding pins of the reference (``seq_spec``) are left out: the port's
+  mesh does not shard the sequence.
 * :func:`mha_chunked_vjp` is its gradient, q block by q block, as XLA
   takes the reference's; the kernel's backward (``ops.KernelAttention``)
   is this.

@@ -12,19 +12,30 @@ Port of ``build_run``, ``TRAIN_ACCUM``, ``build_train_step``,
 * ``decode``  — one new token against a KV cache.
 
 PyTorch runs eagerly, so the step is the plain function the reference
-hands to ``jax.jit``.  The reference's mesh and sharding settings (``sp``,
-``dp_axes``, ``attn_seq_shard``, pinning the gradients to the parameters'
-layout) have no meaning on one card and are not carried over; a ``run`` may
-still name them.  The model lives on the card unless ``device`` says
+hands to ``jax.jit``.  The model lives on the card unless ``device`` says
 otherwise.
 
+**On a mesh** (``mesh=``, a ``DeviceMesh``; FSDP/ZeRO over the data axes):
+the step takes this rank's blocks of the parameters and of the optimizer
+state (``LM.pspecs``, ``opt_pspecs``) and this rank's rows of the batch,
+microbatch by microbatch (``shardings.data_rows``).  The loss is the global
+batch's (``LM.loss`` on a mesh); each leaf's gradient comes out of autograd
+already reduce-scattered onto the rank's block (the backward of the
+forward's gathers: the reference's ``pin_grads``), and AdamW updates the
+rank's blocks with the whole tree's norm.  ``build_run`` keeps the mesh
+and ``sp`` (on by default on a mesh, as in the reference; off without one,
+where nothing spans cards); the data axes, and whether the mesh spans pods,
+are read off the mesh wherever they are needed.
+
 ``param_specs``, ``opt_state_specs``, ``batch_specs``, ``cache_specs``,
-``decode_token_specs`` and ``input_specs`` are the shape half of the
-reference's builders of the same names (``src/repro/launch/steps.py:178-267``):
-tensors on the ``meta`` device with the reference's shapes and dtypes, keyed
-as the step's arguments, which the dry run (``launch/dryrun.py``) hands to
-the step.  They take no mesh: the reference's shardings wait for the
-several-cards slice (ROADMAP.md queue 1).
+``decode_token_specs`` and ``input_specs`` are the reference's builders of
+the same names (``src/repro/launch/steps.py:166-267``): tensors on the
+``meta`` device with the reference's shapes and dtypes, keyed as the step's
+arguments, which the dry run (``launch/dryrun.py``) hands to the step.
+Given a mesh (a ``DeviceMesh`` or a ``MeshDescription``), each leaf has one
+rank's block's shape (the reference's ``shard_shape``) and carries its spec
+as ``leaf.spec``.  The reference's ``multi_pod=`` flag is the mesh's own
+"pod" axis here: a ``MeshDescription`` over ("pod", "data", "model").
 """
 
 from __future__ import annotations
@@ -39,20 +50,26 @@ from ..models import LM
 from ..models.config import ArchConfig
 from ..models.lm import DEFAULT_RUN
 from ..models.module import tree_leaves, tree_map
-from ..optim import AdamWConfig, adamw_update
+from ..optim import AdamWConfig, adamw_update, opt_pspecs
+from ..parallel.mesh import is_multi_pod
+from ..parallel.spec import local_shape
+from .shardings import batch_pspecs, cache_pspecs
 
 META = torch.device("meta")
 
 
-def build_run(cfg: ArchConfig, *, run_overrides: Dict[str, Any] = None) -> Dict[str, Any]:
+def build_run(cfg: ArchConfig, *, mesh=None,
+              run_overrides: Dict[str, Any] = None) -> Dict[str, Any]:
     """The train step's run: the chunked attention, per-layer remat and the
-    cross-entropy in chunks of 512, as the reference's ``build_run``.  Its
-    one q block of up to 4,096 in the plain attention (fewer partial dK/dV
-    reductions under its sequence-parallel layout) is not carried over: the
-    q blocking changes no number, and on one card blocks of 512 keep the
-    backward's recomputed scores 8 times smaller and skip the key blocks
-    the causal mask hides whole."""
+    cross-entropy in chunks of 512, as the reference's ``build_run``, with
+    ``sp`` (on a mesh, as the reference's default; off without one) and the
+    ``mesh``.  Its one q block of up to 4,096 in the plain attention (fewer
+    partial dK/dV reductions under its sequence-parallel layout) is not
+    carried over: the q blocking changes no number, and blocks of 512 keep
+    the backward's recomputed scores 8 times smaller and skip the key
+    blocks the causal mask hides whole."""
     return {**DEFAULT_RUN, "attn_impl": "chunked", "remat": True, "loss_chunk": 512,
+            "sp": mesh is not None, "mesh": mesh,
             **(run_overrides or {})}
 
 
@@ -68,7 +85,7 @@ TRAIN_ACCUM = {
 
 
 def build_train_step(cfg: ArchConfig, *, opt_cfg: AdamWConfig = None, accum: int = None,
-                     run_overrides: dict = None, device=None):
+                     run_overrides: dict = None, device=None, mesh=None):
     """``train_step(params, opt_state, batch) -> (new_params, new_opt,
     {"loss", "grad_norm", "lr"})``, every result on the model's device.
 
@@ -85,11 +102,16 @@ def build_train_step(cfg: ArchConfig, *, opt_cfg: AdamWConfig = None, accum: int
     (the f32 zeros), ``train_step.microbatch(params, mb, gsum)`` (one
     microbatch's loss; its gradients added into ``gsum``) and
     ``train_step.finish(params, opt_state, gsum, loss_sum)`` (the division
-    and the update); ``train_step.accum`` is ``accum``."""
+    and the update); ``train_step.accum`` is ``accum``.
+
+    With ``mesh``, every tree holds this rank's blocks and ``batch`` its rows
+    (see the module's docstring); the metrics are the global ones on every
+    rank."""
     model = LM(cfg, device)
     opt_cfg = opt_cfg or AdamWConfig()
-    run = build_run(cfg, run_overrides=run_overrides)
+    run = build_run(cfg, mesh=mesh, run_overrides=run_overrides)
     accum = accum or TRAIN_ACCUM.get(cfg.name, 1)
+    specs = None if mesh is None else _pspecs(model, mesh)
 
     def grads_of(params, mb):
         leaves = tree_leaves(params)
@@ -102,7 +124,8 @@ def build_train_step(cfg: ArchConfig, *, opt_cfg: AdamWConfig = None, accum: int
     def update(params, grads, opt_state, loss):
         it = iter(grads)
         new_params, new_opt, metrics = adamw_update(
-            opt_cfg, params, tree_map(lambda _: next(it), params), opt_state)
+            opt_cfg, params, tree_map(lambda _: next(it), params), opt_state, mesh=mesh,
+            specs=specs)
         return new_params, new_opt, {"loss": loss, **metrics}
 
     def begin(params):
@@ -143,17 +166,20 @@ def build_train_step(cfg: ArchConfig, *, opt_cfg: AdamWConfig = None, accum: int
     return train_step, model, run
 
 
-def build_prefill_step(cfg: ArchConfig, *, run_overrides: dict = None, device=None):
+def build_prefill_step(cfg: ArchConfig, *, run_overrides: dict = None, device=None,
+                       mesh=None):
+    """``prefill_step(params, batch) -> last-token logits``; on a ``mesh``
+    (``sp`` on, as the reference's run), this rank's blocks and rows."""
     model = LM(cfg, device)
-    run = {**DEFAULT_RUN, **(run_overrides or {})}
+    run = {**DEFAULT_RUN, **({} if mesh is None else {"mesh": mesh, "sp": True}),
+           **(run_overrides or {})}
 
     @torch.no_grad()
     def prefill_step(params, batch):
         # zero recurrent states for ssm/hybrid, as the reference passes
         states = model.init_recurrent_states(batch["tokens"].shape[0], cfg.param_dtype)
-        hid, _, _ = model.hidden_states(params, batch["tokens"], memory=batch.get("memory"),
-                                        run=run, states=states)
-        return model._logits(params, hid[:, -1:])
+        return model.prefill(params, batch["tokens"], memory=batch.get("memory"), run=run,
+                             states=states)[0]
 
     return prefill_step, model, run
 
@@ -170,8 +196,8 @@ def build_decode_step(cfg: ArchConfig, *, run_overrides: dict = None, device=Non
 
 
 # ---------------------------------------------------------------------------
-# input stand-ins on the meta device (the shape half of the reference's
-# input specs; no mesh, no sharding)
+# input stand-ins on the meta device: the global shapes, or with a mesh one
+# rank's block's, each leaf carrying its spec
 # ---------------------------------------------------------------------------
 
 def _cell(shape) -> dict:
@@ -180,59 +206,91 @@ def _cell(shape) -> dict:
     return SHAPES[shape] if isinstance(shape, str) else shape
 
 
-def _meta(shape, dtype) -> torch.Tensor:
-    return torch.empty(shape, dtype=dtype, device=META)
+def _meta(shape, dtype, mesh=None, spec=None) -> torch.Tensor:
+    if mesh is None:
+        return torch.empty(shape, dtype=dtype, device=META)
+    t = torch.empty(local_shape(shape, spec, mesh), dtype=dtype, device=META)
+    t.spec = tuple(spec)
+    return t
 
 
-def param_specs(cfg: ArchConfig):
-    return LM(cfg, META).shapes()
+def _tree_meta(shapes, specs, mesh):
+    """Global-shape stand-ins as blocks of ``mesh`` by ``specs`` (unchanged
+    without a mesh)."""
+    if mesh is None:
+        return shapes
+    return tree_map(lambda t, s: _meta(tuple(t.shape), t.dtype, mesh, s), shapes, specs)
 
 
-def opt_state_specs(cfg: ArchConfig):
+def _pspecs(model, mesh):
+    return model.pspecs(multi_pod=mesh is not None and is_multi_pod(mesh))
+
+
+def param_specs(cfg: ArchConfig, mesh=None):
+    model = LM(cfg, META)
+    return _tree_meta(model.shapes(), _pspecs(model, mesh), mesh)
+
+
+def opt_state_specs(cfg: ArchConfig, mesh=None):
     """``adamw_init``'s tree: f32 ``m``, ``v`` and ``master``, int32 ``count``."""
-    pshapes = param_specs(cfg)
+    model = LM(cfg, META)
+    pshapes = model.shapes()
 
     def f32(t):
         return _meta(t.shape, torch.float32)
 
-    return {"m": tree_map(f32, pshapes), "v": tree_map(f32, pshapes),
-            "master": tree_map(f32, pshapes), "count": _meta((), torch.int32)}
+    shapes = {"m": tree_map(f32, pshapes), "v": tree_map(f32, pshapes),
+              "master": tree_map(f32, pshapes), "count": _meta((), torch.int32)}
+    return _tree_meta(shapes, opt_pspecs(_pspecs(model, mesh)), mesh)
 
 
-def batch_specs(cfg: ArchConfig, shape):
+def batch_specs(cfg: ArchConfig, shape, mesh=None):
     sh = _cell(shape)
     B, S = sh["global_batch"], sh["seq_len"]
+    specs = batch_pspecs(cfg, B, mesh) if mesh is not None else {}
     tok_shape = (B, S) if cfg.n_codebooks == 1 else (B, S, cfg.n_codebooks)
-    out = {"tokens": _meta(tok_shape, torch.int32), "targets": _meta(tok_shape, torch.int32),
-           "mask": _meta((B, S), torch.float32)}
+    out = {"tokens": _meta(tok_shape, torch.int32, mesh, specs.get("tokens")),
+           "targets": _meta(tok_shape, torch.int32, mesh, specs.get("tokens")),
+           "mask": _meta((B, S), torch.float32, mesh, specs.get("mask"))}
     if cfg.xattn_every:
-        out["memory"] = _meta((B, cfg.n_img_tokens, cfg.d_model), cfg.param_dtype)
+        out["memory"] = _meta((B, cfg.n_img_tokens, cfg.d_model), cfg.param_dtype, mesh,
+                              specs.get("memory"))
     return out
 
 
-def cache_specs(cfg: ArchConfig, shape):
+def cache_specs(cfg: ArchConfig, shape, mesh=None):
     """The decode cache of ``LM.decode_init`` (without the vlm's
     precomputed cross K/V, as the reference's ``eval_shape`` of it)."""
     sh = _cell(shape)
-    return LM(cfg, META).decode_init(sh["global_batch"], sh["seq_len"])
+    B = sh["global_batch"]
+    shapes = LM(cfg, META).decode_init(B, sh["seq_len"])
+    if mesh is None:
+        return shapes
+    return _tree_meta(shapes, cache_pspecs(cfg, shapes, B, mesh), mesh)
 
 
-def decode_token_specs(cfg: ArchConfig, shape):
+def decode_token_specs(cfg: ArchConfig, shape, mesh=None):
     B = _cell(shape)["global_batch"]
-    return _meta((B, 1) if cfg.n_codebooks == 1 else (B, 1, cfg.n_codebooks), torch.int32)
+    spec = batch_pspecs(cfg, B, mesh)["tokens"] if mesh is not None else None
+    return _meta((B, 1) if cfg.n_codebooks == 1 else (B, 1, cfg.n_codebooks), torch.int32,
+                 mesh, spec)
 
 
-def input_specs(cfg: ArchConfig, shape):
+def input_specs(cfg: ArchConfig, shape, mesh=None):
     """Everything the cell's step takes, as its keyword arguments."""
     sh = _cell(shape)
     if sh["kind"] == "train":
-        return {"params": param_specs(cfg), "opt_state": opt_state_specs(cfg),
-                "batch": batch_specs(cfg, sh)}
+        return {"params": param_specs(cfg, mesh),
+                "opt_state": opt_state_specs(cfg, mesh),
+                "batch": batch_specs(cfg, sh, mesh)}
     if sh["kind"] == "prefill":
-        return {"params": param_specs(cfg), "batch": batch_specs(cfg, sh)}
-    out = {"params": param_specs(cfg), "tokens": decode_token_specs(cfg, sh),
-           "cache": cache_specs(cfg, sh)}
+        return {"params": param_specs(cfg, mesh), "batch": batch_specs(cfg, sh, mesh)}
+    out = {"params": param_specs(cfg, mesh),
+           "tokens": decode_token_specs(cfg, sh, mesh),
+           "cache": cache_specs(cfg, sh, mesh)}
     if cfg.xattn_every:
+        spec = (batch_pspecs(cfg, sh["global_batch"], mesh)["memory"]
+                if mesh is not None else None)
         out["memory"] = _meta((sh["global_batch"], cfg.n_img_tokens, cfg.d_model),
-                              cfg.param_dtype)
+                              cfg.param_dtype, mesh, spec)
     return out

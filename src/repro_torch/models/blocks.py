@@ -16,9 +16,9 @@ through :func:`repro_torch.kernels.ssd_scan.ssd_scan`, which launches the
 CUDA kernel for tensors on the card and takes the plain chunked version on
 the CPU; ``scan_impl="reference"`` forces the plain version anywhere.  Their
 one-token decode step is the plain ``linear_scan_step``, as it is jnp in the
-reference.  Every block kind runs; only the MoE FFN with its experts over
-several cards (``shard=True``, the reference's ``moe_apply_shardmap``)
-raises ``NotImplementedError`` (ROADMAP.md queue 1).
+reference.  ``shard=True`` runs the MoE FFN as the reference's
+``moe_apply_shardmap`` on the ``mesh`` it is given (a ``ValueError``
+without one).
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ from .layers import (
     mlp_apply,
     mlp_meta,
     moe_apply,
+    moe_apply_shardmap,
     moe_meta,
     norm_apply,
     norm_meta,
@@ -76,22 +77,25 @@ def attn_block_meta(cfg: ArchConfig, *, moe: bool = False):
 
 
 def attn_block_apply(p, cfg: ArchConfig, x, *, moe=False, positions=None, kv_cache=None,
-                     attn_impl="chunked", shard=False, block_q=512, block_k=512):
+                     attn_impl="chunked", shard=False, mesh=None,
+                     block_q=512, block_k=512):
     """Returns (x', new_cache, aux); aux is the MoE balancing loss, 0.0 for
-    the dense MLP.  ``shard=True`` asks for the reference's
-    ``moe_apply_shardmap`` (experts over several cards), which the port
-    refuses."""
-    if moe and shard:
-        raise NotImplementedError(
-            "moe_apply_shardmap: experts over several cards wait for a multi-card slice "
-            "(ROADMAP.md queue 1)")
+    the dense MLP.  ``shard=True`` runs the MoE FFN as
+    ``moe_apply_shardmap`` on ``mesh`` (``x`` this rank's rows, ``p["ffn"]``
+    its blocks of the expert weights); it raises ``ValueError`` without a
+    mesh, as the reference's shard_map does."""
+    if moe and shard and mesh is None:
+        raise ValueError("attn_block_apply(shard=True): moe_apply_shardmap needs a mesh "
+                         "(pass mesh=, or run['mesh'] to the LM)")
     h, new_cache = attn_apply(
         p["attn"], cfg, norm_apply(p["ln1"], cfg, x),
         positions=positions, kv_cache=kv_cache, attn_impl=attn_impl,
         block_q=block_q, block_k=block_k,
     )
     x = x + h
-    if moe:
+    if moe and shard:
+        f, aux = moe_apply_shardmap(p["ffn"], cfg, norm_apply(p["ln2"], cfg, x), mesh=mesh)
+    elif moe:
         f, aux = moe_apply(p["ffn"], cfg, norm_apply(p["ln2"], cfg, x))
     else:
         f, aux = mlp_apply(p["ffn"], cfg, norm_apply(p["ln2"], cfg, x)), 0.0

@@ -16,8 +16,9 @@ Cross attention (the vlm family) goes through the same entry point,
 non-causal and without a window, at Sq != Sk; its one-token decode against
 the precomputed image K/V too.  Decode self-attention, every projection and
 the MoE FFN (dispatch, three batched expert products, combine) are plain
-tensor code, as they are jnp in the reference.  Only the reference's
-``moe_apply_shardmap`` (experts over several cards) has no counterpart.
+tensor code, as they are jnp in the reference.  ``moe_apply_shardmap``
+runs the MoE FFN on a rank's rows of a (data, model) mesh with explicit
+collectives (:mod:`repro_torch.parallel.collectives`).
 """
 
 from __future__ import annotations
@@ -28,6 +29,9 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.flash_attention import ops as flash_ops
+from ..parallel import collectives as C
+from ..parallel.mesh import data_axes
+from ..parallel.spec import axis_size
 from .config import ArchConfig
 from .module import ParamMeta
 
@@ -302,9 +306,14 @@ def mlp_apply(p, cfg: ArchConfig, x):
 # ---------------------------------------------------------------------------
 # MoE (capacity-based top-k dispatch; deterministic phase-order drops)
 #
-# The reference's global-dispatch engine, ``moe_apply``.  Its shard_map
-# engine, ``moe_apply_shardmap`` (experts over several cards), has no
-# counterpart: the attention block refuses ``shard=True``.
+# Two engines, as in the reference:
+#   * moe_apply          — global dispatch over the token set it is given
+#                          (one card, and the oracle of the sharded path);
+#   * moe_apply_shardmap — token-local dispatch on each rank's rows of a
+#                          (data, model) mesh: the experts' FSDP blocks
+#                          gathered over the data axes, the expert FFN over
+#                          the rank's TP block of its hidden width, and one
+#                          sum over "model" completing it.
 # ---------------------------------------------------------------------------
 
 def moe_meta(cfg: ArchConfig):
@@ -351,11 +360,15 @@ def moe_dispatch(router, cfg: ArchConfig, xt, capacity: int):
     return probs, gate_vals, gate_idx, keep.reshape(T, k), slot.reshape(T, k)
 
 
-def _moe_local(router, wi, wg, wo, cfg: ArchConfig, xt, capacity: int):
-    """Dispatch + expert FFN + combine over a token set.
+def _moe_local(router, wi, wg, wo, cfg: ArchConfig, xt, capacity: int, *, enter=None):
+    """Dispatch + expert FFN + combine over a token set, no collectives.
 
     router (d, e); wi/wg (e, d, F); wo (e, F, d); xt (T, d).  Returns (out
-    (T, d), probs, gate_idx).
+    (T, d) — partial where F is a TP block — probs, gate_idx).  ``enter``
+    (identity when None) is applied to the two values that go from the
+    routing, which every TP rank computes alike, into the FFN, which each
+    computes in part: the expert buffer and the slot weights (the sharded
+    engine's "identity forward, sum backward").
 
     Dispatch is inverted as in the reference: each slot holds a token index
     (T for the zero row), and one row gather builds the (e, capacity, d)
@@ -376,6 +389,8 @@ def _moe_local(router, wi, wg, wo, cfg: ArchConfig, xt, capacity: int):
     xtp = torch.cat([xt, xt.new_zeros(1, d)])
     buf = xtp[slot_tok[:-1]].reshape(e, capacity, d)
     del xtp, slot_tok
+    if enter is not None:
+        buf = enter(buf)
 
     h = torch.bmm(buf, wi)
     g = torch.bmm(buf, wg)
@@ -388,6 +403,8 @@ def _moe_local(router, wi, wg, wo, cfg: ArchConfig, xt, capacity: int):
     slot_w = torch.zeros(e * capacity + 1, dtype=F32, device=xt.device)
     slot_w[flat] = gate_vals.reshape(T * k)
     slot_w[-1] = 0.0
+    if enter is not None:
+        slot_w = enter(slot_w)
     # row e * capacity is the dropped pairs' zero row
     weighted = torch.cat([out_buf, out_buf.new_zeros(1, d)]) * slot_w[:, None].to(out_buf.dtype)
     del out_buf
@@ -424,3 +441,41 @@ def moe_apply(p, cfg: ArchConfig, x, *, capacity: Optional[int] = None):
     out, probs, gate_idx = _moe_local(p["router"], p["wi"], p["wg"], p["wo"], cfg,
                                       x.reshape(T, d), capacity)
     return out.reshape(B, S, d), _moe_aux(probs, gate_idx, cfg.moe.n_experts)
+
+
+def moe_apply_shardmap(p, cfg: ArchConfig, x, *, mesh, capacity: Optional[int] = None):
+    """The sharded MoE: token-local dispatch on this rank's rows.
+
+    ``x`` (B_local, S, d) is the rank's rows, alike on every rank of its
+    "model" group; ``p`` holds the rank's blocks of the expert weights as
+    the reference's ``shard_map`` hands them over: router (d / n_dp, e), wi
+    and wg (e, d / n_dp, F / n_model), wo (e, F / n_model, d / n_dp).  Per
+    rank, as the reference's body:
+
+    * the FSDP blocks gathered over the mesh's data axes (router at dim 0,
+      wi and wg at 1, wo at 2; the gather's backward is a reduce-scatter);
+    * ``_moe_local`` over the rank's B_local × S tokens, capacity
+      ``int(factor · k · T_local / e) or 1``;
+    * the TP partial output summed over "model" in f32, then cast (its
+      backward the identity: what follows is computed alike on every model
+      rank), and the values entering the TP'd FFN summed over "model" in
+      the backward (``enter``);
+    * the balancing loss averaged over the data axes (forward the mean,
+      backward 1 / n_dp to each rank's own).
+
+    Returns (out (B_local, S, d), aux)."""
+    Bl, S, d = x.shape
+    e = cfg.moe.n_experts
+    cap = capacity or moe_capacity(cfg, Bl * S)
+    dp_axes = data_axes(mesh)
+    router = C.gather(p["router"], mesh, dp_axes, 0)
+    wi = C.gather(p["wi"], mesh, dp_axes, 1)
+    wg = C.gather(p["wg"], mesh, dp_axes, 1)
+    wo = C.gather(p["wo"], mesh, dp_axes, 2)
+    out, probs, gate_idx = _moe_local(
+        router, wi, wg, wo, cfg, x.reshape(Bl * S, d), cap,
+        enter=lambda t: C.reduce_backward(t, mesh, "model"))
+    out = C.reduce_forward(out.to(F32), mesh, "model").to(x.dtype)
+    aux = C.reduce_forward(_moe_aux(probs, gate_idx, e), mesh, dp_axes) / axis_size(mesh,
+                                                                                dp_axes)
+    return out.reshape(Bl, S, d), aux

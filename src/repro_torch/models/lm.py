@@ -25,11 +25,24 @@ while grad mode is on: each layer of an attention or rwkv6 stack; the vlm's
 groups with each of their layers nested inside; the hybrid's groups (its
 mamba2 layers and the shared block) and each layer of its mamba2 tail
 (``torch.utils.checkpoint``, non-reentrant).  Sequence-parallel constraints
-have no meaning on one card and are not carried over; a ``run`` dict may
-still name them.  Where the reference's ``sp`` (prefill) or
-``decode_moe_shardmap`` (decode) would pick its shard_map MoE engine, the
-port raises ``NotImplementedError``: experts over several cards wait for a
-multi-card slice (ROADMAP.md queue 1).
+are not carried over; a ``run`` dict may still name them.
+
+**On a mesh** (``run["mesh"]``, a ``DeviceMesh`` over ("data", "model") or
+("pod", "data", "model"), whose data axes are every axis but "model"):
+``params`` are this rank's blocks, each laid out by its spec
+(:meth:`LM.pspecs`), and ``tokens`` this rank's rows.  Every method first
+takes the parameters' view the forward reads (:meth:`LM.mesh_params`): the
+dense weights gathered whole (their backward a reduce-scatter over the data
+axes and one's own block over "model", whose ranks compute them alike), the
+MoE experts left as blocks for ``moe_apply_shardmap``.  An MoE model runs
+its FFN as ``moe_apply_shardmap`` where the reference's ``sp`` (prefill and
+loss) or ``decode_moe_shardmap`` (decode) picks it; without a mesh those
+raise ``ValueError``, and so does an MoE model on a mesh without them (the
+global dispatch would need every rank's tokens).  The loss is the global
+batch's on every rank: each rank's cross-entropy sum over the token count
+summed over the data axes, summed over them in the forward (the identity
+backward: each rank's gradient is its own share), plus the data-mean
+balancing loss.
 
 :func:`params_from_numpy` carries the reference's parameter pytree (numpy
 leaves) into the port, and serves as the port's checkpoint-in;
@@ -48,10 +61,13 @@ import torch
 
 from ..device import resolve_device
 from ..kernels._grad import checkpointed
+from ..parallel import collectives as C
+from ..parallel.mesh import data_axes, is_multi_pod
+from ..parallel.spec import names
 from . import blocks as B
 from . import layers as L
 from .config import ArchConfig
-from .module import build_params, build_shapes, stack_meta, tree_map
+from .module import build_params, build_pspecs, build_shapes, stack_meta, tree_map
 
 DEFAULT_RUN: Dict[str, Any] = {
     "attn_impl": "chunked",   # "chunked" | "kernel" | "reference"
@@ -61,6 +77,8 @@ DEFAULT_RUN: Dict[str, Any] = {
     "remat": True,            # per-layer activation checkpointing under autograd
     "loss_chunk": 512,        # sequence chunk of the cross-entropy
 }
+
+_MOE_LEAVES = ("router", "wi", "wg", "wo")
 
 _BLOCK_KINDS = {"dense": "attn", "moe": "attn", "audio": "attn", "vlm": "attn",
                 "ssm": "rwkv6", "hybrid": "mamba2"}
@@ -131,6 +149,61 @@ class LM:
         dtypes; nothing allocated)."""
         return build_shapes(self.meta())
 
+    def pspecs(self, *, multi_pod: bool):
+        """Each parameter's spec on the mesh (``module.build_pspecs``)."""
+        return build_pspecs(self.meta(), multi_pod=multi_pod)
+
+    # -- on a mesh --------------------------------------------------------------
+    def _check_engine(self, run, key: str) -> bool:
+        """Whether the MoE FFN runs as ``moe_apply_shardmap`` (``run[key]``
+        on an MoE model); raises where that and the mesh disagree."""
+        shard = self.cfg.moe is not None and bool(run.get(key))
+        on_mesh = run.get("mesh") is not None
+        if shard and not on_mesh:
+            raise ValueError(f"run[{key!r}] picks moe_apply_shardmap, which needs a mesh: "
+                             "pass run['mesh']")
+        if on_mesh and self.cfg.moe is not None and not shard:
+            raise ValueError(f"an MoE model on a mesh runs moe_apply_shardmap: set "
+                             f"run[{key!r}] (the global dispatch needs every rank's tokens)")
+        return shard
+
+    def mesh_params(self, params, run):
+        """The parameters as the forward reads them on ``run["mesh"]``
+        (``params`` unchanged without one).  Each leaf is gathered whole
+        along its spec's dims (over the data axes: backward a
+        reduce-scatter; over "model": backward one's own block, since the
+        model ranks compute alike); a leaf whole across a data axis has its
+        gradient summed over it in the backward.  The MoE experts' leaves
+        stay blocks, which ``moe_apply_shardmap`` gathers over the data axes
+        itself."""
+        mesh = run.get("mesh")
+        if mesh is None:
+            return params
+        dp = data_axes(mesh)
+        specs = self.pspecs(multi_pod=is_multi_pod(mesh))
+
+        def view(t, spec, keys):
+            if self.cfg.moe is not None and keys[:2] == ("blocks", "ffn") \
+                    and keys[-1] in _MOE_LEAVES:
+                return t
+            named = {a for entry in spec for a in names(entry)}
+            whole = tuple(a for a in dp if a not in named)
+            if whole:
+                t = C.reduce_backward(t, mesh, whole)
+            for dim, entry in enumerate(spec):
+                if entry is None:
+                    continue
+                grad = "slice" if names(entry) == ("model",) else "sum"
+                t = C.gather(t, mesh, entry, dim, grad=grad)
+            return t
+
+        def walk(tree, spec, keys):
+            if isinstance(tree, dict):
+                return {k: walk(tree[k], spec[k], keys + (k,)) for k in sorted(tree)}
+            return view(tree, spec, keys)
+
+        return walk(params, specs, ())
+
     # -- forward (prefill) ----------------------------------------------------
     def hidden_states(self, params, tokens, *, memory=None, run=None, positions=None,
                       states=None):
@@ -141,15 +214,33 @@ class LM:
         prefill-to-decode handoff), None for attention stacks.  ``states``
         are the stacked states to start from (None: a fresh start);
         ``memory`` (B, M, d) the vlm's image tokens."""
-        cfg = self.cfg
         run = {**DEFAULT_RUN, **(run or {})}
+        shard = self._check_engine(run, "sp")
+        return self._forward(self.mesh_params(params, run), tokens, memory, run, positions,
+                             states, shard)
+
+    def prefill(self, params, tokens, *, memory=None, run=None, states=None):
+        """The prefill step's forward: :meth:`hidden_states` and the last
+        token's logits, both from one view of the parameters on a mesh.
+        Returns (logits (B, 1, Vp), or (B, 1, n_codebooks, Vp), aux,
+        new_states)."""
+        run = {**DEFAULT_RUN, **(run or {})}
+        shard = self._check_engine(run, "sp")
+        params = self.mesh_params(params, run)
+        hid, aux, new_states = self._forward(params, tokens, memory, run, None, states, shard)
+        return self._logits(params, hid[:, -1:]), aux, new_states
+
+    def _forward(self, params, tokens, memory, run, positions, states, shard):
+        """:meth:`hidden_states` on the parameters' view of
+        :meth:`mesh_params`."""
+        cfg = self.cfg
         x = L.embed_apply(params["embed"], cfg, tokens)
         if self.block_kind == "attn":
             if not cfg.rope:
                 pos = positions if positions is not None else torch.arange(x.shape[1],
                                                                            device=x.device)
                 x = x + L.sinusoid_embed(pos, cfg.d_model)[None].to(x.dtype)
-            x, aux = self._attn_stack(params, x, memory, run, positions)
+            x, aux = self._attn_stack(params, x, memory, run, positions, shard)
             new_states = None
         else:
             x, new_states = self._recurrent_stack(params, x, run, positions, states)
@@ -157,16 +248,16 @@ class LM:
         x = L.norm_apply(params["ln_f"], cfg, x)
         return x, aux, new_states
 
-    def _attn_block(self, p, x, run, positions, moe=False):
+    def _attn_block(self, p, x, run, positions, moe=False, shard=False):
         """One attention block of the prefill; returns (x', aux)."""
         x, _, aux = B.attn_block_apply(
             p, self.cfg, x, moe=moe, positions=positions, attn_impl=run["attn_impl"],
-            shard=bool(run.get("sp")), block_q=run["attn_block_q"],
-            block_k=run["attn_block_k"],
+            shard=shard, mesh=run.get("mesh"),
+            block_q=run["attn_block_q"], block_k=run["attn_block_k"],
         )
         return x, aux
 
-    def _attn_stack(self, params, x, memory, run, positions):
+    def _attn_stack(self, params, x, memory, run, positions, shard=False):
         """Every layer (dense, moe, audio), or the vlm's ``n_layers //
         every`` groups of ``every`` layers, each followed by its
         cross-attention block; like the reference, the vlm stack runs
@@ -179,7 +270,7 @@ class LM:
         xblocks = _unstack(params["xattn"], n_groups) if cfg.xattn_every else None
 
         def layer(i, x):
-            return self._attn_block(blocks[i], x, run, positions, moe)
+            return self._attn_block(blocks[i], x, run, positions, moe, shard)
 
         def group(g, x):
             aux = 0.0
@@ -270,12 +361,20 @@ class LM:
         zero recurrent states, as the reference's ``LM.loss``."""
         cfg = self.cfg
         run = {**DEFAULT_RUN, **(run or {})}
+        shard = self._check_engine(run, "sp")
+        params = self.mesh_params(params, run)
         tokens = batch["tokens"]
         states = self.init_recurrent_states(tokens.shape[0], cfg.param_dtype)
-        hid, aux, _ = self.hidden_states(params, tokens, memory=batch.get("memory"), run=run,
-                                         states=states)
-        nll = _xent_chunked(params["embed"], cfg, hid, batch["targets"], batch.get("mask"),
-                            chunk=run["loss_chunk"])
+        hid, aux, _ = self._forward(params, tokens, batch.get("memory"), run, None, states,
+                                    shard)
+        tot, cnt = _xent_sums(params["embed"], cfg, hid, batch["targets"], batch.get("mask"),
+                              chunk=run["loss_chunk"])
+        if run.get("mesh") is None:
+            nll = tot / torch.clamp(cnt, min=1.0)
+        else:
+            dp = data_axes(run["mesh"])
+            cnt = C.all_reduce(cnt.detach(), run["mesh"], dp)
+            nll = C.reduce_forward(tot / torch.clamp(cnt, min=1.0), run["mesh"], dp)
         return nll + 0.01 * aux
 
     # -- decode ---------------------------------------------------------------
@@ -322,38 +421,41 @@ class LM:
         signature and, as there, not read."""
         cfg = self.cfg
         run = {**DEFAULT_RUN, **(run or {})}
+        shard = self._check_engine(run, "decode_moe_shardmap")
+        params = self.mesh_params(params, run)
         pos = cache["len"]
         x = L.embed_apply(params["embed"], cfg, tokens)
         if self.block_kind == "attn":
             if not cfg.rope:
                 x = x + L.sinusoid_embed(pos.reshape(1), cfg.d_model)[None].to(x.dtype)
-            x = self._attn_decode(params, x, cache, run)
+            x = self._attn_decode(params, x, cache, run, shard)
         else:
             x = self._recurrent_decode(params, x, cache)
         x = L.norm_apply(params["ln_f"], cfg, x)
         return self._logits(params, x), {**cache, "len": pos + 1}
 
-    def _attn_decode_block(self, p, x, k, v, cache, moe=False, shard=False):
+    def _attn_decode_block(self, p, x, k, v, cache, moe=False, shard=False, run=None):
         """One attention block's decode step against its K/V ring buffers."""
         pos = cache["len"]
         kv = {"k": k, "v": v, "len": pos, "start": cache.get("start")}
         x, _, _ = B.attn_block_apply(p, self.cfg, x, moe=moe, kv_cache=kv, shard=shard,
+                                     mesh=run.get("mesh") if shard else None,
                                      positions=pos + torch.arange(x.shape[1], device=x.device))
         return x
 
-    def _attn_decode(self, params, x, cache, run):
+    def _attn_decode(self, params, x, cache, run, shard=False):
         """Every layer's decode step, or with the vlm's ``xkv`` the group walk
         of :meth:`_attn_stack`, each group's cross-attention block reading
         its precomputed K/V."""
         cfg = self.cfg
-        moe, shard = cfg.moe is not None, bool(run.get("decode_moe_shardmap"))
+        moe = cfg.moe is not None
         cross = bool(cfg.xattn_every) and "xkv" in cache
         every = cfg.xattn_every if cross else cfg.n_layers
         for g in range(cfg.n_layers // every):
             for i in range(g * every, (g + 1) * every):
                 x = self._attn_decode_block(_layer(params["blocks"], i), x,
                                             cache["kv"]["k"][i], cache["kv"]["v"][i], cache,
-                                            moe, shard)
+                                            moe, shard, run)
             if cross:
                 x = B.xattn_block_apply(_layer(params["xattn"], g), cfg, x,
                                         kv_override=(cache["xkv"]["k"][g],
@@ -391,6 +493,13 @@ def _xent_chunked(embed_params, cfg: ArchConfig, hidden, targets, mask, *, chunk
     reference.  A chunk's f32 logits, with the padded vocab held off by a
     -1e30 penalty, live only inside it: under autograd each chunk runs
     under a checkpoint and is recomputed in the backward."""
+    tot, cnt = _xent_sums(embed_params, cfg, hidden, targets, mask, chunk=chunk)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def _xent_sums(embed_params, cfg: ArchConfig, hidden, targets, mask, *, chunk: int):
+    """(Σ mask × nll, Σ mask) of :func:`_xent_chunked`, whose quotient it
+    is (on a mesh the count is summed over the data axes first)."""
     B_, S, _ = hidden.shape
     chunk = min(chunk, S)
     while S % chunk:
@@ -404,7 +513,7 @@ def _xent_chunked(embed_params, cfg: ArchConfig, hidden, targets, mask, *, chunk
         tot = tot + checkpointed(lambda h, t, m: _xent_chunk(embed_params, cfg, pad, h, t, m),
                                  hidden[:, c0:c0 + chunk], targets[:, c0:c0 + chunk], m)
         cnt = cnt + m.sum()
-    return tot / torch.clamp(cnt, min=1.0)
+    return tot, cnt
 
 
 def _xent_chunk(embed_params, cfg: ArchConfig, pad, h, t, m):

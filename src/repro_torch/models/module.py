@@ -8,8 +8,12 @@ of tensors on the device it is given, drawing from an explicit
 card and never on the host; :func:`build_shapes` gives its stand-ins on the
 ``meta`` device.
 
-``spec`` keeps the reference's logical FSDP/TP axis names as data; on one
-card nothing reads them.
+``spec`` holds the reference's logical axis names a dim ("fsdp", "tp",
+"dp" or None); :func:`resolve_spec` maps them to the mesh's axes and
+:func:`build_pspecs` does so for a whole tree, as the reference's
+``resolve_spec`` and ``build_pspecs`` do.  A resolved spec is a tuple with
+one entry a dim: None, an axis name, or a tuple of names
+(:mod:`repro_torch.parallel.spec`).
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import torch
 class ParamMeta(NamedTuple):
     shape: tuple
     dtype: Any           # a torch dtype
-    spec: tuple          # logical names per dim: "fsdp" | "tp" | None (unused)
+    spec: tuple          # logical names per dim: "fsdp" | "tp" | "dp" | None
     init: str            # "normal" | "zeros" | "ones" | "embed"
     scale: float = 1.0   # multiplier on the init std
 
@@ -79,6 +83,27 @@ def build_shapes(meta_tree):
     and dtypes: nothing is drawn or allocated (the reference's
     ``ShapeDtypeStruct`` tree, for counting a step without running it)."""
     return tree_map(lambda m: torch.empty(m.shape, dtype=m.dtype, device="meta"), meta_tree)
+
+
+def resolve_spec(logical, *, multi_pod: bool) -> tuple:
+    """Map logical dim names to mesh axes: "fsdp" and "dp" to the data axes
+    ("data", or ("pod", "data") across pods), "tp" to "model"."""
+    fsdp = ("pod", "data") if multi_pod else "data"
+    out = []
+    for name in logical:
+        if name is None:
+            out.append(None)
+        elif name in ("fsdp", "dp"):
+            out.append(fsdp)
+        elif name == "tp":
+            out.append("model")
+        else:
+            raise ValueError(f"unknown logical axis {name}")
+    return tuple(out)
+
+
+def build_pspecs(meta_tree, *, multi_pod: bool):
+    return tree_map(lambda m: resolve_spec(m.spec, multi_pod=multi_pod), meta_tree)
 
 
 def stack_meta(meta_tree, n: int):

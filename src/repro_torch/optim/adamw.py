@@ -11,10 +11,16 @@ Everything stays on the parameters' device, the metrics too (0-d tensors),
 so a step reads nothing back.
 
 The update is functional, as the reference's: it returns new trees and
-leaves the given ones as they are, one leaf at a time.  The reference's
-``opt_pspecs`` (the optimizer state's partition specs, mirroring the
-parameters' for ZeRO sharding) has no meaning on one card and is not
-carried over.
+leaves the given ones as they are, one leaf at a time.
+
+On a mesh (ZeRO): ``opt_pspecs`` gives the optimizer state the parameters'
+specs, so each rank holds and updates its own block of ``m``, ``v`` and the
+master.  ``adamw_update(..., mesh=, specs=)`` takes each rank's blocks of
+the parameters and of their (already reduced) gradients; only the global
+norm needs the others: each rank sums the squares of its blocks, a leaf
+whole across some axes counted by the rank at index 0 of them alone, and the
+sum is all-reduced over the mesh before the square root, so every rank
+clips by the whole tree's norm.
 """
 
 from __future__ import annotations
@@ -26,6 +32,9 @@ from typing import Optional
 import torch
 
 from ..models.module import tree_leaves, tree_map
+from ..parallel import collectives as C
+from ..parallel.mesh import axis_sizes
+from ..parallel.spec import names
 
 F32 = torch.float32
 
@@ -65,17 +74,33 @@ def adamw_init(params):
     }
 
 
-def adamw_update(cfg: AdamWConfig, params, grads, state):
-    """Returns (new_params, new_state, {"grad_norm", "lr"})."""
+def _counted_here(spec, mesh) -> bool:
+    """Whether this rank counts a leaf laid out by ``spec`` in the global
+    norm: it is at index 0 of every axis the leaf is whole across."""
+    named = {a for entry in spec for a in names(entry)}
+    return all(mesh.get_local_rank(a) == 0 for a in axis_sizes(mesh) if a not in named)
+
+
+def adamw_update(cfg: AdamWConfig, params, grads, state, *, mesh=None, specs=None):
+    """Returns (new_params, new_state, {"grad_norm", "lr"}).  On a mesh,
+    every tree holds this rank's blocks, laid out by ``specs`` (the
+    parameters' spec tree)."""
     def f32_grad(g):
         if cfg.grad_dtype == "bfloat16":
             g = g.to(torch.bfloat16)
         return g.to(F32)
 
+    if (mesh is None) != (specs is None):
+        raise ValueError("adamw_update on a mesh needs both mesh and specs")
+    counted = ([True] * len(tree_leaves(grads)) if mesh is None
+               else [_counted_here(s, mesh) for s in tree_leaves(specs)])
     gsq = torch.zeros((), dtype=F32, device=state["count"].device)
-    for g in tree_leaves(grads):
-        g = f32_grad(g)
-        gsq = gsq + torch.sum(g * g)
+    for g, here in zip(tree_leaves(grads), counted):
+        if here:
+            g = f32_grad(g)
+            gsq = gsq + torch.sum(g * g)
+    if mesh is not None:
+        gsq = C.all_reduce(gsq, mesh, tuple(axis_sizes(mesh)))
     gnorm = torch.sqrt(gsq)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
 
@@ -96,3 +121,8 @@ def adamw_update(cfg: AdamWConfig, params, grads, state):
     m, v, master, new_params = (tree_map(lambda t, i=i: t[i], out) for i in range(4))
     return new_params, {"m": m, "v": v, "master": master, "count": count}, \
         {"grad_norm": gnorm, "lr": lr}
+
+
+def opt_pspecs(param_pspecs):
+    """Optimizer-state specs mirror the parameter specs (ZeRO)."""
+    return {"m": param_pspecs, "v": param_pspecs, "master": param_pspecs, "count": ()}

@@ -321,9 +321,10 @@ def test_recurrent_block_helpers():
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "granite-moe-3b-a800m"])
 def test_sharded_moe_is_refused(arch):
-    """Every family runs; the MoE FFN with its experts over several cards
-    (the reference's ``moe_apply_shardmap``, which its ``sp`` prefill and
-    ``decode_moe_shardmap`` decode pick) is refused."""
+    """Every family runs; the MoE FFN over a mesh (``moe_apply_shardmap``,
+    which the ``sp`` prefill and the ``decode_moe_shardmap`` decode pick, as
+    in the reference) needs the mesh: without one each raises
+    ``ValueError``, as the reference's shard_map does."""
     from repro_torch.models import blocks as TB
 
     cfg = get_smoke_config(arch)
@@ -331,12 +332,14 @@ def test_sharded_moe_is_refused(arch):
     params = model.init(torch.Generator().manual_seed(0))
     toks = torch.zeros((1, 4), dtype=torch.int32)
     model.hidden_states(params, toks)
-    with pytest.raises(NotImplementedError, match="several cards"):
+    with pytest.raises(ValueError, match="mesh"):
         model.hidden_states(params, toks, run={"sp": True})
-    with pytest.raises(NotImplementedError, match="several cards"):
+    with pytest.raises(ValueError, match="mesh"):
+        model.loss(params, {"tokens": toks, "targets": toks}, run={"sp": True})
+    with pytest.raises(ValueError, match="mesh"):
         model.decode_step(params, toks[:, :1], model.decode_init(1, 8),
                           run={"decode_moe_shardmap": True})
-    with pytest.raises(NotImplementedError, match="several cards"):
+    with pytest.raises(ValueError, match="mesh"):
         TB.attn_block_apply(_layer_of(params["blocks"], 0), cfg,
                             torch.zeros(1, 4, cfg.d_model), moe=True, shard=True)
 

@@ -15,7 +15,8 @@ states carried across with ``state_from_numpy``:
 And the port alone, as ``tests/test_sharding.py`` holds the reference:
 answers identical across ``n_shards ∈ {1, 2, 4}`` on 25 seeds, growth at
 small capacities, a hot vertex that loads one shard, the ``state`` guard and
-the refusal of a mesh of several devices.  JAX is imported inside the fixture
+the refusal of a mesh that names a ``meta`` device; on the card, shards
+placed on ``["cuda:0", "cpu"]`` bit for bit as on one device.  JAX is imported inside the fixture
 ``j``, so the ``cuda`` test at the end runs where there is no JAX.
 """
 
@@ -518,9 +519,9 @@ def test_state_guard_mesh_and_placement():
     csr = g.traversal_csr()
     g.shards = list(g.shards)  # a direct assignment drops the cached snapshot
     assert g.traversal_csr() is not csr
-    with pytest.raises(NotImplementedError, match="multi-card"):
+    with pytest.raises(ValueError, match="meta"):
         WaitFreeGraph(64, 256, n_shards=2, mesh=["cpu", "meta"], device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-card"):
+    with pytest.raises(ValueError, match="meta"):
         sharding.place_shards(sharding.make_shard_states(8, 8, 2), ["cpu", "meta"])
     with pytest.raises(ValueError):
         WaitFreeGraph(64, 96, n_shards=2, device="cpu")  # 48 is no power of two
@@ -563,3 +564,36 @@ def test_cuda_sharded_graph_matches_cpu(cuda_device, mode):
     assert g_gpu.bfs_batch(us_q[:8].tolist()) == g_cpu.bfs_batch(us_q[:8].tolist())
     assert g_gpu.get_path_batch(us_q[:8], vs_q[:8]) == g_cpu.get_path_batch(us_q[:8], vs_q[:8])
     assert g_gpu.snapshot() == g_cpu.snapshot()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["waitfree", "fpsp"])
+def test_cuda_mixed_mesh_matches_one_device(cuda_device, mode):
+    """Four shards round-robined over the mesh ``[cuda:0, cpu]`` (shards 0
+    and 2 on the card, 1 and 3 on the host) against the same graph with
+    every shard on the CPU, over a mixed stream whose inserts grow the
+    tables: each batch's results and every shard's tables bit for bit, then
+    the fused snapshot, the queries and the abstract graph."""
+    card = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(11)
+    stream = [initial_vertices(300)]
+    stream += [sample_batch(rng, 512, "traversal", key_space=300) for _ in range(4)]
+    stream += [sample_update_batch(rng, 64, key_space=300) for _ in range(2)]
+    g_one = WaitFreeGraph(64, 256, mode=mode, n_shards=4, device="cpu")
+    g_mesh = WaitFreeGraph(64, 256, mode=mode, n_shards=4, mesh=[card, "cpu"])
+    assert g_mesh.device == card
+    grew = False
+    for i, (ops, us, vs) in enumerate(stream):
+        np.testing.assert_array_equal(g_mesh.apply(ops, us, vs), g_one.apply(ops, us, vs),
+                                      err_msg=f"batch {i}")
+        assert [st.v_key.device.type for st in g_mesh.shards] == ["cuda", "cpu"] * 2
+        for a, b in zip(g_mesh.shards, g_one.shards):
+            assert_states_equal(a, b, f"batch {i}")
+        grew |= g_mesh.shards[0].v_capacity > 16
+    assert grew, "the stream never grew a shard"
+    csr = g_mesh.traversal_csr()
+    assert csr.src.device == card
+    _assert_same_fields(csr, g_one.traversal_csr(), "fused snapshot on the mesh")
+    us_q, vs_q = sample_query_pairs(rng, 64, 300)
+    np.testing.assert_array_equal(g_mesh.reachable(us_q, vs_q), g_one.reachable(us_q, vs_q))
+    assert g_mesh.snapshot() == g_one.snapshot()
