@@ -64,7 +64,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 5. ``flash_attention`` against its plain version on adversarial small
    shapes (MHA, GQA, MQA, window, Sq != Sk both ways, Sq and Sk of 1, 127,
    128, 129 and 4,100, D of 8 to 128, a GQA group of 7, rows whose keys
-   are all masked, 1,200 blocks), f32 within 2e-5 and bf16 within 2e-2.
+   are all masked, 1,200 blocks), f32 within 2e-5 and bf16 within 2e-2;
+   and with ``q_offset`` (a q block whose rows sit at positions from
+   ``q_offset``, the sequence-parallel layout's): offsets off the f32 and
+   bf16 tiles (64 and 128 rows), a window of 4,096 and one narrower than a
+   tile, GQA, Sq < Sk, non-causal, at the same limits and, where Sq >=
+   1,024, bf16's per-block limit.
 6. The LM's serving path at the full width of qwen2-7b (28 layers, d_model
    3584, GQA 28/4, vocab 152064; arXiv:2407.10671), bf16 parameters drawn on
    the card from ``--seed``: ``build_prefill_step`` on 2 prompts of 4,096
@@ -92,15 +97,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    beside ``scaled_dot_product_attention`` as the library yardstick (its
    own max abs error against the plain version reported too), with
    TFLOP/s and the share of the bound; the zamba2-1.2b row's launches are
-   those of phase 10.
+   those of phase 10.  A third row: qwen2-7b's last of 4 sequence blocks
+   (Sq 1,024 at ``q_offset`` 3,072 against all 4,096 keys, the
+   sequence-parallel layout's heaviest rank), beside SDPA with
+   ``causal_lower_right`` (which keeps it on its flash backend); its
+   launches are phase 22's at an offset.
 8. ``ssd_scan`` against its plain version on small shapes (the reference
    sweep's, K = V = 128, S = 100 at chunk 4, an odd S at chunk 1), in both
    decay modes, both readouts, f32 within 1e-4 and bf16 within 5e-2, with
    decays of 1, 0 and 1e-30 and a nonzero initial state whose final state is
    compared too; in scalar mode a one-column decay must give the kernel's
    result bit for bit.
-9. rwkv6-3b (ssm; arXiv:2404.05892) at full width (32 layers, d_model 2560,
-   40 heads of 64, d_ff 8960, vocab 65536, bf16), as phase 6: the prefill of
+9. rwkv6-3b (ssm; arXiv:2404.05892) at full width (d_model 2560, 40 heads
+   of 64, d_ff 8960, vocab 65536, bf16), 8 of its 32 layers (all 32 before
+   phase 22's sequence-parallel run came), as phase 6: the prefill of
    2 x 4,096 tokens runs ``ssd_scan`` once per layer.  The kernel is held
    to the plain scan on the bf16 inputs that the prefill gave the first and
    last layer's scan (within 5e-2, outputs and final states), and the whole
@@ -111,10 +121,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    the logits of a 4,097-token prefill; the serving engine drains phase 6's
    traffic with the same checks.  Launches made only to compare are not
    counted.
-10. zamba2-1.2b (hybrid; arXiv:2411.15242) at full width (38 layers, d_model
-   2048, mamba2 with 64 heads, N 64, conv 4, the shared MHA block after every
-   6 layers), the same way: ``ssd_scan`` (scalar decay) 38 times and
-   ``flash_attention`` 6 times a prefill, and ``paged_attention`` in the
+10. zamba2-1.2b (hybrid; arXiv:2411.15242) at full width (d_model 2048,
+   mamba2 with 64 heads, N 64, conv 4, the shared MHA block after every 6
+   layers), 20 of its 38 layers (3 groups and a tail of 2, as at full width;
+   all 38 before phase 22's sequence-parallel run came), the same way:
+   ``ssd_scan`` (scalar decay) 20 times and ``flash_attention`` 3 times a
+   prefill, and ``paged_attention`` in the
    drain on the first and last occurrence of the shared block (MHA, 32
    heads of 64).  The prefill does not produce the
    shared block's KV cache (nor does the reference's), so the handoff is
@@ -227,11 +239,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    keys; ``flash_attention`` timed at B 2, Hq 32, Hkv 8, S 8,192, D 128,
    causal, window 4,096, beside SDPA with the window's boolean mask.
 18. llama-3.2-vision-11b (vlm; hf:meta-llama/Llama-3.2-11B-Vision) at full
-   width (40 layers, a gated cross-attention block after every 5, GQA 32/8
-   of 128, vocab 128256), both tanh gates and 4,096 image tokens of d_model
-   drawn nonzero from the seed: the prefill (with the image tokens) launches
-   ``flash_attention`` non-causal at Sq = Sk = 4,096 8 times beside the 40
-   causal self-attention launches.  16 prompt tokens decoded one at a time
+   width (a gated cross-attention block after every 5 layers, GQA 32/8 of
+   128, vocab 128256), 10 of its 40 layers (all 40 before phase 22's
+   sequence-parallel run came), both tanh gates and 4,096 image tokens of
+   d_model drawn nonzero from the seed: the prefill (with the image tokens)
+   launches ``flash_attention`` non-causal at Sq = Sk = 4,096 2 times beside
+   the 10 causal self-attention launches.  16 prompt tokens decoded one at a time
    over the cross K/V that ``decode_init`` precomputes must give the
    prefill's logits at every position within 3e-2 relative L2 on an f32
    copy of the first group (5 layers, its cross block, ``ln_f`` and the
@@ -240,7 +253,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    reference, with all of phase 6's checks; ``flash_attention`` is timed at
    the cross-attention shape (B 2, Hq 32, Hkv 8, Sq = Sk = 4,096, D 128,
    non-causal).
-19. musicgen-medium (audio; arXiv:2306.05284) at full width (48 layers,
+19. musicgen-medium (audio; arXiv:2306.05284) at full width (12 of its 48
+   layers, all 48 before phase 22's sequence-parallel run came,
    d_model 1536, MHA 24 of 64, 4 codebooks of 2,048, layernorm with bias,
    GeLU, sinusoid positions): a prefill of 2 x 4,096 frames x 4 codebooks,
    whose (B, 1, 4, Vp) logits are held as phase 6 holds its own; serving
@@ -252,8 +266,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``torch.autograd.Function`` of their ``ops.py``, whose backward
    recomputes and differentiates the plain version (``repro`` has no
    backward kernel; XLA differentiates its plain code).  (a) The f32
-   gradient gate: on an f32 copy of the first 12 layers' weights (two
-   groups: two applications of the shared block), one microbatch of 1 x
+   gradient gate: on an f32 copy of the first 6 layers' weights (one
+   group and its application of the shared block), one microbatch of 1 x
    4,096 tokens of ``LM.loss`` and its backward through the kernels and
    with both plain versions forced: the loss within 1e-5 relative and every
    parameter leaf's gradient within 1e-3 relative L2 (the worst leaf
@@ -300,13 +314,24 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``sp`` prefill through ``moe_apply_shardmap`` on the rank's blocks gives
    the one-device prefill's hidden states, balancing loss and logits bit for
    bit, two ``decode_moe_shardmap`` decode steps the same logits, and
-   ``compressed_psum`` over the NCCL world its quantized mean and residual.
+   ``compressed_psum`` over the NCCL world its quantized mean and residual;
+   a list all-gather of 256 MiB issued as ``parallel/collectives.py``
+   issues it must stage exactly the result's size on the card (what the dry
+   run on a description counts; gloo's staging is held by (b)'s dry run).
    (b) Four ranks, one process each, sharing the card over gloo (NCCL takes
-   one rank a card), a (2, 2) mesh: granite at full width cut to 2 layers,
+   one rank a card), a (2, 2) mesh: granite at full width cut to 1 layer,
    a global batch of 4 x 4,096, every rank holding its FSDP/TP blocks.  Each
-   data shard's ``sp`` prefill against the one-device prefill of its rows:
-   an f32 copy within 1e-5 relative L2 of the logits, bf16 within 2e-2, and
-   layer 0's dispatch int for int (later layers' differences printed); two
+   data shard's ``sp`` prefill (the sequence-parallel layout: each rank
+   2,048 tokens of its rows) against the one-device prefill of its rows: an
+   f32 copy within 1e-5 relative L2 of the logits, bf16 within 2e-2; layer
+   0's dispatch against the one-device dispatch, a token's top-k (in order)
+   allowed to differ only where the one-device router's first k + 1
+   probabilities come within 1e-5 of one another (the layout runs the
+   projections on the rank's tokens, so the router's input may round
+   otherwise and a near tie fall the other way; the widest such margin that
+   differed is printed), and every layer's dispatch int for int with the
+   numpy twin on the rank's own router probabilities (with more layers,
+   the later layers' differences from one device are printed); two
    f32 train steps (``build_train_step(mesh=...)``, accum 1, the token
    stream's rows of the rank's data coordinate), every gradient leaf within
    1e-3 relative L2 of one device (phase 20's gate; the oracle, on rank 0,
@@ -323,7 +348,27 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    graph on the mesh [cuda:0, cpu] against the 4 shards on the card, over
    the first 8 batches of phase 15's stream and its first 2 traversal
    batches: each batch's answers and every shard's tables, then the fused
-   snapshot and ``reachable`` on 256 pairs, bit for bit.
+   snapshot and ``reachable`` on 256 pairs, bit for bit.  (b)'s ranks then
+   run the sequence-parallel layout of a dense model: qwen2-7b at full
+   width cut to 2 layers, a global batch of 2 x 4,096, on the (2, 2) mesh
+   (each rank 2,048 tokens of one row) and a (1, 4) mesh of the same world
+   (1,024 tokens of each row): the prefill in bf16 on (2, 2), within 3e-2
+   relative L2 of the one-device prefill of the rank's rows, and in f32 on
+   (1, 4), within 1e-5; the f32 loss within 1e-5 relative and every
+   gradient leaf within 1e-3 relative L2 of one device on the global batch
+   (each rank's blocks; the one-device oracle runs on one rank at a time);
+   the attention kernel launched at ``q_offset`` != 0 (counted); each
+   rank's card memory above its resident state at the peak of the bf16
+   prefill beside the same prefill with ``sp`` off (every dense weight
+   gathered whole for the step), and of the f32 loss and gradients; and
+   the dry run (``launch/dryrun.py`` on a (2, 2) ``MeshDescription``
+   standing for each rank, counted in phase 21's worker processes while the
+   card runs phase 20)
+   predicting each rank's argument bytes of the bf16 prefill on (2, 2)
+   exactly, and its arguments plus temporaries within 15% of the measured
+   peak.  The ``kernels`` line gains ``flash_attention`` timed at the last
+   of 4 blocks of qwen2-7b's prefill (Sq 1,024 at ``q_offset`` 3,072
+   against 4,096 keys), with phase 22's launches at an offset.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``kernels`` record.  Without a card, or outside a checkout of the repository,
@@ -354,6 +399,7 @@ from pathlib import Path  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.attention.bias  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
@@ -395,7 +441,7 @@ from repro_torch.data import DataConfig, SyntheticTokenStream  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.shardings import data_rows  # noqa: E402
 from repro_torch.parallel import collectives as mesh_collectives  # noqa: E402
-from repro_torch.parallel.mesh import make_host_mesh  # noqa: E402
+from repro_torch.parallel.mesh import MeshDescription, make_host_mesh  # noqa: E402
 from repro_torch.parallel.spec import local_shard  # noqa: E402
 from repro_torch.launch.steps import build_prefill_step, build_run, build_train_step  # noqa: E402
 from repro_torch.launch.train import TrainRunner  # noqa: E402
@@ -509,6 +555,20 @@ FLASH_SHAPES = [  # (B, Hq, Hkv, Sq, Sk, D, causal, window)
 # here (bf16 rounding of P and of the output).  Applied where Sq >= 1,024.
 FLASH_BLOCK_REL_TOL = 1e-2
 FLASH_BLOCK_ROWS = 128
+# q blocks at an offset, (B, Hq, Hkv, Sq, Sk, D, causal, window, q_offset):
+# offsets off the f32 (64-row) and bf16 (128-row) tiles, on a tile, a window
+# of 4,096 crossing tiles and one narrower than a tile, a group of 7 at the
+# last of 4 blocks of 4,096, Sq < Sk at offset 0, non-causal
+FLASH_OFFSET_SHAPES = [
+    (1, 2, 2, 100, 300, 64, True, None, 200),
+    (1, 4, 2, 129, 700, 128, True, None, 517),
+    (1, 14, 2, 1024, 4096, 128, True, None, 3072),
+    (1, 7, 1, 1100, 5000, 128, True, None, 3839),
+    (1, 4, 1, 1100, 9000, 128, True, 4096, 7900),
+    (2, 4, 4, 64, 1000, 72, True, 100, 63),
+    (1, 2, 2, 64, 300, 64, True, 16, 0),
+    (1, 2, 2, 77, 500, 64, False, None, 11),
+]
 # masked_compact across many of the kernel's 4,096-lane tiles (the look-back)
 COMPACT_MANY_TILES = [(1, (1 << 23) + 17, 0.5), (6, 4097, 0.01), (1, 4095, 1.0), (6, 1, 1.0)]
 # probe_place's adversarial cases (cap, m, homes, max_probes, active share):
@@ -536,6 +596,13 @@ VLM_ARCH, AUDIO_ARCH = "llama-3.2-vision-11b", "musicgen-medium"
 # 0.589 relative L2, a top-1 flipped: random routing amplifies rounding)
 MIXTRAL_LAYERS = 8
 MIXTRAL_PREFILL_LEN = 8192  # twice its 4,096 window, so the window masks keys
+# cut for the time of phase 22's sequence-parallel run, where the gates are
+# on an f32 copy (rwkv6-3b, zamba2-1.2b) or on dense bf16 stacks that do not
+# amplify rounding (llama-3.2-vision, musicgen): rwkv6-3b 32 -> 8 layers,
+# zamba2-1.2b 38 -> 20 (3 groups of 6, each with the shared block, and a
+# mamba2 tail of 2, as at full width), llama-3.2-vision 40 -> 10 (2 groups
+# of 5 and their cross blocks), musicgen 48 -> 12
+SSM_LAYERS, HYBRID_LAYERS, VLM_LAYERS, AUDIO_LAYERS = 8, 20, 10, 12
 XATTN_DECODE_TOKENS = 16    # phase 18's decode over the cross K/V against the prefill
 
 # ssd_scan against its plain version: tests/test_kernels.py's sweep and
@@ -587,11 +654,10 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS = 4, 4096, 2, 2
 TRAIN_PROFILE_STEP = 1          # the step run under the profiler
 TRAIN_OPT = dict(warmup_steps=1)
 GATE_BATCH = 1                  # the f32 gradient gate's microbatch: 1 x 4,096
-# the gate runs the first two groups (12 mamba2 layers, two applications of
-# the shared block): both kernels' backward at the step's shapes, and the
-# shared weights' gradient summed over applications (all 38 layers before
-# phase 22's checkpoint grew: cut for its time)
-GATE_LAYERS = 12
+# the gate runs the first group (6 mamba2 layers and an application of the
+# shared block): both kernels' backward at the step's shapes (all 38 layers
+# before phase 22's checkpoint grew, then 12: cut for phase 22's time)
+GATE_LAYERS = 6
 GATE_LOSS_RTOL, GATE_GRAD_REL_L2 = 1e-5, 1e-3
 # the resume runs are cut to the first group (6 mamba2 layers and one
 # shared-block application): the whole model's state would be a 17 GB
@@ -616,7 +682,9 @@ DRYRUN_WAIT_S = 600
 # state too: 8.87 GB written and read three times), a global batch of
 # 4 x 4,096; (c) the 4-shard graph on the mesh [cuda:0, cpu]
 MESH_ARCH = GRANITE_ARCH
-MESH_SHAPE, MESH_LAYERS, MESH_BATCH = (2, 2), 2, 4
+MESH_SHAPE, MESH_LAYERS, MESH_BATCH = (2, 2), 1, 4
+MESH_ROUTER_TIE = 1e-5       # (b): a near tie of router probabilities rounding may break
+MESH_STAGING_BYTES = 256 << 20  # a list all-gather's result whose staging is measured
 MESH_RANKS = MESH_SHAPE[0] * MESH_SHAPE[1]
 MESH_F32_REL_L2, MESH_BF16_REL_L2 = 1e-5, 2e-2   # (b)'s prefill against one device
 MESH_TRAIN_STEPS, MESH_ACCUM = 2, 1  # one microbatch a step: half the gathers
@@ -624,6 +692,13 @@ MESH_COMPRESS_LEAVES = ("blocks/attn/wq", "blocks/ffn/router", "ln_f/scale")
 MESH_TIMEOUT_S = 300         # a collective that waits longer raises
 MESH_GRAPH_LOADS, MESH_GRAPH_TRAVERSALS = 8, 2  # (c): phase 15's first batches
 MESH_PATH = ("flash_attention",) + GRAPH_PATH
+# (b)'s dense run in the sequence-parallel layout: qwen2-7b at full width
+# cut to 2 layers, a global batch of 2 x 4,096, on the (2, 2) mesh and, for
+# the prefill, a (1, 4) mesh of the same world
+MESH_DENSE_ARCH, MESH_DENSE_LAYERS, MESH_DENSE_BATCH = LM_ARCH, 2, 2
+MESH_SEQ_SHAPE = (1, 4)
+MESH_DENSE_BF16_REL_L2 = 3e-2
+SP_BLOCKS = MESH_SEQ_SHAPE[1]  # the kernels line's row at an offset: the last of 4 blocks
 BF16_DENSE_FLOPS = 989e12  # H100 SXM, bf16 dense, at 700 W (NVIDIA data sheet)
 
 
@@ -1672,6 +1747,26 @@ def flash_small_checks(dev) -> dict:
         f"in f32 and bf16 (max abs err, and bf16's largest relative L2 error of a "
         f"{FLASH_BLOCK_ROWS}-row block where Sq >= 1024: {json.dumps(worst)}); fully masked "
         f"rows are 0")
+    at = {str(dt): 0.0 for dt in FLASH_TOL}
+    for shape in FLASH_OFFSET_SHAPES:
+        b, hq, hkv, sq, sk, d, causal, window, off = shape
+        for dt, tol in FLASH_TOL.items():
+            q = torch.randn(b, hq, sq, d, generator=gen, device=dev).to(dt)
+            k = torch.randn(b, hkv, sk, d, generator=gen, device=dev).to(dt)
+            v = torch.randn(b, hkv, sk, d, generator=gen, device=dev).to(dt)
+            got = fak.flash_attention(q, k, v, causal=causal, window=window, q_offset=off)
+            want = attention(q, k, v, causal=causal, window=window, q_offset=off,
+                             impl="reference")
+            sync()
+            at[str(dt)] = max(at[str(dt)], require_close(f"flash_attention {shape} {dt}", got,
+                                                         want, tol))
+            if dt == torch.bfloat16 and sq >= 1024:
+                at["bf16_block_rel_l2"] = max(at.get("bf16_block_rel_l2", 0.0),
+                                              require_block_rel_l2(f"flash_attention {shape}",
+                                                                   got, want))
+    log(f"phase 5: flash_attention at q_offset != 0 (or Sq < Sk) equals its plain version on "
+        f"{len(FLASH_OFFSET_SHAPES)} shapes in f32 and bf16: {json.dumps(at)}")
+    worst["at_offset"] = at
     return worst
 
 
@@ -1880,6 +1975,23 @@ def _dispatch_gate(kept, k: int) -> dict:
                              "pairs": int(kept_np.size),
                              "dropped_share": float(1 - kept_np.mean())}
     return out
+
+
+def _near_tie_differences(mesh_call, one_call, k: int) -> dict:
+    """One MoE dispatch on the mesh against the same call on one device: the
+    tokens whose top-k (``gate_idx``, in order) differ, each allowed only
+    where the one-device router's first k + 1 probabilities come within
+    ``MESH_ROUTER_TIE`` of one another (a near tie that rounding of the
+    router's input may break either way).  With ``gate_idx`` equal, ``keep``
+    and the slots follow from it (held by :func:`_dispatch_gate`)."""
+    (_, _, idx_m, _, _), _ = mesh_call
+    (probs_1, _, idx_1, _, _), _ = one_call
+    top = torch.sort(probs_1, dim=-1, descending=True, stable=True).values[:, :k + 1]
+    margin = (top[:, :-1] - top[:, 1:]).min(dim=-1).values
+    differ = (idx_m != idx_1).any(dim=-1)
+    widest = float(margin[differ].max()) if bool(differ.any()) else None
+    return {"tokens_differing": int(differ.sum()), "widest_margin_differing": widest,
+            "ok": widest is None or widest < MESH_ROUTER_TIE}
 
 
 @contextlib.contextmanager
@@ -2260,29 +2372,42 @@ def _attended_pairs(s: int, causal: bool, window) -> int:
 
 
 def flash_full_shape(arch: str, cfg, launches: int, dev, *, phase: int = 7, seq=None,
-                     causal: bool = True, window=None, what: str = "prefill") -> dict:
+                     causal: bool = True, window=None, what: str = "prefill",
+                     sp_blocks: int = 1) -> dict:
     """``flash_attention`` at ``arch``'s prefill shape (``seq`` positions for
     q and k, causal or not, with its sliding ``window``), bf16, beside its
     plain version and ``scaled_dot_product_attention`` (with the window's
     boolean mask where there is one), whose own error against the plain
-    version is reported too."""
+    version is reported too.  With ``sp_blocks`` > 1, q is the last of that
+    many blocks of the sequence (the sequence-parallel layout's last model
+    rank: ``q_offset`` S - S / blocks) against every key; without a window
+    SDPA takes that offset's causal mask as ``causal_lower_right``, which
+    keeps it on its flash backend (a boolean mask would not)."""
     b, hq, hkv, s, d = PREFILL_BATCH, cfg.n_heads, cfg.n_kv_heads, seq or PREFILL_LEN, \
         cfg.head_dim
+    sq = s // sp_blocks
+    off = s - sq
+    opts = {"causal": causal, "window": window, "q_offset": off}
     gen = torch.Generator(device=dev).manual_seed(4)
-    q = torch.randn(b, hq, s, d, generator=gen, device=dev).bfloat16()
+    q = torch.randn(b, hq, sq, d, generator=gen, device=dev).bfloat16()
     k = torch.randn(b, hkv, s, d, generator=gen, device=dev).bfloat16()
     v = torch.randn(b, hkv, s, d, generator=gen, device=dev).bfloat16()
     label = f"flash_attention at the {arch} {what} shape"
-    got = fak.flash_attention(q, k, v, causal=causal, window=window)
-    want = attention(q, k, v, causal=causal, window=window, impl="reference")
+    got = fak.flash_attention(q, k, v, **opts)
+    want = attention(q, k, v, impl="reference", **opts)
     err = require_close(label, got, want, FLASH_TOL[torch.bfloat16])
     block_rel = require_block_rel_l2(label, got, want)
     del got
     sdpa = torch.nn.functional.scaled_dot_product_attention
     mask = None
     if window is not None:
-        pos = torch.arange(s, device=dev)
-        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        qpos, kpos = off + torch.arange(sq, device=dev), torch.arange(s, device=dev)
+        mask = kpos[None, :] > qpos[:, None] - window
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+    elif causal and off:
+        # q's rows are the last sq of s positions: the lower-right causal mask
+        mask = torch.nn.attention.bias.causal_lower_right(sq, s)
 
     def library():
         if mask is not None:
@@ -2291,22 +2416,25 @@ def flash_full_shape(arch: str, cfg, launches: int, dev, *, phase: int = 7, seq=
 
     lib_err = (library().float() - want.float()).abs().max()
     del want
-    flops = 4 * b * hq * _attended_pairs(s, causal, window) * d
+    pairs = _attended_pairs(s, causal, window) - (_attended_pairs(off, causal, window)
+                                                   if causal else off * s)
+    flops = 4 * b * hq * pairs * d
     row = {
-        "name": "flash_attention" if arch == LM_ARCH else f"flash_attention[{arch}"
-                + ("" if what == "prefill" else f" {what}") + "]",
+        "name": "flash_attention" if arch == LM_ARCH and what == "prefill" else
+                f"flash_attention[{arch}" + ("" if what == "prefill" else f" {what}") + "]",
         "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:106",
         "launches": launches, "max_abs_err": err, "block_rel_l2": block_rel,
-        "ms": cuda_ms(lambda: fak.flash_attention(q, k, v, causal=causal, window=window), 10),
-        "plain_ms": cuda_ms(lambda: attention(q, k, v, causal=causal, window=window,
-                                              impl="reference"), 3),
+        "ms": cuda_ms(lambda: fak.flash_attention(q, k, v, **opts), 10),
+        "plain_ms": cuda_ms(lambda: attention(q, k, v, impl="reference", **opts), 3),
         "bound_ms": None, "bound_by": None,
         "library_ms": cuda_ms(library, 10),
         "library_max_abs_err": lib_err.item(),
         "shape": {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d, "dtype": "bfloat16",
                   "causal": causal, "window": window},
     }
+    if off:
+        row["shape"].update(Sq=sq, q_offset=off)
     t_bytes = 2 * (q.numel() * 2 + k.numel() + v.numel()) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_OPS_PER_S * 1e3
     row["bound_ms"], row["bound_by"] = (t_ops, "operations") if t_ops >= t_bytes else \
@@ -2314,7 +2442,8 @@ def flash_full_shape(arch: str, cfg, launches: int, dev, *, phase: int = 7, seq=
     row["tflops"] = flops / row["ms"] / 1e9
     row["share_of_bound"] = row["bound_ms"] / row["ms"]
     log(f"phase {phase}: {label} B={b} Hq={hq} Hkv={hkv} S={s} D={d} bf16 "
-        f"{'causal' if causal else 'non-causal'}{f' window {window}' if window else ''}: "
+        f"{'causal' if causal else 'non-causal'}{f' window {window}' if window else ''}"
+        f"{f' Sq={sq} q_offset={off}' if off else ''}: "
         f"{row['ms']:.4f} ms, {row['tflops']:.1f} TFLOP/s, "
         f"{100 * row['share_of_bound']:.1f}% of the bound {row['bound_ms']:.4f} ms by "
         f"{row['bound_by']} (plain {row['plain_ms']:.3f} ms, scaled_dot_product_attention "
@@ -3071,13 +3200,16 @@ def _tree_bytes(tree) -> int:
 
 
 def start_dry_run():
-    """Phase 21's counts, started in a worker process on the host (spawned:
-    the worker never touches the card).  Returns the pool and the pending
-    result of ``dryrun.run_cell`` a cell of ``DRYRUN_CELLS``."""
-    pool = multiprocessing.get_context("spawn").Pool(1, initializer=torch.set_num_threads,
+    """Phase 21's counts, and phase 22's count of each rank of its dense
+    run, started in worker processes on the host (spawned: the workers never
+    touch the card).  Returns the pool and the pending result of
+    ``dryrun.run_cell`` a cell of ``DRYRUN_CELLS``, and a rank of phase 22
+    under ``("mesh", rank)``."""
+    pool = multiprocessing.get_context("spawn").Pool(2, initializer=torch.set_num_threads,
                                                      initargs=(1,))
     pending = {key: pool.apply_async(dryrun.run_cell, (arch, shape), {"verbose": False})
                for key, (arch, shape) in DRYRUN_CELLS.items()}
+    pending.update(mesh_dense_predictions(pool))
     return pool, pending
 
 
@@ -3187,9 +3319,9 @@ def family_phases(seed: int, dev, rows: list, summary: dict, phase_s: dict) -> N
             (16, GRANITE_ARCH, {}, {}),
             (17, MIXTRAL_ARCH, {"n_layers": MIXTRAL_LAYERS, "prefill_len": MIXTRAL_PREFILL_LEN},
              {"seq": MIXTRAL_PREFILL_LEN, "window": get_config(MIXTRAL_ARCH).window}),
-            (18, VLM_ARCH, {"handoff": _xattn_decode_check},
+            (18, VLM_ARCH, {"handoff": _xattn_decode_check, "n_layers": VLM_LAYERS},
              {"causal": False, "what": "cross"}),
-            (19, AUDIO_ARCH, {}, {})):
+            (19, AUDIO_ARCH, {"n_layers": AUDIO_LAYERS}, {})):
         t0 = time.perf_counter()
         cfg = get_config(arch).scaled(n_layers=kw.get("n_layers", get_config(arch).n_layers))
         n_attn = cfg.n_layers + (cfg.n_layers // cfg.xattn_every if cfg.xattn_every else 0)
@@ -3213,6 +3345,33 @@ def _bits_equal(a, b) -> bool:
         return False
     return torch.equal(a.contiguous().reshape(-1).view(torch.uint8),
                        b.contiguous().reshape(-1).view(torch.uint8))
+
+
+def list_gather_staging(dev, n_bytes: int = MESH_STAGING_BYTES) -> dict:
+    """The card memory that one all-gather, issued as
+    ``parallel/collectives.py`` issues it (a list of views of one result
+    buffer, bytes), takes above its input and result on the initialised
+    world: the dry run on a description counts a staging buffer of the
+    result's size, which must be what the backend allocates."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    src = torch.ones(n_bytes // world, dtype=torch.uint8, device=dev)
+    out = torch.empty(n_bytes, dtype=torch.uint8, device=dev)
+    dist.all_gather(list(out.chunk(world)), src)  # the backend's first call: set-up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dist.all_gather(list(out.chunk(world)), src)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    res = {"backend": dist.get_backend(), "world": world, "result_bytes": n_bytes,
+           "staging_bytes": extra, "result_right": bool((out == 1).all())}
+    if extra != n_bytes or not res["result_right"]:
+        raise SystemExit(f"phase 22: a list all-gather on {res['backend']} staged {extra} bytes "
+                         f"for a result of {n_bytes} (the dry run counts the result's size): "
+                         f"{res}")
+    return res
 
 
 def mesh_one_rank(seed: int, dev, tmp: Path) -> dict:
@@ -3269,13 +3428,19 @@ def mesh_one_rank(seed: int, dev, tmp: Path) -> dict:
         out.update(bit_equal=same, sp_prefill_s=t_m, sp_logits_s=tl_m)
         if not all(same.values()):
             raise SystemExit(f"phase 22 (a): the (1, 1) mesh differs from one device: {same}")
+        del blocks, params, lg_m, lg_1, cache_m, cache_1
+        torch.cuda.empty_cache()
+        out["gather_staging"] = list_gather_staging(dev)
         log(f"phase 22 (a): a world of 1 rank on {backend}, a (1, 1) mesh: {cfg.name} at full "
             f"width and depth ({out['params']} parameters), the sp prefill of {PREFILL_BATCH} x "
             f"{PREFILL_LEN} through moe_apply_shardmap ({t_m:.3f} s hidden states, {tl_m:.3f} s "
             f"logits) equal to the one-device prefill bit for bit (hidden states, balancing "
             f"loss, logits), two decode_moe_shardmap steps' logits bit for bit, compressed_psum "
             f"of the logits over the world equal to numpy on the host bit for bit: "
-            f"{json.dumps(same)}")
+            f"{json.dumps(same)}; a list all-gather of "
+            f"{out['gather_staging']['result_bytes']} bytes staged "
+            f"{out['gather_staging']['staging_bytes']} bytes on {backend} (the dry run counts a "
+            f"staging buffer of the result's size)")
         return out
     finally:
         dist.destroy_process_group()
@@ -3338,6 +3503,140 @@ def _host_compressed_mean(parts, n: int):
     return mean, [x - q.astype(np.float32) * scale for x, q in zip(xs, qs)]
 
 
+def _one_rank_at_a_time(rank: int, world: int, fn):
+    """``fn()`` on each rank in turn, the others waiting at a barrier: one
+    whole f32 model on the shared card at a time."""
+    import torch.distributed as dist
+
+    out = None
+    for r in range(world):
+        if r == rank:
+            out = fn()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def _step_memory(fn, argument_bytes: int):
+    """(``fn()``, its seconds, its arguments' bytes plus the card memory
+    allocated at its peak above what was allocated before it): the
+    measured counterpart of the dry run's arguments plus temporaries."""
+    sync()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, sec = wall_s(fn)
+    return out, sec, torch.cuda.max_memory_allocated() - before + argument_bytes
+
+
+def _dense_batch(cfg, seed: int, dev) -> dict:
+    """(b)'s dense run's global batch: tokens and targets from the seed,
+    the mask holding zeros."""
+    rng = np.random.default_rng(seed + 22)
+    shape = (MESH_DENSE_BATCH, PREFILL_LEN)
+    mask = np.ones(shape, np.float32)
+    mask[0, :PREFILL_LEN // 8] = 0.0
+    return {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, shape).astype(np.int32),
+                                      device=dev),
+            "targets": torch.as_tensor(rng.integers(0, cfg.vocab, shape).astype(np.int32),
+                                       device=dev),
+            "mask": torch.as_tensor(mask, device=dev)}
+
+
+def _mesh_dense(rank: int, world: int, mesh, seed: int, dev) -> dict:
+    """(b)'s dense run in the sequence-parallel layout (see the module
+    docstring); every gate raises on the rank that misses it."""
+    mesh14 = make_host_mesh(MESH_SEQ_SHAPE, device_type="cuda")
+    cfg = get_config(MESH_DENSE_ARCH).scaled(n_layers=MESH_DENSE_LAYERS)
+    cfg32 = cfg.scaled(dtype="float32")
+    specs = LM(cfg, "meta").pspecs(multi_pod=False)
+    params = LM(cfg, dev).init(torch.Generator(device=dev).manual_seed(seed))
+    batch = _dense_batch(cfg, seed, dev)
+    at_offset = fak.flash_attention.launches_at_offset
+    out = {"prefill": {}}
+    t0 = time.perf_counter()
+    for name, m in (("2x2", mesh), ("1x4", mesh14)):
+        n_dp = dict(zip(m.mesh_dim_names, m.shape))["data"]
+        per = MESH_DENSE_BATCH // n_dp
+        rows = slice(m.get_local_rank("data") * per, (m.get_local_rank("data") + 1) * per)
+        mine = {"tokens": batch["tokens"][rows]}
+        for dtype in ("bfloat16",) if name == "2x2" else ("float32",):
+            c = cfg if dtype == "bfloat16" else cfg32
+            blocks = tree_map(lambda t, sp: local_shard(t if dtype == "bfloat16" else t.float(),
+                                                        sp, m), params, specs)
+            args = _tree_bytes(blocks) + mine["tokens"].numel() * 4
+            step, _, _ = build_prefill_step(c, device=dev, mesh=m)
+            lg, sec, peak = _step_memory(lambda: step(blocks, mine), args)
+
+            def oracle(c=c):
+                with uncounted(), torch.no_grad():
+                    p = params if dtype == "bfloat16" else tree_map(lambda t: t.float(), params)
+                    return build_prefill_step(c, device=dev)[0](p, mine)
+
+            want = oracle() if dtype == "bfloat16" else _one_rank_at_a_time(rank, world,
+                                                                             oracle)
+            rel, top1 = _logits_distance(f"phase 22 (b) {cfg.name} {dtype} prefill on {name}",
+                                         lg, want, cfg.vocab)
+            rec = {"rel_l2": rel, "top1": top1, "s": sec, "peak_bytes": peak,
+                   "argument_bytes": args}
+            if name == "2x2" and dtype == "bfloat16":
+                # the gathered-whole layout beside it: every dense weight
+                # gathered whole for the step
+                step_w, _, _ = build_prefill_step(c, device=dev, mesh=m,
+                                                  run_overrides={"sp": False})
+                lg_w, sec_w, peak_w = _step_memory(lambda: step_w(blocks, mine), args)
+                rec.update(whole_peak_bytes=peak_w, whole_s=sec_w,
+                           whole_rel_l2=_logits_distance("phase 22 (b) gathered whole", lg_w,
+                                                         want, cfg.vocab)[0])
+            out["prefill"][f"{name}|{dtype}"] = rec
+            limit = MESH_F32_REL_L2 if dtype == "float32" else MESH_DENSE_BF16_REL_L2
+            if rel > limit or rec.get("whole_rel_l2", 0.0) > limit:
+                raise RuntimeError(f"phase 22 (b) rank {rank}: {cfg.name}'s {dtype} prefill "
+                                   f"on {name} against one device: {rec} (limit {limit})")
+            del blocks, lg, want
+    # the f32 loss and every gradient leaf on (2, 2), against one device
+    n_dp = MESH_SHAPE[0]
+    per = MESH_DENSE_BATCH // n_dp
+    d = mesh.get_local_rank("data")
+    mine = {k: v[d * per:(d + 1) * per] for k, v in batch.items()}
+    blocks = tree_map(lambda t, sp: local_shard(t.float(), sp, mesh), params, specs)
+    args = _tree_bytes(blocks) + _tree_bytes(mine)
+    run = build_run(cfg32, mesh=mesh)
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(blocks)]
+
+    def loss_grads():
+        it = iter(leaves)
+        with torch.enable_grad():
+            loss = LM(cfg32, dev).loss(tree_map(lambda _: next(it), blocks), mine, run=run)
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    (loss, grads), sec, peak = _step_memory(loss_grads, args)
+    del leaves
+
+    def oracle():
+        with uncounted():
+            p = tree_map(lambda t: t.float(), params)
+            want_loss, want = _loss_and_grads(LM(cfg32, dev), p, batch, {})
+            del p
+            errs = [_rel_l2(g, local_shard(w, sp, mesh)) if w.norm() > 0 else
+                    float(g.norm()) for g, w, sp in zip(grads, want, tree_leaves(specs))]
+            return float(want_loss), errs
+
+    want_loss, errs = _one_rank_at_a_time(rank, world, oracle)
+    worst = int(np.argmax(errs))
+    out["train"] = {"loss": float(loss), "one_device_loss": want_loss,
+                    "loss_rel": abs(float(loss) - want_loss) / abs(want_loss),
+                    "grad_rel_l2_worst": errs[worst],
+                    "grad_rel_l2_worst_leaf": _leaf_paths(specs)[worst],
+                    "s": sec, "peak_bytes": peak, "argument_bytes": args}
+    if out["train"]["loss_rel"] > GATE_LOSS_RTOL or errs[worst] > GATE_GRAD_REL_L2:
+        raise RuntimeError(f"phase 22 (b) rank {rank}: {cfg.name}'s f32 loss and gradients "
+                           f"on {MESH_SHAPE} against one device: {out['train']} (limits "
+                           f"{GATE_LOSS_RTOL}, {GATE_GRAD_REL_L2})")
+    out["launches_at_offset"] = fak.flash_attention.launches_at_offset - at_offset
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def _mesh_rank(rank: int, world: int, rdv: str, out_dir: str, seed: int) -> None:
     """(b): one rank of the gloo world sharing the card; writes its results
     to ``out_dir/rank<r>.pt``."""
@@ -3392,13 +3691,16 @@ def _mesh_rank(rank: int, world: int, rdv: str, out_dir: str, seed: int) -> None
                 raise RuntimeError(f"phase 22 (b): {dtype} prefill logits are not finite")
             slots = [int(sum((x != y).sum() for x, y in zip(kept_m[i][0][2:], kept_1[i][0][2:])))
                      + int(kept_m[i][1] != kept_1[i][1]) for i in range(MESH_LAYERS)]
+            ties = _near_tie_differences(kept_m[0], kept_1[0], cfg.moe.top_k)
             gates[dtype] = {"rel_l2": _rel_l2(a, w), "sharded_s": t_m, "one_device_s": t_1,
-                            "dispatch_differences_by_layer": slots}
+                            "dispatch_differences_by_layer": slots, "layer0_ties": ties,
+                            "dispatch_against_twin": _dispatch_gate(kept_m, cfg.moe.top_k)}
             limit = MESH_F32_REL_L2 if dtype == "float32" else MESH_BF16_REL_L2
-            if gates[dtype]["rel_l2"] > limit or slots[0]:
+            if gates[dtype]["rel_l2"] > limit or not ties["ok"]:
                 raise RuntimeError(f"phase 22 (b) rank {rank}: the {dtype} prefill of the data "
                                    f"shard's rows against one device: {gates[dtype]} (limit "
-                                   f"{limit}, layer 0's dispatch int for int)")
+                                   f"{limit}; layer 0's top-k may differ only at a near tie "
+                                   f"within {MESH_ROUTER_TIE})")
             del lg_m, lg_1, kept_m, kept_1, p, b
         out["prefill"] = gates
         out["seconds"]["prefill"] = time.perf_counter() - t0
@@ -3534,18 +3836,58 @@ def _mesh_rank(rank: int, world: int, rdv: str, out_dir: str, seed: int) -> None
             raise RuntimeError(f"phase 22 (b) rank {rank}: the checkpoint's restore: {ckpt}")
         out["checkpoint"] = ckpt
         out["seconds"]["checkpoint"] = time.perf_counter() - t0
-        out["launches"] = _launch_counts()
         out["peak_bytes"] = max(peak_before, torch.cuda.max_memory_allocated())
+        del tree, p, opt, gsum, sel, mean, resid
+        torch.cuda.empty_cache()
+        out["dense"] = _mesh_dense(rank, world, mesh, seed, dev)
+        out["seconds"]["dense"] = out["dense"]["seconds"]
+        out["launches"] = _launch_counts()
     finally:
         dist.destroy_process_group()
     out["seconds"]["rank"] = time.perf_counter() - t_rank
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
-def mesh_four_ranks(seed: int, tmp: Path) -> dict:
+def mesh_dense_predictions(pool) -> dict:
+    """The dry run of (b)'s dense bf16 prefill on (2, 2), one count a rank on
+    a ``MeshDescription`` standing for the rank's coordinate, submitted to
+    ``pool``: {("mesh", rank): pending result}."""
+    cfg = get_config(MESH_DENSE_ARCH).scaled(n_layers=MESH_DENSE_LAYERS)
+    desc = MeshDescription(MESH_SHAPE, ("data", "model"))
+    cell = dict(seq_len=PREFILL_LEN, global_batch=MESH_DENSE_BATCH, kind="prefill")
+    return {("mesh", r): pool.apply_async(dryrun.run_cell, (MESH_DENSE_ARCH, cell), {
+        "cfg": cfg, "verbose": False,
+        "mesh": desc.at(data=r // MESH_SHAPE[1], model=r % MESH_SHAPE[1])})
+        for r in range(MESH_RANKS)}
+
+
+def _dense_against_dry_run(ranks: list, preds: dict) -> dict:
+    """Each rank's bf16 prefill on (2, 2) against the dry run of its
+    coordinate: argument bytes exactly, arguments plus temporaries within
+    ``DRYRUN_PEAK_RTOL`` of the measured peak."""
+    out = {}
+    for r, rank in enumerate(ranks):
+        got = rank["dense"]["prefill"]["2x2|bfloat16"]
+        mem = preds[r]["memory"]
+        pred = mem["argument_bytes"] + mem["temp_bytes"]
+        rel = (pred - got["peak_bytes"]) / got["peak_bytes"]
+        out[r] = {"argument_bytes": mem["argument_bytes"], "measured_argument_bytes":
+                  got["argument_bytes"], "predicted_peak_bytes": pred,
+                  "measured_peak_bytes": got["peak_bytes"], "peak_rel": rel,
+                  "device": preds[r]["device"], "collective_bytes": preds[r]["collective_bytes"],
+                  "trace_s": preds[r]["trace_s"]}
+        if mem["argument_bytes"] != got["argument_bytes"] or abs(rel) > DRYRUN_PEAK_RTOL:
+            raise SystemExit(f"phase 22 (b): the dry run of rank {r}'s bf16 prefill on "
+                             f"{MESH_SHAPE}: {out[r]} (argument bytes exactly, the peak within "
+                             f"{DRYRUN_PEAK_RTOL:.0%})")
+    return out
+
+
+def mesh_four_ranks(seed: int, tmp: Path, preds: dict) -> dict:
     """(b): the gloo world of four ranks, one process each, sharing the
     card; every rank's gates raise in it, and a failed rank fails the
-    phase."""
+    phase.  ``preds``: the dry run of each rank's dense prefill ({rank:
+    ``run_cell``'s result}, :func:`mesh_dense_predictions`)."""
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     torch.multiprocessing.spawn(_mesh_rank, args=(MESH_RANKS, str(tmp / "gloo_rendezvous"),
@@ -3568,16 +3910,21 @@ def mesh_four_ranks(seed: int, tmp: Path) -> dict:
     r0 = ranks[0]
     log(f"phase 22 (b): {MESH_RANKS} ranks sharing the card, backend {out['backend']}, a "
         f"{MESH_SHAPE} (data, model) mesh, {MESH_ARCH} at full width cut to {MESH_LAYERS} "
-        f"layers, global batch {MESH_BATCH} x {PREFILL_LEN}; {wall:.1f} s for the world "
+        f"layer(s), global batch {MESH_BATCH} x {PREFILL_LEN}; {wall:.1f} s for the world "
         f"(start-up included); coordinates {[r['coordinate'] for r in ranks]}")
     for dtype in ("bfloat16", "float32"):
         g = [r["prefill"][dtype] for r in ranks]
         log(f"phase 22 (b): {dtype} sp prefill of each data shard's {MESH_BATCH // MESH_SHAPE[0]}"
             f" rows against the one-device prefill of those rows: logits within "
             f"{max(x['rel_l2'] for x in g):.3e} relative L2 (limit "
-            f"{MESH_F32_REL_L2 if dtype == 'float32' else MESH_BF16_REL_L2}); dispatch "
-            f"differences by layer (layer 0 int for int) "
-            f"{[x['dispatch_differences_by_layer'] for x in g]}; sharded "
+            f"{MESH_F32_REL_L2 if dtype == 'float32' else MESH_BF16_REL_L2}); layer 0's "
+            f"dispatch against one device: tokens whose top-k differs "
+            f"{[x['layer0_ties']['tokens_differing'] for x in g]}, the widest margin of their "
+            f"one-device router probabilities "
+            f"{[x['layer0_ties']['widest_margin_differing'] for x in g]} (limit "
+            f"{MESH_ROUTER_TIE}); every layer's dispatch int for int with the numpy twin on "
+            f"the rank's own router probabilities; its differences from the one-device "
+            f"dispatch by layer {[x['dispatch_differences_by_layer'] for x in g]}; sharded "
             f"{[round(x['sharded_s'], 3) for x in g]} s, one device "
             f"{[round(x['one_device_s'], 3) for x in g]} s")
     for s in range(MESH_TRAIN_STEPS):
@@ -3602,6 +3949,43 @@ def mesh_four_ranks(seed: int, tmp: Path) -> dict:
         f"{r0['checkpoint']['restore_one_device_s']:.2f} s, bit for bit; peak "
         f"{max(r['peak_bytes'] for r in ranks) / 1e9:.2f} GB a rank; seconds by part (rank 0) "
         f"{json.dumps({k: round(v, 2) for k, v in r0['seconds'].items()})}")
+    dense = [r["dense"] for r in ranks]
+    out["dense_launches_at_offset"] = sum(x["launches_at_offset"] for x in dense)
+    if out["dense_launches_at_offset"] == 0:
+        raise SystemExit("phase 22 (b): the attention kernel never ran at q_offset != 0")
+    for key in dense[0]["prefill"]:
+        g = [x["prefill"][key] for x in dense]
+        whole = ""
+        if "whole_peak_bytes" in g[0]:
+            whole = (f"; with sp off (every dense weight gathered whole) "
+                     f"{[round(x['whole_peak_bytes'] / 1e9, 3) for x in g]} GB, "
+                     f"{[round(x['whole_s'], 2) for x in g]} s, logits within "
+                     f"{max(x['whole_rel_l2'] for x in g):.3e}")
+        log(f"phase 22 (b): {MESH_DENSE_ARCH} at full width cut to {MESH_DENSE_LAYERS} layers, "
+            f"the {key.split('|')[1]} sp prefill of {MESH_DENSE_BATCH} x {PREFILL_LEN} on "
+            f"{key.split('|')[0]} against the one-device prefill of each rank's rows: logits "
+            f"within {max(x['rel_l2'] for x in g):.3e} relative L2, top-1 agreeing "
+            f"{all(all(x['top1']) for x in g)}; {[round(x['s'], 2) for x in g]} s a rank; "
+            f"arguments plus the card memory allocated at the peak above the rank's resident "
+            f"state {[round(x['peak_bytes'] / 1e9, 3) for x in g]} GB{whole}")
+    tr = [x["train"] for x in dense]
+    log(f"phase 22 (b): {MESH_DENSE_ARCH}'s f32 loss and gradients on {MESH_SHAPE} (sp, remat) "
+        f"against one device on the global batch: loss {tr[0]['loss']:.6f} within "
+        f"{max(x['loss_rel'] for x in tr):.3e} relative (limit {GATE_LOSS_RTOL}), every "
+        f"gradient leaf within {max(x['grad_rel_l2_worst'] for x in tr):.3e} relative L2 "
+        f"(limit {GATE_GRAD_REL_L2}; worst {tr[0]['grad_rel_l2_worst_leaf']} on rank 0); "
+        f"{[round(x['s'], 2) for x in tr]} s a rank; arguments plus peak "
+        f"{[round(x['peak_bytes'] / 1e9, 3) for x in tr]} GB; the attention kernel launched at "
+        f"q_offset != 0 {out['dense_launches_at_offset']} times over the ranks; dense run "
+        f"{[round(x['seconds'], 1) for x in dense]} s a rank")
+    out["dry_run"] = _dense_against_dry_run(ranks, preds)
+    for r, x in out["dry_run"].items():
+        log(f"phase 22 (b): the dry run of rank {r} ({x['device']}) of {MESH_SHAPE}, counted in "
+            f"{x['trace_s']:.1f} s on the host: argument bytes {x['argument_bytes']} against "
+            f"{x['measured_argument_bytes']} on the rank; arguments + temporaries "
+            f"{x['predicted_peak_bytes'] / 1e9:.3f} GB against the measured "
+            f"{x['measured_peak_bytes'] / 1e9:.3f} GB ({x['peak_rel']:+.2%}, limit "
+            f"{DRYRUN_PEAK_RTOL:.0%}); collectives {json.dumps(x['collective_bytes'])}")
     return out
 
 
@@ -3659,10 +4043,11 @@ def mesh_graph(seed: int, dev) -> dict:
     return out
 
 
-def mesh_phase(seed: int, dev) -> dict:
+def mesh_phase(seed: int, dev, preds: dict) -> dict:
     """Phase 22 with every launch count set to 0 just before it: (a) and
     (c) counted in this process, (b)'s ranks each from its own start; the
-    path's kernels must have run."""
+    path's kernels must have run.  ``preds``: the dry run of each rank of
+    (b)'s dense run ({rank: ``run_cell``'s result})."""
     tmp = Path(tempfile.mkdtemp(prefix="mesh_phase_", dir=ROOT / "build"))
     try:
         for w in WRAPPERS.values():
@@ -3670,7 +4055,7 @@ def mesh_phase(seed: int, dev) -> dict:
         ck.probe_place.rounds = None
         out = {"one_rank": mesh_one_rank(seed, dev, tmp)}
         torch.cuda.empty_cache()
-        out["four_ranks"] = mesh_four_ranks(seed, tmp)
+        out["four_ranks"] = mesh_four_ranks(seed, tmp, preds)
         out["graph"] = mesh_graph(seed, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3756,6 +4141,10 @@ def main(argv=None) -> int:
     hyb_cfg = get_config(HYBRID_ARCH)
     hyb_flash = flash_full_shape(HYBRID_ARCH, hyb_cfg, 0, dev)  # launches: phase 10's
     rows.append(hyb_flash)
+    # the last model rank's q block of the sequence-parallel layout; launches:
+    # phase 22's at an offset
+    sp_flash = flash_full_shape(LM_ARCH, lm_cfg, 0, dev, what="sp block", sp_blocks=SP_BLOCKS)
+    rows.append(sp_flash)
     phase_s["1-7"] = time.perf_counter() - t_start - phase_s["14"] - phase_s["15"]
 
     t0 = time.perf_counter()
@@ -3764,22 +4153,24 @@ def main(argv=None) -> int:
 
     # phases 9 and 10: the recurrent LMs, each with every launch count read
     # around it
-    ssm_cfg = get_config(SSM_ARCH)
+    ssm_cfg = get_config(SSM_ARCH).scaled(n_layers=SSM_LAYERS)
     plain_scan = {"scan_impl": "reference"}
     t0 = time.perf_counter()
     summary["ssm"] = run_counted(RWKV_PATH, lambda: lm_serve_path(
         SSM_ARCH, 9, args.seed, dev, plain_run=plain_scan,
         per_prefill={"ssd_scan": ssm_cfg.n_layers}, handoff=_model_handoff, gate_f32=True,
-        scan_calls=(0, ssm_cfg.n_layers - 1)))
+        scan_calls=(0, ssm_cfg.n_layers - 1), n_layers=SSM_LAYERS))
     summary["ssm"]["launches"] = {name: fn.launches for name, fn in WRAPPERS.items()}
     summary["ssm"]["calls"] = {name: fn.calls for name, fn in WRAPPERS.items()}
     phase_s["9"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    hyb_cut = hyb_cfg.scaled(n_layers=HYBRID_LAYERS)
     summary["hybrid"] = run_counted(ZAMBA_PATH, lambda: lm_serve_path(
         HYBRID_ARCH, 10, args.seed, dev, plain_run=plain_scan,
-        per_prefill={"ssd_scan": hyb_cfg.n_layers,
-                     "flash_attention": hyb_cfg.n_layers // hyb_cfg.shared_attn_every},
-        handoff=_block_handoff, gate_f32=True, scan_calls=(0, hyb_cfg.n_layers - 1)))
+        per_prefill={"ssd_scan": hyb_cut.n_layers,
+                     "flash_attention": hyb_cut.n_layers // hyb_cut.shared_attn_every},
+        handoff=_block_handoff, gate_f32=True, scan_calls=(0, hyb_cut.n_layers - 1),
+        n_layers=HYBRID_LAYERS))
     summary["hybrid"]["launches"] = {name: fn.launches for name, fn in WRAPPERS.items()}
     summary["hybrid"]["calls"] = {name: fn.calls for name, fn in WRAPPERS.items()}
     hyb_flash["launches"] = summary["hybrid"]["launches"]["flash_attention"]
@@ -3816,6 +4207,8 @@ def main(argv=None) -> int:
         phase_s["20"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         summary["dryrun"] = dry_run_against_card(pending, summary, smi)
+        mesh_preds = {r: pending[("mesh", r)].get(timeout=DRYRUN_WAIT_S)
+                      for r in range(MESH_RANKS)}
         phase_s["21"] = time.perf_counter() - t0
     finally:
         pool.terminate()
@@ -3824,9 +4217,10 @@ def main(argv=None) -> int:
     # phase 22: several ranks on one mesh, with every launch count read
     # around it
     t0 = time.perf_counter()
-    summary["mesh"] = mesh_phase(args.seed, dev)
+    summary["mesh"] = mesh_phase(args.seed, dev, mesh_preds)
     for row in rows:
         row["launches_mesh_path"] = summary["mesh"]["launches"][row["name"].split("[")[0]]
+    sp_flash["launches"] = summary["mesh"]["four_ranks"]["dense_launches_at_offset"]
     phase_s["22"] = time.perf_counter() - t0
 
     summary["card"] = smi

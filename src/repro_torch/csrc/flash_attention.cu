@@ -5,8 +5,9 @@
 // (B, Hkv, Sk, D), f32 or bf16, it computes
 //   s = (q * sm_scale) . k^T  in f32,
 //   masked where k_pos >= Sk, or k_pos > q_pos (causal), or
-//   k_pos <= q_pos - window (sliding window); positions count from 0 for
-//   both q and k,
+//   k_pos <= q_pos - window (sliding window); k positions count from 0
+//   and q positions from q_offset (0 but for a block of a sequence-parallel
+//   layout, whose q rows are the tokens from q_offset on),
 //   out = softmax(s) . v, accumulated in f32 and rounded once to q's type.
 // q head h reads KV head h / (Hq / Hkv); no repeated K/V is materialised.
 // A masked score contributes p = 0, so a row whose keys are all masked
@@ -115,7 +116,8 @@ template <int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int hq, int hkv, int sq,
-                 int sk, int d, float sm_scale, int causal, int has_window, int window) {
+                 int sk, int d, float sm_scale, int causal, int has_window, int window,
+                 int q_pos0) {
   constexpr int LD = DP + 4;    // tile row stride in floats (float4-aligned)
   constexpr int LDP = kBK + 4;  // p tile row stride
   constexpr int NC = DP / 64;   // float4 column groups of the accumulator
@@ -147,11 +149,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < NC * 4; ++c) acc[i][c] = 0.f;
   }
 
-  // KV tiles some row of this q tile can see
+  // KV tiles some row of this q tile can see (its rows at positions
+  // q_pos0 + q0 onwards)
   int k_end = sk;
-  if (causal) k_end = min(k_end, q0 + kBQ);
+  if (causal) k_end = min(k_end, q_pos0 + q0 + kBQ);
   int k_begin = 0;
-  if (has_window) k_begin = max(0, q0 - window + 1);
+  if (has_window) k_begin = max(0, q_pos0 + q0 - window + 1);
   const int t_end = (k_end + kBK - 1) / kBK;
 
   for (int t = k_begin / kBK; t < t_end; ++t) {
@@ -189,7 +192,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // mask, then the online-softmax update of each row
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty + 16 * i;
+      const int qp = q_pos0 + q0 + ty + 16 * i;
       bool ok[4];
       float rmax = kNegInf;
 #pragma unroll
@@ -447,7 +450,8 @@ __device__ __forceinline__ void pv_issue(float (&acc)[DP / 2], const uint32_t (&
 }
 
 // The online-softmax step on one score tile in the accumulator layout
-// (this thread: rows `row` and row + 8, keys k0 + 8 n + cq + {0, 1}):
+// (this thread: rows at positions `row` and row + 8, keys k0 + 8 n + cq +
+// {0, 1}):
 // scores become p = 2^(s * scale_log2 - m) in one FMA, m and l move on,
 // and alpha (the factor for acc) is returned per row.  The mask runs only
 // where the tile crosses the diagonal, the window's edge or Sk.
@@ -523,14 +527,15 @@ __device__ __forceinline__ void pack_p(const float (&sc)[64], uint32_t (&pa)[8][
 
 // One block per (128 q rows, q head, batch): warpgroup 0 loads, warpgroups
 // 1 and 2 each own 64 of the rows.  DP is the head dim padded to 64 or 128
-// (one or two 64-column boxes).
+// (one or two 64-column boxes).  The q rows sit at positions from
+// q_pos0 (0 but for a block of the sequence-parallel layout).
 template <int DP>
 __global__ void __launch_bounds__(kWsThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o,
                        int hq, int hkv, int sq, int sk, int d, float scale_log2, int causal,
-                       int has_window, int window) {
+                       int has_window, int window, int q_pos0) {
   constexpr int H = DP / 64;                // 64-column boxes per row
   constexpr int kTileBytes = H * kHalfTile;  // one 128-row tile of q, k or v
   constexpr int kStageBytes = 2 * kTileBytes;
@@ -549,10 +554,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const int bh = blockIdx.x;  // b * hq + h
   const int kvbh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
 
-  // KV tiles some row of this block can see
+  // KV tiles some row of this block can see (its rows at positions
+  // q_pos0 + q0 onwards)
   int k_end = sk;
-  if (causal) k_end = min(k_end, q0 + kBM);
-  const int k_begin = has_window ? max(0, q0 - window + 1) : 0;
+  if (causal) k_end = min(k_end, q_pos0 + q0 + kBM);
+  const int k_begin = has_window ? max(0, q_pos0 + q0 - window + 1) : 0;
   const int t_begin = k_begin / kBN;
   const int n_tiles = max(0, (k_end + kBN - 1) / kBN - t_begin);
 
@@ -592,6 +598,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     const int cw = threadIdx.x / kWg - 1;  // consumer 0 or 1
     const int t = threadIdx.x % kWg;
     const int rlo = q0 + cw * 64;          // this warpgroup's first q row
+    const int plo = q_pos0 + rlo;          // and its position
     const int row = rlo + (t >> 5) * 16 + ((t & 31) >> 2);  // this thread's rows: row, row + 8
     const int cq = (t & 3) * 2;            // its column pair in each 8-column group
     const uint32_t qa = qs + cw * 64 * kRowBytes;
@@ -612,8 +619,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       const int k0 = (t_begin + i) * kBN;
       mbar_wait(full0 + 8 * s, (i / kStages) & 1);
       // a tile no row of this warpgroup sees is only released
-      const bool dead = k0 >= sk || (causal && k0 > rlo + 63) ||
-                        (has_window && k0 + kBN - 1 <= rlo - window);
+      const bool dead = k0 >= sk || (causal && k0 > plo + 63) ||
+                        (has_window && k0 + kBN - 1 <= plo - window);
       if (!dead) {
         const uint32_t ks = ring + s * kStageBytes;
         wgmma_fence();
@@ -621,9 +628,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         wgmma_commit();
         wgmma_wait0();
         fence_regs(sc);
-        const bool edge = k0 + kBN > sk || (causal && k0 + kBN - 1 > rlo) ||
-                          (has_window && k0 <= rlo + 63 - window);
-        softmax_tile(sc, r, alpha, edge, k0, row, cq, sk, causal, has_window, window, scale_log2);
+        const bool edge = k0 + kBN > sk || (causal && k0 + kBN - 1 > plo) ||
+                          (has_window && k0 <= plo + 63 - window);
+        softmax_tile(sc, r, alpha, edge, k0, q_pos0 + row, cq, sk, causal, has_window, window,
+                     scale_log2);
         rescale(acc, alpha);
         pack_p(sc, pa);
         wgmma_fence();
@@ -659,7 +667,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 template <int DP>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int b, int hq,
                        int hkv, int sq, int sk, int d, float sm_scale, int causal, int has_window,
-                       int window, cudaStream_t stream) {
+                       int window, int q_pos0, cudaStream_t stream) {
   constexpr int smem = 3 * kBQ * (DP + 4) * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -667,7 +675,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
   const dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
   flash_fwd_kernel<DP><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), hq, hkv, sq, sk, d, sm_scale, causal, has_window, window);
+      static_cast<float*>(o), hq, hkv, sq, sk, d, sm_scale, causal, has_window, window, q_pos0);
   return cudaGetLastError();
 }
 
@@ -715,7 +723,7 @@ constexpr int kEncodeFailed = 20000;  // + the CUresult of a refused tensor map
 template <int DP>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int b, int hq, int hkv,
                 int sq, int sk, int d, float sm_scale, int causal, int has_window, int window,
-                cudaStream_t stream) {
+                int q_pos0, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   int res = encode_map(&qm, q, d, sq, static_cast<long long>(b) * hq);
   if (res == 0) res = encode_map(&km, k, d, sk, static_cast<long long>(b) * hkv);
@@ -731,7 +739,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int b, int
   constexpr float kLog2e = 1.4426950408889634f;
   kernel<<<grid, kWsThreads, smem, stream>>>(qm, km, vm, static_cast<__nv_bfloat16*>(o), hq, hkv,
                                               sq, sk, d, sm_scale * kLog2e, causal, has_window,
-                                              window);
+                                              window, q_pos0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -739,24 +747,25 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int b, int
 
 // dtype: 0 = float32, 1 = bfloat16.  The wrapper has checked the shapes and
 // pointers: D % 8 == 0, D <= 128, Hq % Hkv == 0, every size >= 1, 16-byte
-// aligned data.  The head dim is padded to 64 or 128 inside the kernel.
+// aligned data, q_offset >= 0 and q_offset + Sq within int.  The head dim
+// is padded to 64 or 128 inside the kernel.
 // Any sm_scale is taken: the bf16 softmax folds a negative or zero scale
 // into the scores before its row max.  Returns a cudaError_t, or 20000 plus the CUresult of a
 // tensor map that cuTensorMapEncodeTiled refused.
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, void* o, int b,
                                   int hq, int hkv, int sq, int sk, int d, float sm_scale,
-                                  int causal, int has_window, int window, int dtype,
-                                  void* stream) {
+                                  int causal, int has_window, int window, int q_offset,
+                                  int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return static_cast<int>(d <= 64 ? launch_f32<64>(q, k, v, o, b, hq, hkv, sq, sk, d, sm_scale,
-                                                     causal, has_window, window, st)
+                                                     causal, has_window, window, q_offset, st)
                                     : launch_f32<128>(q, k, v, o, b, hq, hkv, sq, sk, d, sm_scale,
-                                                      causal, has_window, window, st));
+                                                      causal, has_window, window, q_offset, st));
   if (dtype == 1)
     return d <= 64 ? launch_bf16<64>(q, k, v, o, b, hq, hkv, sq, sk, d, sm_scale, causal,
-                                     has_window, window, st)
+                                     has_window, window, q_offset, st)
                    : launch_bf16<128>(q, k, v, o, b, hq, hkv, sq, sk, d, sm_scale, causal,
-                                      has_window, window, st);
+                                      has_window, window, q_offset, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

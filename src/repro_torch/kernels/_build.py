@@ -46,7 +46,7 @@ _SIGNATURES = {
     "rt_probe_place": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "rt_frontier_expand": [_I, _P, _I, _L, _P, _P, _L, _P, _P, _P],
     "rt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
-                           _I, _I, _I, _I, _P],
+                           _I, _I, _I, _I, _I, _P],
     "rt_ssd_scan": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "rt_paged_stage_tables": [_P, _P, _L, _P],
     "rt_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -6,9 +6,12 @@ Port of ``repro/kernels/flash_attention/ref.py``:
   Sq x Sk scores), the mathematical ground truth for small shapes.
 * :func:`mha_chunked` is the online softmax over (q block, KV block) pairs,
   memory-linear.  It is what :func:`..ops.attention` runs for CPU tensors
-  and what ``chip_smoke.py`` holds the CUDA kernel against.  The sequence
-  sharding pins of the reference (``seq_spec``) are left out: the port's
-  mesh does not shard the sequence.
+  and what ``chip_smoke.py`` holds the CUDA kernel against.  The
+  reference's sequence-parallel pins (``seq_spec``: q blocks over "model",
+  K and V whole) are layout, not arithmetic: in the port each rank of a
+  mesh calls this on its own q block with ``q_offset`` its first token's
+  position and the whole K and V (``models.layers.attn_apply`` under
+  ``sp``).
 * :func:`mha_chunked_vjp` is its gradient, q block by q block, as XLA
   takes the reference's; the kernel's backward (``ops.KernelAttention``)
   is this.

@@ -4,6 +4,7 @@ work and check its memory against one card, with nothing allocated.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-7b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--out DIR] [--force]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh production [--multi-pod]
 
 The port's counterpart of ``repro.launch.dryrun``, which lowers and compiles
 each cell's step on ``ShapeDtypeStruct`` stand-ins for a mesh of 256 or 512
@@ -25,17 +26,45 @@ reference's dry run on the CPU host platform, this is a count, not a
 fallback of any entry point that runs the model.  A cell fits when its
 arguments and temporaries fit ``H100_BYTES``; the reference spreads the same
 cells over 256 or 512 chips, and most do not fit one card.
+
+**Per device** (``--mesh production``, ``--multi-pod``): each cell is the
+program of one device of ``make_production_mesh()``, (16, 16) over
+("data", "model") or (2, 16, 16) over ("pod", "data", "model"), as the
+reference counts its cells.  The step is built with a ``MeshDescription``
+standing for that device (:func:`counted_device`: data and pod index 0,
+model index M - 1, whose q block is the last and so, under the causal mask,
+the heaviest), its inputs are that device's blocks (``input_specs`` on the
+description), and the collectives it calls return ``meta`` tensors of the
+gathered or reduced shape, which ``opcost`` counts by kind at their
+result's bytes.  The count is of the port's own program on NCCL or gloo,
+not of the reference's HLO: a reduce-scatter is what the port issues, an
+all-reduce of the whole tensor (in f32) and a copy of one's own block, so
+its bytes and its buffer are the whole tensor's; and every all-gather
+allocates beside its result the staging buffer of the result's size that
+both backends allocate for the port's list all-gather
+(``parallel/collectives.py``; ``chip_smoke.py`` phase 22 measures it on
+each).  ``collective_bytes`` and ``fits`` are that program's.  The attention stacks run in the sequence-parallel layout
+(``build_run``'s ``sp``); the recurrent stacks (ssm, hybrid) in the layout
+they run on a mesh today, every dense weight gathered whole for the step
+(``layout`` names it).  The decode cells wait for decode on a mesh (the
+cache's T stripes over "model" and the merge of partial softmaxes) and are
+reported ``skipped``.  ``spec_argument_bytes`` is the bytes of the inputs
+the step reads by their specs' block shapes, which ``argument_bytes`` (what
+the count saw read) must equal.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import time
 import traceback
 
 from ..configs import ARCH_NAMES, SHAPES, cell_is_runnable, get_config
+from ..models.module import tree_leaves
+from ..parallel.mesh import axis_sizes, make_production_mesh
 from . import opcost
 from . import steps as S
 
@@ -43,6 +72,25 @@ from . import steps as S
 # reports a little more (``total_memory``), which chip_smoke.py checks
 H100_BYTES = 80 * 10**9
 SKIP_REASON = "long_500k requires sub-quadratic attention (DESIGN.md §5)"
+MESH_DECODE_REASON = ("decode on a mesh (the cache's T stripes over \"model\" and the merge "
+                      "of partial softmaxes) is not ported yet")
+
+
+def counted_device(mesh):
+    """The device of ``mesh`` (a ``MeshDescription``) that a per-device cell
+    counts: index 0 on every data axis, the last model index."""
+    return mesh.at(model=axis_sizes(mesh)["model"] - 1)
+
+
+def _read_input_bytes(kind: str, specs) -> int:
+    """The bytes of the stand-ins a step of ``kind`` reads: everything for a
+    train step; the parameters, the tokens and the image memory for a
+    prefill (the batch's targets and mask are not read)."""
+    if kind == "prefill":
+        batch = specs["batch"]
+        specs = {"params": specs["params"], "tokens": batch["tokens"],
+                 "memory": batch.get("memory")}
+    return sum(t.numel() * t.element_size() for t in tree_leaves(specs) if t is not None)
 
 
 def _train_costs(step, params, opt_state, batch) -> opcost.Costs:
@@ -71,34 +119,52 @@ def _train_costs(step, params, opt_state, batch) -> opcost.Costs:
     return total
 
 
-def run_cell(arch: str, shape, *, verbose: bool = True) -> dict:
+def run_cell(arch: str, shape, *, mesh=None, verbose: bool = True, cfg=None) -> dict:
     """One cell: ``shape`` is a name of ``SHAPES`` or a dict with its keys
-    (``seq_len``, ``global_batch``, ``kind``)."""
-    cfg = get_config(arch)
+    (``seq_len``, ``global_batch``, ``kind``).  With ``mesh`` (a
+    ``MeshDescription``), the program of one device of it: the one its
+    ``coordinate`` names, or :func:`counted_device`.  ``cfg`` stands in for
+    the arch's config (a test's smoke config)."""
+    cfg = cfg or get_config(arch)
     name = shape if isinstance(shape, str) else dict(shape)
     if isinstance(shape, str) and not cell_is_runnable(cfg, shape):
         return {"arch": arch, "shape": name, "status": "skipped", "reason": SKIP_REASON}
     sh = SHAPES[shape] if isinstance(shape, str) else shape
     kind = sh["kind"]
+    placed = {}
+    if mesh is not None:
+        if mesh.coordinate is None:
+            mesh = counted_device(mesh)
+        placed = {"mesh": {"shape": list(mesh.shape), "axes": list(mesh.mesh_dim_names)},
+                  "device": dict(zip(mesh.mesh_dim_names, mesh.coordinate)),
+                  "n_devices": int(math.prod(mesh.shape))}
+        if kind == "decode":
+            return {"arch": arch, "shape": name, "status": "skipped",
+                    "reason": MESH_DECODE_REASON, **placed}
     t0 = time.perf_counter()
-    specs = S.input_specs(cfg, sh)
+    specs = S.input_specs(cfg, sh, mesh)
     micro = None
     if kind == "train":
-        step, _, _ = S.build_train_step(cfg, device=S.META)
+        step, model, run = S.build_train_step(cfg, device=S.META, mesh=mesh)
         costs = _train_costs(step, **specs)
         micro = step.accum
     elif kind == "prefill":
-        step, _, _ = S.build_prefill_step(cfg, device=S.META)
+        step, model, run = S.build_prefill_step(cfg, device=S.META, mesh=mesh)
         costs = opcost.count(step, **specs)
     else:
-        step, _, _ = S.build_decode_step(cfg, device=S.META)
+        step, model, run = S.build_decode_step(cfg, device=S.META)
         costs = opcost.count(step, **specs)
     trace_s = time.perf_counter() - t0
+    if mesh is not None:
+        # the layout a step on a mesh runs: the sequence-parallel one, or
+        # every dense weight gathered whole for the step
+        placed.update(layout="sequence-parallel" if model.uses_sp_layout(run)
+                      else "gathered-whole", spec_argument_bytes=_read_input_bytes(kind, specs))
     summary = opcost.summarize(costs)
     memory = {"argument_bytes": costs.argument_bytes, "output_bytes": costs.output_bytes,
               "temp_bytes": costs.temp_bytes, "alias_bytes": costs.alias_bytes}
     result = {
-        "arch": arch, "shape": name, "status": "ok", "n_devices": 1,
+        "arch": arch, "shape": name, "status": "ok", "n_devices": 1, **placed,
         "trace_s": round(trace_s, 1),
         "flops": summary["flops"], "bytes_accessed": summary["bytes"],
         "transcendentals": summary["transcendentals"],
@@ -111,10 +177,11 @@ def run_cell(arch: str, shape, *, verbose: bool = True) -> dict:
         result["microbatches"] = micro
     if verbose:
         gb = (memory["argument_bytes"] + memory["temp_bytes"]) / 1e9
-        print(f"[{arch} × {shape if isinstance(shape, str) else kind}] OK trace {trace_s:.1f}s"
-              f" | flops {result['flops']:.3e} bytes {result['bytes_accessed']:.3e} ops "
-              f"{summary['ops']:.0f} | args + temp {gb:.2f} GB, fits one H100: {result['fits']}",
-              flush=True)
+        where = "" if mesh is None else f" on {tuple(mesh.shape)} at {placed['device']}"
+        print(f"[{arch} × {shape if isinstance(shape, str) else kind}{where}] OK trace "
+              f"{trace_s:.1f}s | flops {result['flops']:.3e} bytes {result['bytes_accessed']:.3e}"
+              f" ops {summary['ops']:.0f} | args + temp {gb:.2f} GB, fits one H100: "
+              f"{result['fits']}", flush=True)
     return result
 
 
@@ -125,7 +192,15 @@ def main(argv=None) -> None:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default="results/dryrun_torch")
     ap.add_argument("--force", action="store_true")
+    ap.add_argument("--mesh", choices=["production"],
+                    help="count one device of the production mesh, (16, 16)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="with --mesh: the (2, 16, 16) mesh over (pod, data, model)")
     args = ap.parse_args(argv)
+    if args.multi_pod and not args.mesh:
+        ap.error("--multi-pod counts a device of the production mesh: add --mesh production")
+    mesh = make_production_mesh(multi_pod=args.multi_pod) if args.mesh else None
+    tag = "" if mesh is None else "__" + "x".join(str(n) for n in mesh.shape)
     if args.all:
         cells = [(arch, shape) for arch in ARCH_NAMES for shape in SHAPES]
     elif args.arch and args.shape:
@@ -136,12 +211,12 @@ def main(argv=None) -> None:
     os.makedirs(args.out, exist_ok=True)
     failures = 0
     for arch, shape in cells:
-        path = os.path.join(args.out, f"{arch}__{shape}.json")
+        path = os.path.join(args.out, f"{arch}__{shape}{tag}.json")
         if os.path.exists(path) and not args.force:
             print(f"[{arch} × {shape}] cached")
             continue
         try:
-            result = run_cell(arch, shape)
+            result = run_cell(arch, shape, mesh=mesh)
         except Exception as e:  # noqa: BLE001 — record the cell and go on
             traceback.print_exc()
             result = {"arch": arch, "shape": shape, "status": "error",

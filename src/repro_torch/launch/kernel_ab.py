@@ -24,7 +24,11 @@ and 13:
   time beside its host time, and its kernels' device time under
   ``torch.profiler``; where the wrapper stages host tables with a kernel,
   also with the tables copied by a copy engine instead
-  (:func:`copy_engine_upload`).
+  (:func:`copy_engine_upload`);
+* ``flash_attention`` at qwen2-7b's bf16 prefill shape (B 2, Hq 28, Hkv 4,
+  S 4,096, D 128, causal), and where the checkout's wrapper takes
+  ``q_offset`` also at the last of 4 blocks of that sequence (Sq 1,024 at
+  offset 3,072), each run's time kept.
 
 Each process prints one JSON line (its checkout, the card, the times); the
 runs go in the order of ``--roots``, then back.  A root is the top of a
@@ -55,7 +59,8 @@ FRONTIER_SHARE = 0.01  # of the live slots, on each row of the frontier
 PROBE_CAP, PROBE_QUERIES = 1 << 23, 1 << 17
 PAGED = {"qwen2-7b": (4096, 32768), "zamba2-1.2b": (1024, 4096)}  # decode lengths
 PAGED_BATCH, PAGED_PAGE = 16, 16
-KERNELS = ("frontier_expand", "probe_place", "hash_probe", "paged_attention")
+KERNELS = ("frontier_expand", "probe_place", "hash_probe", "paged_attention", "flash_attention")
+FLASH_ARCH, FLASH_BATCH, FLASH_SEQ, FLASH_BLOCKS, FLASH_REPS = "qwen2-7b", 2, 4096, 4, 20
 
 
 def cuda_ms(torch, fn, reps: int, flush: bool = True, runs: list | None = None) -> float:
@@ -225,6 +230,32 @@ def time_paged_attention(torch, dev, seed: int, out: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def time_flash_attention(torch, dev, seed: int, out: dict) -> None:
+    import inspect
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fak
+
+    cfg = get_config(FLASH_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (FLASH_BATCH, cfg.n_heads, FLASH_SEQ, cfg.head_dim)
+    q = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((FLASH_BATCH, cfg.n_kv_heads, FLASH_SEQ, cfg.head_dim), generator=gen,
+                        device=dev).bfloat16() for _ in range(2))
+    out["flash_attention_runs"] = []
+    out["flash_attention_ms"] = cuda_ms(torch, lambda: fak.flash_attention(q, k, v, causal=True),
+                                        FLASH_REPS, runs=out["flash_attention_runs"])
+    if "q_offset" in inspect.signature(fak.flash_attention).parameters:
+        sq = FLASH_SEQ // FLASH_BLOCKS
+        qb = q[:, :, -sq:].contiguous()
+        out["flash_attention_sp_block_runs"] = []
+        out["flash_attention_sp_block_ms"] = cuda_ms(
+            torch, lambda: fak.flash_attention(qb, k, v, causal=True, q_offset=FLASH_SEQ - sq),
+            FLASH_REPS, runs=out["flash_attention_sp_block_runs"])
+    del q, k, v
+    torch.cuda.empty_cache()
+
+
 def run_one(root: Path, seed: int, only) -> dict:
     """Build ``root``'s kernels and time them on the inputs of ``seed``."""
     sys.path.insert(0, str(root / "src"))
@@ -239,6 +270,8 @@ def run_one(root: Path, seed: int, only) -> dict:
         time_hash_probe(torch, dev, gen, out)
     if "paged_attention" in only:
         time_paged_attention(torch, dev, seed, out)
+    if "flash_attention" in only:
+        time_flash_attention(torch, dev, seed, out)
     torch.cuda.synchronize()
     return out
 

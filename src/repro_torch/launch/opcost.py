@@ -26,8 +26,13 @@ Per-op rules (``hloparse._op_cost``):
   read once).  Free ops are views, metadata and allocations without a
   write (``empty``), as ``hloparse._FREE`` holds plumbing; everything else
   (copies, casts, gathers, scatters, sorts, fills) counts bytes only;
-* collectives: the ``_c10d_functional`` and ``c10d`` ops, result bytes by
-  kind, one site each (none on one card).
+* collectives: the ``_c10d_functional`` and ``c10d`` ops, and the
+  ``repro_mesh`` ops that ``parallel/collectives.py`` dispatches for one
+  device of a ``MeshDescription`` (the dry run per device), result bytes by
+  kind (an all-gather its gathered bytes, a reduce-scatter its scattered
+  block's, as the reference's ``collective_bytes`` counts its HLO; the
+  port's own reduce-scatter is an all-reduce and a slice, counted so), one
+  site each (none on one card).
 
 Two keys have meaning only in eager PyTorch: ``ops``, the ops that are not
 free (each one launch or more on the card, so they predict the launches),
@@ -67,8 +72,9 @@ COLLECTIVE_KINDS = {
     "alltoall_base_": "all-to-all",
     "broadcast": "broadcast", "broadcast_": "broadcast",
     "send": "collective-permute", "recv_": "collective-permute",
+    "all_gather": "all-gather", "all_reduce_": "all-reduce",
 }
-_COLLECTIVE_NAMESPACES = ("_c10d_functional", "c10d_functional", "c10d")
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "c10d_functional", "c10d", "repro_mesh")
 TOP_OPS = 12
 
 _DOT = {"mm", "bmm", "addmm", "baddbmm", "addbmm", "mv", "addmv", "dot", "vdot"}

@@ -15,17 +15,21 @@ PyTorch runs eagerly, so the step is the plain function the reference
 hands to ``jax.jit``.  The model lives on the card unless ``device`` says
 otherwise.
 
-**On a mesh** (``mesh=``, a ``DeviceMesh``; FSDP/ZeRO over the data axes):
-the step takes this rank's blocks of the parameters and of the optimizer
-state (``LM.pspecs``, ``opt_pspecs``) and this rank's rows of the batch,
-microbatch by microbatch (``shardings.data_rows``).  The loss is the global
-batch's (``LM.loss`` on a mesh); each leaf's gradient comes out of autograd
-already reduce-scattered onto the rank's block (the backward of the
-forward's gathers: the reference's ``pin_grads``), and AdamW updates the
-rank's blocks with the whole tree's norm.  ``build_run`` keeps the mesh
-and ``sp`` (on by default on a mesh, as in the reference; off without one,
-where nothing spans cards); the data axes, and whether the mesh spans pods,
-are read off the mesh wherever they are needed.
+**On a mesh** (``mesh=``, a ``DeviceMesh``, or a ``MeshDescription``
+standing for one device, with ``meta`` inputs, for the dry run; FSDP/ZeRO
+over the data axes): the step takes this rank's blocks of the parameters
+and of the optimizer state (``LM.pspecs``, ``opt_pspecs``) and this rank's
+rows of the batch, microbatch by microbatch (``shardings.data_rows``).  The
+loss is the global batch's (``LM.loss`` on a mesh); each leaf's gradient
+comes out of autograd already reduce-scattered onto the rank's block (the
+backward of the forward's gathers: the reference's ``pin_grads``), and
+AdamW updates the rank's blocks with the whole tree's norm.  ``build_run``
+keeps the mesh and ``sp`` (on by default on a mesh, as in the reference;
+off without one, where nothing spans cards), which puts an attention stack
+in the sequence-parallel layout of ``models/lm.py`` (each rank its S / M
+tokens, each layer's weights gathered inside its checkpoint, the dense FFN
+tensor parallel); the data axes, and whether the mesh spans pods, are read
+off the mesh wherever they are needed.
 
 ``param_specs``, ``opt_state_specs``, ``batch_specs``, ``cache_specs``,
 ``decode_token_specs`` and ``input_specs`` are the reference's builders of
@@ -62,12 +66,18 @@ def build_run(cfg: ArchConfig, *, mesh=None,
               run_overrides: Dict[str, Any] = None) -> Dict[str, Any]:
     """The train step's run: the chunked attention, per-layer remat and the
     cross-entropy in chunks of 512, as the reference's ``build_run``, with
-    ``sp`` (on a mesh, as the reference's default; off without one) and the
-    ``mesh``.  Its one q block of up to 4,096 in the plain attention (fewer
-    partial dK/dV reductions under its sequence-parallel layout) is not
-    carried over: the q blocking changes no number, and blocks of 512 keep
-    the backward's recomputed scores 8 times smaller and skip the key
-    blocks the causal mask hides whole."""
+    ``sp`` and the ``mesh``.  ``sp`` is on by default on a mesh, as the
+    reference's default, and off without one: on a mesh it runs an
+    attention stack in the sequence-parallel layout (``models/lm.py``), and
+    ``sp=False`` there gathers the dense weights whole for the step (the
+    recurrent stacks take that layout whatever ``sp`` says).  The
+    reference's ``attn_seq_shard`` (its pins of the sequence-parallel
+    attention, which this layout is) and ``attn_block_q`` (its one q block
+    of up to 4,096 in the plain attention, for fewer partial dK/dV
+    reductions) are taken from ``run_overrides`` and change no number: the
+    q blocking changes no value, and the default blocks of 512 keep the
+    backward's recomputed scores 8 times smaller and skip the key blocks the
+    causal mask hides whole."""
     return {**DEFAULT_RUN, "attn_impl": "chunked", "remat": True, "loss_chunk": 512,
             "sp": mesh is not None, "mesh": mesh,
             **(run_overrides or {})}
@@ -169,7 +179,8 @@ def build_train_step(cfg: ArchConfig, *, opt_cfg: AdamWConfig = None, accum: int
 def build_prefill_step(cfg: ArchConfig, *, run_overrides: dict = None, device=None,
                        mesh=None):
     """``prefill_step(params, batch) -> last-token logits``; on a ``mesh``
-    (``sp`` on, as the reference's run), this rank's blocks and rows."""
+    (``sp`` on, as the reference's run), this rank's blocks and rows (and
+    its block of the vlm's image memory), the logits on every rank."""
     model = LM(cfg, device)
     run = {**DEFAULT_RUN, **({} if mesh is None else {"mesh": mesh, "sp": True}),
            **(run_overrides or {})}

@@ -20,7 +20,10 @@ Port of ``repro.launch.train``, with the same flags plus ``--device``
   rendezvous), D × M ranks on a ("data", "model") mesh, FSDP/ZeRO over the
   data axis.  Each rank holds its blocks of the parameters and of the
   optimizer state and draws its data coordinate's rows of each step; a
-  checkpoint is the whole tree, so a run resumes on any mesh.  The process
+  checkpoint is the whole tree, so a run resumes on any mesh.  An attention
+  stack trains in the sequence-parallel layout (``build_run``'s ``sp``:
+  each rank S / M tokens of its rows, so ``--seq`` must divide by M; a
+  layer's weights gathered inside its checkpoint).  The process
   group is ``torch.distributed``'s default for the device (NCCL on cards).
   Without ``--mesh`` the runner is the one-card one.
 """

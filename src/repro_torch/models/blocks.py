@@ -19,6 +19,14 @@ one-token decode step is the plain ``linear_scan_step``, as it is jnp in the
 reference.  ``shard=True`` runs the MoE FFN as the reference's
 ``moe_apply_shardmap`` on the ``mesh`` it is given (a ``ValueError``
 without one).
+
+``sp=`` (a :class:`~repro_torch.models.layers.SeqParallel`) runs an
+attention or cross-attention block in the sequence-parallel layout on the
+rank's token block, with ``p`` the rank's blocks of the layer's weights:
+the block gathers them itself (:func:`sp_block_view`), so a caller that
+checkpoints the block holds one layer's gathered weights at a time and
+gathers them again when the backward recomputes it, as the reference's
+remat does.
 """
 
 from __future__ import annotations
@@ -28,8 +36,11 @@ import torch.nn.functional as F
 
 from ..kernels.ssd_scan import ops as ssd_ops
 from ..kernels.ssd_scan.ref import linear_scan_step
+from ..parallel import collectives as C
+from ..parallel.mesh import is_multi_pod
 from .config import ArchConfig
 from .layers import (
+    SeqParallel,
     _split_heads,
     attn_apply,
     attn_meta,
@@ -41,7 +52,7 @@ from .layers import (
     norm_apply,
     norm_meta,
 )
-from .module import ParamMeta
+from .module import ParamMeta, build_pspecs, tree_map
 
 F32 = torch.float32
 
@@ -76,29 +87,58 @@ def attn_block_meta(cfg: ArchConfig, *, moe: bool = False):
     }
 
 
+def sp_block_view(p, meta, mesh, *, moe: bool = False):
+    """A layer's blocks ``p`` (laid out by the specs of ``meta``, its meta
+    tree) as the layer's sequence-parallel forward reads them: attention
+    weights, norms and gates gathered whole over every axis (their
+    gradients summed over "model" too, whose ranks hold different tokens);
+    a dense FFN's leaves gathered over the data axes only, each rank keeping
+    its "model" column and row blocks; an MoE FFN's blocks as they are
+    (``moe_apply_shardmap`` gathers them)."""
+    specs = build_pspecs(meta, multi_pod=is_multi_pod(mesh))
+    out = {}
+    for name in sorted(p):
+        if name == "ffn" and moe:
+            out[name] = p[name]
+            continue
+        model = "block" if name == "ffn" else "whole"
+        out[name] = tree_map(lambda t, s: C.param_view(t, s, mesh, model=model), p[name],
+                             specs[name])
+    return out
+
+
 def attn_block_apply(p, cfg: ArchConfig, x, *, moe=False, positions=None, kv_cache=None,
                      attn_impl="chunked", shard=False, mesh=None,
-                     block_q=512, block_k=512):
+                     block_q=512, block_k=512, sp: SeqParallel = None):
     """Returns (x', new_cache, aux); aux is the MoE balancing loss, 0.0 for
     the dense MLP.  ``shard=True`` runs the MoE FFN as
     ``moe_apply_shardmap`` on ``mesh`` (``x`` this rank's rows, ``p["ffn"]``
     its blocks of the expert weights); it raises ``ValueError`` without a
-    mesh, as the reference's shard_map does."""
+    mesh, as the reference's shard_map does.  With ``sp`` (see the module
+    docstring) ``x`` is the rank's token block, ``positions`` their absolute
+    positions and ``p`` the rank's blocks of the layer; an MoE FFN then
+    needs ``shard``."""
     if moe and shard and mesh is None:
         raise ValueError("attn_block_apply(shard=True): moe_apply_shardmap needs a mesh "
                          "(pass mesh=, or run['mesh'] to the LM)")
+    if sp is not None:
+        if moe and not shard:
+            raise ValueError("attn_block_apply(sp=...): an MoE FFN in the sequence-parallel "
+                             "layout runs as moe_apply_shardmap (shard=True)")
+        p = sp_block_view(p, attn_block_meta(cfg, moe=moe), sp.mesh, moe=moe)
     h, new_cache = attn_apply(
         p["attn"], cfg, norm_apply(p["ln1"], cfg, x),
         positions=positions, kv_cache=kv_cache, attn_impl=attn_impl,
-        block_q=block_q, block_k=block_k,
+        block_q=block_q, block_k=block_k, sp=sp,
     )
     x = x + h
     if moe and shard:
-        f, aux = moe_apply_shardmap(p["ffn"], cfg, norm_apply(p["ln2"], cfg, x), mesh=mesh)
+        f, aux = moe_apply_shardmap(p["ffn"], cfg, norm_apply(p["ln2"], cfg, x), mesh=mesh,
+                                    sp=sp is not None)
     elif moe:
         f, aux = moe_apply(p["ffn"], cfg, norm_apply(p["ln2"], cfg, x))
     else:
-        f, aux = mlp_apply(p["ffn"], cfg, norm_apply(p["ln2"], cfg, x)), 0.0
+        f, aux = mlp_apply(p["ffn"], cfg, norm_apply(p["ln2"], cfg, x), sp=sp), 0.0
     return x + f, new_cache, aux
 
 
@@ -126,17 +166,22 @@ def xattn_block_meta(cfg: ArchConfig):
 
 
 def xattn_block_apply(p, cfg: ArchConfig, x, memory=None, kv_override=None, *,
-                      attn_impl="chunked"):
+                      attn_impl="chunked", sp: SeqParallel = None):
     """Cross attention to ``memory`` (or to its precomputed K/V heads) and
     the MLP, each scaled by its tanh gate.  With neither given the attention
     is the reference's: its self-attention path with this block's weights
-    (no gate on it)."""
+    (no gate on it).  With ``sp`` the queries are the rank's token block,
+    ``memory`` the whole image memory (the caller gathers its token axis
+    over "model") and ``p`` the rank's blocks of the block's weights."""
+    if sp is not None:
+        p = sp_block_view(p, xattn_block_meta(cfg), sp.mesh)
     h, _ = attn_apply(
         p["attn"], cfg, norm_apply(p["ln1"], cfg, x),
         memory=memory, kv_override=kv_override, attn_impl=attn_impl,
+        sp=sp,
     )
     x = x + h
-    f = mlp_apply(p["ffn"], cfg, norm_apply(p["ln2"], cfg, x))
+    f = mlp_apply(p["ffn"], cfg, norm_apply(p["ln2"], cfg, x), sp=sp)
     return x + f * torch.tanh(p["ffn_gate"]).to(f.dtype)
 
 

@@ -19,11 +19,28 @@ the MoE FFN (dispatch, three batched expert products, combine) are plain
 tensor code, as they are jnp in the reference.  ``moe_apply_shardmap``
 runs the MoE FFN on a rank's rows of a (data, model) mesh with explicit
 collectives (:mod:`repro_torch.parallel.collectives`).
+
+**The sequence-parallel layout** (``sp=``, a :class:`SeqParallel`: the
+mesh, and the position of this rank's first token): ``x`` is the rank's
+block of S / M tokens of its rows, the tokens [m S / M, (m + 1) S / M) of
+model index m.  :func:`attn_apply` takes whole projection weights,
+computes q, k and v for its tokens, all-gathers K and V over "model" along
+S (backward a reduce-scatter) and attends its q block over every key with
+``q_offset`` its first token's position, as the reference's
+``mha_chunked(seq_spec=...)`` pins q blocks over "model" and K/V whole
+(heads need not divide the model axis: qwen2-7b's 28 and 4 do not divide
+16).  :func:`mlp_apply` is tensor parallel: the normed tokens all-gathered
+over "model" along S (backward a reduce-scatter), this rank's column
+block of ``wi``/``wg`` and row block of ``wo``, and the partial (B, S, d)
+reduce-scattered in f32 back onto the rank's tokens (backward an
+all-gather).  ``moe_apply_shardmap(..., sp=True)`` gathers the whole
+sequence over "model" (the reference's shard_map takes x whole over it)
+and reduce-scatters its output onto the rank's tokens.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +55,14 @@ from .module import ParamMeta
 F32 = torch.float32
 
 _ATTN_IMPLS = {"chunked": None, "kernel": None, "reference": "reference"}
+
+
+class SeqParallel(NamedTuple):
+    """A rank's place in the sequence-parallel layout: the mesh, and the
+    position of its first token (its block of S / M tokens over "model")."""
+
+    mesh: Any
+    start: int
 
 
 # ---------------------------------------------------------------------------
@@ -205,6 +230,7 @@ def attn_apply(
     attn_impl: str = "chunked",
     block_k: int = 512,
     block_q: int = 512,
+    sp: Optional[SeqParallel] = None,
 ):
     """Returns (out, new_kv_cache or None).
 
@@ -218,6 +244,12 @@ def attn_apply(
     and V come from the memory (or are given), without RoPE, and no bias is
     added to a given K/V; it is non-causal and unwindowed, and its output is
     scaled by ``tanh(gate)``.
+
+    With ``sp`` (a prefill in the sequence-parallel layout; see the module
+    docstring) ``x`` is the rank's tokens and ``positions`` their absolute
+    positions; self attention gathers K and V over "model" and attends
+    with ``q_offset`` the rank's first position; cross attention takes the
+    whole ``memory`` (the caller gathers it) without an offset.
     """
     if attn_impl not in _ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
@@ -244,6 +276,15 @@ def attn_apply(
         q = rope_apply(q, positions, cfg.rope_theta)
         k = rope_apply(k, positions, cfg.rope_theta)
 
+    q_offset = 0
+    if sp is not None and not cross:
+        if kv_cache is not None:
+            raise ValueError("attn_apply: the sequence-parallel layout is a prefill's, not "
+                             "a decode step's")
+        k = C.gather(k, sp.mesh, "model", 2)
+        v = C.gather(v, sp.mesh, "model", 2)
+        q_offset = sp.start
+
     new_cache = None
     if kv_cache is not None:
         # decode (S == 1): ring-buffer write + attend over the valid slots
@@ -260,7 +301,7 @@ def attn_apply(
         out = flash_ops.attention(
             q.contiguous(), k.contiguous(), v.contiguous(), causal=not cross,
             window=None if cross else cfg.window, impl=_ATTN_IMPLS[attn_impl],
-            block_q=block_q, block_k=block_k,
+            block_q=block_q, block_k=block_k, q_offset=q_offset,
         )
 
     out = out.transpose(1, 2).reshape(B, S, hq * dh) @ p["wo"]
@@ -287,7 +328,12 @@ def mlp_meta(cfg: ArchConfig):
     return m
 
 
-def mlp_apply(p, cfg: ArchConfig, x):
+def mlp_apply(p, cfg: ArchConfig, x, sp: Optional[SeqParallel] = None):
+    """The dense FFN.  With ``sp`` (see the module docstring), ``x`` is the
+    rank's tokens and ``p`` holds its "model" blocks of ``wi``, ``wg``,
+    ``bi`` (columns) and ``wo`` (rows), ``bo`` whole."""
+    if sp is not None:
+        x = C.gather(x, sp.mesh, "model", 1)
     h = x @ p["wi"]
     if cfg.mlp_bias:
         h = h + p["bi"].to(h.dtype)
@@ -298,6 +344,8 @@ def mlp_apply(p, cfg: ArchConfig, x):
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(h.to(F32), approximate="tanh").to(h.dtype)
     out = h @ p["wo"]
+    if sp is not None:
+        out = C.scatter(out.to(F32), sp.mesh, "model", 1).to(x.dtype)
     if cfg.mlp_bias:
         out = out + p["bo"].to(out.dtype)
     return out
@@ -443,7 +491,8 @@ def moe_apply(p, cfg: ArchConfig, x, *, capacity: Optional[int] = None):
     return out.reshape(B, S, d), _moe_aux(probs, gate_idx, cfg.moe.n_experts)
 
 
-def moe_apply_shardmap(p, cfg: ArchConfig, x, *, mesh, capacity: Optional[int] = None):
+def moe_apply_shardmap(p, cfg: ArchConfig, x, *, mesh, capacity: Optional[int] = None,
+                       sp: bool = False):
     """The sharded MoE: token-local dispatch on this rank's rows.
 
     ``x`` (B_local, S, d) is the rank's rows, alike on every rank of its
@@ -463,7 +512,16 @@ def moe_apply_shardmap(p, cfg: ArchConfig, x, *, mesh, capacity: Optional[int] =
     * the balancing loss averaged over the data axes (forward the mean,
       backward 1 / n_dp to each rank's own).
 
-    Returns (out (B_local, S, d), aux)."""
+    With ``sp`` (the sequence-parallel layout) ``x`` is this rank's block of
+    S / M tokens of its rows: it is all-gathered over "model" first (the
+    backward one's own block, since the gradient of the whole sequence comes
+    out alike on every model rank), so the dispatch is the same as without
+    ``sp``, and the sum over "model" is a reduce-scatter along S (backward
+    an all-gather) onto the rank's tokens.
+
+    Returns (out, of ``x``'s shape, aux)."""
+    if sp:
+        x = C.gather(x, mesh, "model", 1, grad="slice")
     Bl, S, d = x.shape
     e = cfg.moe.n_experts
     cap = capacity or moe_capacity(cfg, Bl * S)
@@ -475,7 +533,10 @@ def moe_apply_shardmap(p, cfg: ArchConfig, x, *, mesh, capacity: Optional[int] =
     out, probs, gate_idx = _moe_local(
         router, wi, wg, wo, cfg, x.reshape(Bl * S, d), cap,
         enter=lambda t: C.reduce_backward(t, mesh, "model"))
-    out = C.reduce_forward(out.to(F32), mesh, "model").to(x.dtype)
+    if sp:
+        out = C.scatter(out.to(F32).reshape(Bl, S, d), mesh, "model", 1).to(x.dtype)
+    else:
+        out = C.reduce_forward(out.to(F32), mesh, "model").to(x.dtype).reshape(Bl, S, d)
     aux = C.reduce_forward(_moe_aux(probs, gate_idx, e), mesh, dp_axes) / axis_size(mesh,
                                                                                 dp_axes)
-    return out.reshape(Bl, S, d), aux
+    return out, aux

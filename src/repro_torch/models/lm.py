@@ -24,25 +24,53 @@ layer).
 while grad mode is on: each layer of an attention or rwkv6 stack; the vlm's
 groups with each of their layers nested inside; the hybrid's groups (its
 mamba2 layers and the shared block) and each layer of its mamba2 tail
-(``torch.utils.checkpoint``, non-reentrant).  Sequence-parallel constraints
-are not carried over; a ``run`` dict may still name them.
+(``torch.utils.checkpoint``, non-reentrant).
 
 **On a mesh** (``run["mesh"]``, a ``DeviceMesh`` over ("data", "model") or
-("pod", "data", "model"), whose data axes are every axis but "model"):
-``params`` are this rank's blocks, each laid out by its spec
-(:meth:`LM.pspecs`), and ``tokens`` this rank's rows.  Every method first
-takes the parameters' view the forward reads (:meth:`LM.mesh_params`): the
-dense weights gathered whole (their backward a reduce-scatter over the data
-axes and one's own block over "model", whose ranks compute them alike), the
-MoE experts left as blocks for ``moe_apply_shardmap``.  An MoE model runs
-its FFN as ``moe_apply_shardmap`` where the reference's ``sp`` (prefill and
-loss) or ``decode_moe_shardmap`` (decode) picks it; without a mesh those
-raise ``ValueError``, and so does an MoE model on a mesh without them (the
-global dispatch would need every rank's tokens).  The loss is the global
-batch's on every rank: each rank's cross-entropy sum over the token count
-summed over the data axes, summed over them in the forward (the identity
-backward: each rank's gradient is its own share), plus the data-mean
-balancing loss.
+("pod", "data", "model"), whose data axes are every axis but "model", or a
+``MeshDescription`` standing for one device, with ``meta`` tensors, for the
+dry run): ``params`` are this rank's blocks, each laid out by its spec
+(:meth:`LM.pspecs`), and ``tokens`` this rank's rows.  Two layouts:
+
+* **Sequence parallel** (``run["sp"]``, on by default on a mesh, as the
+  reference's ``build_run``; the attention stacks: dense, moe, audio, vlm;
+  prefill and loss).  The rank at model index m of M keeps the tokens
+  [m S / M, (m + 1) S / M) of its rows from the embedding on (the
+  reference's ``sp_spec``); S % M != 0 raises ``ValueError``.  RoPE and the
+  sinusoid use those tokens' absolute positions.  Each layer gathers its
+  own weights inside its checkpointed function
+  (``blocks.sp_block_view``), so the backward gathers them again and a rank
+  holds its blocks, one layer's gathered weights and checkpoints of S / M
+  tokens: the attention's weights whole (gradients summed over every
+  axis), K and V all-gathered along S and the rank's q block attending
+  over them at its ``q_offset``; the dense FFN tensor parallel over its
+  "model" blocks on the tokens gathered along S, its partial sum
+  reduce-scattered back; the MoE's ``moe_apply_shardmap`` on the gathered
+  sequence with its sum over "model" a reduce-scatter; the vlm's image
+  memory gathered over "model" once.  The embedding, ``ln_f`` and the head
+  are gathered where used (the loss's head once for its forward and once
+  for its backward: ``_GatheredXent``).
+  :meth:`hidden_states` returns the rank's token block, :meth:`prefill`
+  the last token's logits on every rank.
+* **Gathered whole** (``sp`` off, the recurrent stacks ssm and hybrid
+  whatever ``sp`` says, and every decode step):
+  :meth:`LM.mesh_params` gathers the dense weights whole for the call
+  (their backward a reduce-scatter over the data axes and one's own block
+  over "model", whose ranks compute them alike), the MoE experts left as
+  blocks for ``moe_apply_shardmap``.  The recurrent stacks' d-sharded
+  residual is later work.
+
+An MoE model runs its FFN as ``moe_apply_shardmap`` where the reference's
+``sp`` (prefill and loss) or ``decode_moe_shardmap`` (decode) picks it;
+without a mesh those raise ``ValueError``, and so does an MoE model on a
+mesh without them (the global dispatch would need every rank's tokens).
+The loss is the global batch's on every rank: each rank's cross-entropy
+sum over its tokens over the token count summed over the data axes (and
+"model" in the sequence-parallel layout), summed over the same axes in the
+forward (the identity backward: each rank's gradient is its own share),
+plus the data-mean balancing loss.  ``run["attn_seq_shard"]`` (the
+reference's pins of its sequence-parallel attention) is taken and changes
+nothing: the layout above is that one.
 
 :func:`params_from_numpy` carries the reference's parameter pytree (numpy
 leaves) into the port, and serves as the port's checkpoint-in;
@@ -62,12 +90,12 @@ import torch
 from ..device import resolve_device
 from ..kernels._grad import checkpointed
 from ..parallel import collectives as C
-from ..parallel.mesh import data_axes, is_multi_pod
-from ..parallel.spec import names
+from ..parallel.mesh import axis_sizes, data_axes, is_multi_pod
+from ..parallel.spec import axis_size, token_range
 from . import blocks as B
 from . import layers as L
 from .config import ArchConfig
-from .module import build_params, build_pspecs, build_shapes, stack_meta, tree_map
+from .module import build_params, build_pspecs, build_shapes, stack_meta, tree_leaves, tree_map
 
 DEFAULT_RUN: Dict[str, Any] = {
     "attn_impl": "chunked",   # "chunked" | "kernel" | "reference"
@@ -167,42 +195,78 @@ class LM:
                              f"run[{key!r}] (the global dispatch needs every rank's tokens)")
         return shard
 
+    def uses_sp_layout(self, run) -> bool:
+        """Whether the model runs in the sequence-parallel layout: an
+        attention stack on a mesh with ``run["sp"]``."""
+        return run.get("mesh") is not None and bool(run.get("sp")) and self.block_kind == "attn"
+
+    def _seq_parallel(self, run, seq_len: int):
+        """This rank's place in the sequence-parallel layout
+        (:class:`~repro_torch.models.layers.SeqParallel`), None outside it;
+        raises ``ValueError`` where the ``seq_len`` tokens do not divide
+        over "model"."""
+        if not self.uses_sp_layout(run):
+            return None
+        return L.SeqParallel(run["mesh"], token_range(run["mesh"], seq_len)[0])
+
     def mesh_params(self, params, run):
         """The parameters as the forward reads them on ``run["mesh"]``
-        (``params`` unchanged without one).  Each leaf is gathered whole
-        along its spec's dims (over the data axes: backward a
-        reduce-scatter; over "model": backward one's own block, since the
-        model ranks compute alike); a leaf whole across a data axis has its
-        gradient summed over it in the backward.  The MoE experts' leaves
+        (``params`` unchanged without one).  In the sequence-parallel layout
+        they stay the rank's blocks: each layer gathers its own inside its
+        checkpointed function, the embedding, ``ln_f`` and the head are
+        gathered where used (see the module docstring).  Otherwise
+        :meth:`_gathered`."""
+        if run.get("mesh") is None or self.uses_sp_layout(run):
+            return params
+        return self._gathered(params, run["mesh"])
+
+    def _gathered(self, params, mesh):
+        """Every leaf gathered whole along its spec's dims (over the data
+        axes: backward a reduce-scatter; over "model": backward one's own
+        block, since the model ranks compute alike), a leaf whole across a
+        data axis summed over it in the backward; the MoE experts' leaves
         stay blocks, which ``moe_apply_shardmap`` gathers over the data axes
         itself."""
-        mesh = run.get("mesh")
-        if mesh is None:
-            return params
-        dp = data_axes(mesh)
         specs = self.pspecs(multi_pod=is_multi_pod(mesh))
-
-        def view(t, spec, keys):
-            if self.cfg.moe is not None and keys[:2] == ("blocks", "ffn") \
-                    and keys[-1] in _MOE_LEAVES:
-                return t
-            named = {a for entry in spec for a in names(entry)}
-            whole = tuple(a for a in dp if a not in named)
-            if whole:
-                t = C.reduce_backward(t, mesh, whole)
-            for dim, entry in enumerate(spec):
-                if entry is None:
-                    continue
-                grad = "slice" if names(entry) == ("model",) else "sum"
-                t = C.gather(t, mesh, entry, dim, grad=grad)
-            return t
 
         def walk(tree, spec, keys):
             if isinstance(tree, dict):
                 return {k: walk(tree[k], spec[k], keys + (k,)) for k in sorted(tree)}
-            return view(tree, spec, keys)
+            if self.cfg.moe is not None and keys[:2] == ("blocks", "ffn") \
+                    and keys[-1] in _MOE_LEAVES:
+                return tree
+            return C.param_view(tree, spec, mesh, model="alike")
 
         return walk(params, specs, ())
+
+    def _whole(self, params, name: str, sp, only=None):
+        """``params[name]`` (the embedding or ``ln_f``) gathered whole where
+        it is used in the sequence-parallel layout, its gradient summed over
+        every axis (of the embedding, only the leaves ``only`` names: the
+        table for a lookup, the head for the logits); as it is otherwise."""
+        if sp is None:
+            return params[name]
+        specs = self.pspecs(multi_pod=is_multi_pod(sp.mesh))[name]
+        return {k: tree_map(lambda t, s: C.param_view(t, s, sp.mesh, model="whole"),
+                            params[name][k], specs[k]) if only is None or k in only
+                else params[name][k] for k in sorted(params[name])}
+
+    def _head_leaves(self):
+        """The embedding's leaves the logits read."""
+        return ("tok",) if self.cfg.tie_embeddings else ("head",)
+
+    def _sp_memory(self, memory, mesh):
+        """The vlm's image memory whole: this rank's block (batch rows, and
+        the token axis over "model" where it divides, as
+        ``launch.shardings.batch_pspecs`` lays it out) gathered over "model"
+        (backward a reduce-scatter: each model rank's queries read it)."""
+        n = axis_size(mesh, "model")
+        if memory is None or n == 1 or self.cfg.n_img_tokens % n:
+            return memory
+        if memory.shape[1] * n != self.cfg.n_img_tokens:
+            raise ValueError(f"image memory of {memory.shape[1]} tokens: the rank's block of "
+                             f"{self.cfg.n_img_tokens} over \"model\" ({n} ranks) expected")
+        return C.gather(memory, mesh, "model", 1)
 
     # -- forward (prefill) ----------------------------------------------------
     def hidden_states(self, params, tokens, *, memory=None, run=None, positions=None,
@@ -216,52 +280,67 @@ class LM:
         ``memory`` (B, M, d) the vlm's image tokens."""
         run = {**DEFAULT_RUN, **(run or {})}
         shard = self._check_engine(run, "sp")
+        sp = self._seq_parallel(run, tokens.shape[1])
         return self._forward(self.mesh_params(params, run), tokens, memory, run, positions,
-                             states, shard)
+                             states, shard, sp)
 
     def prefill(self, params, tokens, *, memory=None, run=None, states=None):
         """The prefill step's forward: :meth:`hidden_states` and the last
-        token's logits, both from one view of the parameters on a mesh.
-        Returns (logits (B, 1, Vp), or (B, 1, n_codebooks, Vp), aux,
-        new_states)."""
+        token's logits, both from one view of the parameters on a mesh (in
+        the sequence-parallel layout the last token's hidden state is
+        gathered from the last model rank).  Returns (logits (B, 1, Vp), or
+        (B, 1, n_codebooks, Vp), aux, new_states)."""
         run = {**DEFAULT_RUN, **(run or {})}
         shard = self._check_engine(run, "sp")
+        sp = self._seq_parallel(run, tokens.shape[1])
         params = self.mesh_params(params, run)
-        hid, aux, new_states = self._forward(params, tokens, memory, run, None, states, shard)
-        return self._logits(params, hid[:, -1:]), aux, new_states
+        hid, aux, new_states = self._forward(params, tokens, memory, run, None, states, shard,
+                                             sp)
+        last = hid[:, -1:]
+        if sp is not None:
+            last = C.all_gather(last, sp.mesh, "model", 1)[:, -1:]
+        head = {"embed": self._whole(params, "embed", sp, self._head_leaves())}
+        return self._logits(head, last), aux, new_states
 
-    def _forward(self, params, tokens, memory, run, positions, states, shard):
+    def _forward(self, params, tokens, memory, run, positions, states, shard, sp=None):
         """:meth:`hidden_states` on the parameters' view of
-        :meth:`mesh_params`."""
+        :meth:`mesh_params`; with ``sp``, on the rank's token block."""
         cfg = self.cfg
-        x = L.embed_apply(params["embed"], cfg, tokens)
+        if sp is not None:
+            stop = sp.start + tokens.shape[1] // axis_size(sp.mesh, "model")
+            tokens = tokens[:, sp.start:stop]
+            positions = (torch.arange(sp.start, stop, device=tokens.device) if positions is None
+                         else positions[..., sp.start:stop])
+            memory = self._sp_memory(memory, sp.mesh)
+        x = L.embed_apply(self._whole(params, "embed", sp, ("tok",)), cfg, tokens)
         if self.block_kind == "attn":
             if not cfg.rope:
                 pos = positions if positions is not None else torch.arange(x.shape[1],
                                                                            device=x.device)
                 x = x + L.sinusoid_embed(pos, cfg.d_model)[None].to(x.dtype)
-            x, aux = self._attn_stack(params, x, memory, run, positions, shard)
+            x, aux = self._attn_stack(params, x, memory, run, positions, shard, sp)
             new_states = None
         else:
             x, new_states = self._recurrent_stack(params, x, run, positions, states)
             aux = 0.0
-        x = L.norm_apply(params["ln_f"], cfg, x)
+        x = L.norm_apply(self._whole(params, "ln_f", sp), cfg, x)
         return x, aux, new_states
 
-    def _attn_block(self, p, x, run, positions, moe=False, shard=False):
+    def _attn_block(self, p, x, run, positions, moe=False, shard=False, sp=None):
         """One attention block of the prefill; returns (x', aux)."""
         x, _, aux = B.attn_block_apply(
             p, self.cfg, x, moe=moe, positions=positions, attn_impl=run["attn_impl"],
             shard=shard, mesh=run.get("mesh"),
-            block_q=run["attn_block_q"], block_k=run["attn_block_k"],
+            block_q=run["attn_block_q"], block_k=run["attn_block_k"], sp=sp,
         )
         return x, aux
 
-    def _attn_stack(self, params, x, memory, run, positions, shard=False):
+    def _attn_stack(self, params, x, memory, run, positions, shard=False, sp=None):
         """Every layer (dense, moe, audio), or the vlm's ``n_layers //
         every`` groups of ``every`` layers, each followed by its
         cross-attention block; like the reference, the vlm stack runs
-        ``blocks[: n_groups * every]``.  Returns (x, summed aux)."""
+        ``blocks[: n_groups * every]``.  With ``sp`` each block gathers its
+        own weights inside its checkpoint.  Returns (x, summed aux)."""
         cfg = self.cfg
         moe = cfg.moe is not None
         every = cfg.xattn_every or cfg.n_layers
@@ -270,7 +349,7 @@ class LM:
         xblocks = _unstack(params["xattn"], n_groups) if cfg.xattn_every else None
 
         def layer(i, x):
-            return self._attn_block(blocks[i], x, run, positions, moe, shard)
+            return self._attn_block(blocks[i], x, run, positions, moe, shard, sp)
 
         def group(g, x):
             aux = 0.0
@@ -278,7 +357,8 @@ class LM:
                 x, a = _remat(run, lambda x, i=i: layer(i, x), x)
                 aux = aux + a
             if cfg.xattn_every:
-                x = B.xattn_block_apply(xblocks[g], cfg, x, memory, attn_impl=run["attn_impl"])
+                x = B.xattn_block_apply(xblocks[g], cfg, x, memory, attn_impl=run["attn_impl"],
+                                        sp=sp)
             return x, aux
 
         aux = 0.0
@@ -362,19 +442,38 @@ class LM:
         cfg = self.cfg
         run = {**DEFAULT_RUN, **(run or {})}
         shard = self._check_engine(run, "sp")
-        params = self.mesh_params(params, run)
         tokens = batch["tokens"]
+        sp = self._seq_parallel(run, tokens.shape[1])
+        params = self.mesh_params(params, run)
         states = self.init_recurrent_states(tokens.shape[0], cfg.param_dtype)
         hid, aux, _ = self._forward(params, tokens, batch.get("memory"), run, None, states,
-                                    shard)
-        tot, cnt = _xent_sums(params["embed"], cfg, hid, batch["targets"], batch.get("mask"),
-                              chunk=run["loss_chunk"])
+                                    shard, sp)
+        targets, mask = batch["targets"], batch.get("mask")
+        if sp is None:
+            tot, cnt = _xent_sums(params["embed"], cfg, hid, targets, mask,
+                                  chunk=run["loss_chunk"])
+        else:
+            # the rank's tokens' targets; the head gathered once for the
+            # forward and once for the backward, alive only while each runs
+            own = slice(sp.start, sp.start + hid.shape[1])
+            targets, mask = targets[:, own], None if mask is None else mask[:, own]
+            embed = params["embed"]
+
+            def whole(blocks):
+                it = iter(blocks)
+                return self._whole({"embed": tree_map(lambda _: next(it), embed)}, "embed", sp,
+                                   self._head_leaves())
+
+            tot = _GatheredXent.apply(hid, targets, mask, cfg, run["loss_chunk"], whole,
+                                      *tree_leaves(embed))
+            cnt = _mask_of(hid, mask).sum()
         if run.get("mesh") is None:
             nll = tot / torch.clamp(cnt, min=1.0)
         else:
-            dp = data_axes(run["mesh"])
-            cnt = C.all_reduce(cnt.detach(), run["mesh"], dp)
-            nll = C.reduce_forward(tot / torch.clamp(cnt, min=1.0), run["mesh"], dp)
+            mesh = run["mesh"]
+            axes = data_axes(mesh) if sp is None else tuple(axis_sizes(mesh))
+            cnt = C.all_reduce(cnt.detach(), mesh, axes)
+            nll = C.reduce_forward(tot / torch.clamp(cnt, min=1.0), mesh, axes)
         return nll + 0.01 * aux
 
     # -- decode ---------------------------------------------------------------
@@ -422,7 +521,8 @@ class LM:
         cfg = self.cfg
         run = {**DEFAULT_RUN, **(run or {})}
         shard = self._check_engine(run, "decode_moe_shardmap")
-        params = self.mesh_params(params, run)
+        if run.get("mesh") is not None:
+            params = self._gathered(params, run["mesh"])
         pos = cache["len"]
         x = L.embed_apply(params["embed"], cfg, tokens)
         if self.block_kind == "attn":
@@ -500,20 +600,82 @@ def _xent_chunked(embed_params, cfg: ArchConfig, hidden, targets, mask, *, chunk
 def _xent_sums(embed_params, cfg: ArchConfig, hidden, targets, mask, *, chunk: int):
     """(Σ mask × nll, Σ mask) of :func:`_xent_chunked`, whose quotient it
     is (on a mesh the count is summed over the data axes first)."""
-    B_, S, _ = hidden.shape
+    msk = _mask_of(hidden, mask)
+    pad = _vocab_pad(cfg, hidden.device)
+    tot = cnt = torch.zeros((), device=hidden.device)
+    for c in _loss_chunks(hidden.shape[1], chunk):
+        m = msk[:, c]
+        tot = tot + checkpointed(lambda h, t, m: _xent_chunk(embed_params, cfg, pad, h, t, m),
+                                 hidden[:, c], targets[:, c], m)
+        cnt = cnt + m.sum()
+    return tot, cnt
+
+
+def _mask_of(hidden, mask):
+    """The loss mask in f32 (all ones when None)."""
+    if mask is None:
+        return torch.ones(hidden.shape[:2], device=hidden.device)
+    return mask.to(torch.float32)
+
+
+def _vocab_pad(cfg: ArchConfig, device):
+    """-1e30 on the padded vocab's entries past ``cfg.vocab``, else 0."""
+    return torch.where(torch.arange(L.padded_vocab(cfg), device=device) >= cfg.vocab, -1e30, 0.0)
+
+
+def _loss_chunks(S: int, chunk: int) -> list:
+    """The sequence chunks of the loss: ``chunk`` halved until it divides
+    S, as in the reference."""
     chunk = min(chunk, S)
     while S % chunk:
         chunk //= 2
-    dev = hidden.device
-    pad = torch.where(torch.arange(L.padded_vocab(cfg), device=dev) >= cfg.vocab, -1e30, 0.0)
-    msk = torch.ones(B_, S, device=dev) if mask is None else mask.to(torch.float32)
-    tot = cnt = torch.zeros((), device=dev)
-    for c0 in range(0, S, chunk):
-        m = msk[:, c0:c0 + chunk]
-        tot = tot + checkpointed(lambda h, t, m: _xent_chunk(embed_params, cfg, pad, h, t, m),
-                                 hidden[:, c0:c0 + chunk], targets[:, c0:c0 + chunk], m)
-        cnt = cnt + m.sum()
-    return tot, cnt
+    return [slice(c0, c0 + chunk) for c0 in range(0, S, chunk)]
+
+
+class _GatheredXent(torch.autograd.Function):
+    """Σ mask × nll of :func:`_xent_sums` in the sequence-parallel layout,
+    whose head is gathered from the rank's blocks by ``whole(blocks)``:
+    gathered once in the forward (no graph) and once in the backward, where
+    each chunk's logits are recomputed and differentiated alone (as the
+    chunks' checkpoints do on one device) and the whole head's gradient is
+    sent back through the gather (a reduce-scatter).  Neither pass keeps
+    the gathered head beyond itself, and the logits are computed twice, as
+    on one device."""
+
+    @staticmethod
+    def forward(ctx, hidden, targets, mask, cfg, chunk, whole, *blocks):
+        ctx.cfg, ctx.chunk, ctx.whole = cfg, chunk, whole
+        ctx.save_for_backward(hidden, targets, mask, *blocks)
+        with torch.no_grad():
+            return _xent_sums(whole(blocks), cfg, hidden, targets, mask, chunk=chunk)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, targets, mask, *blocks = ctx.saved_tensors
+        cfg = ctx.cfg
+        blocks = [b.detach().requires_grad_() for b in blocks]
+        with torch.enable_grad():
+            gathered = ctx.whole(blocks)
+        leaves = tree_leaves(gathered)
+        used = [t.detach().requires_grad_() for t in leaves]
+        it = iter(used)
+        head = tree_map(lambda _: next(it), gathered)
+        msk = _mask_of(hidden, mask)
+        pad = _vocab_pad(cfg, hidden.device)
+        dhead = [torch.zeros_like(t) for t in used]
+        dhidden = []
+        for c in _loss_chunks(hidden.shape[1], ctx.chunk):
+            h = hidden[:, c].detach().requires_grad_()
+            with torch.enable_grad():
+                out = _xent_chunk(head, cfg, pad, h, targets[:, c], msk[:, c])
+            dh, *dw = torch.autograd.grad(out, [h] + used, g, allow_unused=True)
+            dhidden.append(dh)
+            for acc, d in zip(dhead, dw):
+                if d is not None:
+                    acc.add_(d)
+        del used, head
+        grads = torch.autograd.grad(leaves, blocks, dhead, allow_unused=True)
+        return (torch.cat(dhidden, dim=1), None, None, None, None, None) + tuple(grads)
 
 
 def _xent_chunk(embed_params, cfg: ArchConfig, pad, h, t, m):

@@ -14,21 +14,45 @@ the port runs, and the partition specs need only its shape, so
 :func:`make_production_mesh` gives a :class:`MeshDescription`: the shape and
 the axis names.  Every spec function takes a ``DeviceMesh`` or a
 description (:func:`axis_sizes`), and reads its pod and data axes off it
-(:func:`is_multi_pod`, :func:`data_axes`).
+(:func:`is_multi_pod`, :func:`data_axes`).  A description with a
+``coordinate`` stands for one device of the mesh: the collectives of
+:mod:`~repro_torch.parallel.collectives` take it with ``meta`` tensors and
+give ``meta`` results of the gathered or scattered shape (the dry run per
+device, ``launch/dryrun.py --mesh production``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 
 class MeshDescription(NamedTuple):
     """A mesh's shape and axis names, with no process behind it (the
-    attributes a ``DeviceMesh`` has under the same names)."""
+    attributes a ``DeviceMesh`` has under the same names), and optionally
+    the coordinate of the one device it stands for."""
 
     shape: Tuple[int, ...]
     mesh_dim_names: Tuple[str, ...]
+    coordinate: Optional[Tuple[int, ...]] = None
+
+    def get_local_rank(self, name: str) -> int:
+        """The described device's index along axis ``name``
+        (``DeviceMesh.get_local_rank``); raises without a coordinate."""
+        if self.coordinate is None:
+            raise ValueError("a MeshDescription without a coordinate stands for no device")
+        return self.coordinate[self.mesh_dim_names.index(name)]
+
+    def at(self, **index: int) -> "MeshDescription":
+        """This description standing for the device at ``index`` ({axis:
+        index}; axes not named at 0)."""
+        unknown = set(index) - set(self.mesh_dim_names)
+        if unknown:
+            raise ValueError(f"no axes {sorted(unknown)} in {self.mesh_dim_names}")
+        coord = tuple(int(index.get(a, 0)) for a in self.mesh_dim_names)
+        if any(not 0 <= c < n for c, n in zip(coord, self.shape)):
+            raise ValueError(f"coordinate {coord} outside the mesh {self.shape}")
+        return self._replace(coordinate=coord)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> MeshDescription:
@@ -37,6 +61,10 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshDescription:
     if multi_pod:
         return MeshDescription((2, 16, 16), ("pod", "data", "model"))
     return MeshDescription((16, 16), ("data", "model"))
+
+
+def is_description(mesh) -> bool:
+    return isinstance(mesh, MeshDescription)
 
 
 def make_host_mesh(shape=(1, 1), axes=("data", "model"), device_type: str = "cuda"):

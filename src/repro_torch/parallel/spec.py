@@ -83,3 +83,16 @@ def local_shard(tensor: torch.Tensor, spec, mesh, coord: Optional[Dict[str, int]
         if entry is not None:
             out = out.narrow(dim, axis_index(mesh, entry, coord) * size, size)
     return out.clone(memory_format=torch.contiguous_format)
+
+
+def token_range(mesh, seq_len: int) -> tuple:
+    """(start, stop) of the rank's tokens in the sequence-parallel layout:
+    the sequence split into contiguous blocks over "model", block ``m`` the
+    tokens [m S / M, (m + 1) S / M).  Raises ``ValueError`` where S does not
+    divide."""
+    n = axis_size(mesh, "model")
+    if seq_len % n:
+        raise ValueError(f"the sequence-parallel layout splits the {seq_len} tokens over "
+                         f"\"model\" ({n} ranks): they do not divide")
+    start = axis_index(mesh, "model") * (seq_len // n)
+    return start, start + seq_len // n

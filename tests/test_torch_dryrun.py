@@ -18,6 +18,20 @@
   nothing touches CUDA;
 * the CLI writes one JSON a cell, and exits 1 on a cell that raises.
 
+Per device of a mesh (``--mesh production``):
+
+* for every runnable ``train_4k`` and ``prefill_32k`` cell of every arch on
+  both production meshes, (16, 16) and (2, 16, 16), the bytes of the
+  counted device's inputs that the step reads equal, exactly, what
+  ``repro``'s specs give (``NamedSharding(AbstractMesh(...),
+  spec).shard_shape`` of each leaf of its ``input_specs``);
+* on a (2, 4) description, the qwen2 smoke config's four model ranks'
+  summed flops (the prefill, and one microbatch's loss and gradients)
+  equal the one-device count of the same rows within 2%, the counted
+  argument bytes equal the specs' on every rank, and the collectives are
+  counted by kind; zamba2 (hybrid) is counted in the gathered-whole
+  layout; a decode cell is skipped with its reason.
+
 JAX is imported in a fixture.
 """
 
@@ -34,6 +48,9 @@ from repro_torch.launch import dryrun, opcost
 from repro_torch.launch import steps as S
 from repro_torch.models import LM
 from repro_torch.models.module import param_bytes
+from repro_torch.parallel.mesh import MeshDescription, make_production_mesh
+
+MESH_SHAPES = ("train_4k", "prefill_32k")
 
 
 @pytest.fixture(autouse=True)
@@ -181,3 +198,104 @@ def test_cli_writes_json_and_exits_one_on_error(tmp_path, monkeypatch):
     assert e.value.code == 1
     r = json.loads((tmp_path / "qwen2-7b__long_500k.json").read_text())
     assert r["status"] == "error" and r["error"] == "RuntimeError: no such step"
+
+
+# ---------------------------------------------------------------------------
+# per device of a mesh
+# ---------------------------------------------------------------------------
+
+def _reference_read_bytes(j, ref_cfg, shape, multi_pod):
+    """The bytes of one device's blocks of the inputs ``shape``'s step
+    reads, by ``repro``'s specs on an abstract production mesh."""
+    import math
+
+    from jax.sharding import AbstractMesh, NamedSharding
+
+    jax = j["jax"]
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    sizes = (2, 16, 16) if multi_pod else (16, 16)
+    mesh = AbstractMesh(sizes, axes)
+    specs = j["steps"].input_specs(ref_cfg, shape, mesh, multi_pod=multi_pod)
+    if SHAPES[shape]["kind"] == "prefill":
+        specs = {"params": specs["params"], "tokens": specs["batch"]["tokens"],
+                 "memory": specs["batch"].get("memory")}
+    total = 0
+    for leaf in jax.tree.leaves(specs):
+        block = NamedSharding(mesh, leaf.sharding.spec).shard_shape(leaf.shape)
+        total += math.prod(block) * leaf.dtype.itemsize
+    return total
+
+
+@pytest.mark.parametrize("multi_pod", [False, True], ids=["16x16", "2x16x16"])
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_per_device_argument_bytes_equal_the_reference(j, arch, multi_pod):
+    cfg, ref_cfg = get_config(arch), j["configs"].get_config(arch)
+    device = dryrun.counted_device(make_production_mesh(multi_pod=multi_pod))
+    assert device.coordinate == ((0, 0, 15) if multi_pod else (0, 15))
+    for shape in MESH_SHAPES:
+        if not cell_is_runnable(cfg, shape):
+            continue
+        ours = dryrun._read_input_bytes(SHAPES[shape]["kind"], S.input_specs(cfg, shape, device))
+        assert ours == _reference_read_bytes(j, ref_cfg, shape, multi_pod), (arch, shape)
+
+
+def test_model_ranks_sum_to_the_one_device_count():
+    """Data index 0 of a (2, 4) description, each of its four model ranks
+    counted alone, against one device on the data shard's rows."""
+    cfg = get_smoke_config("qwen2-7b")
+    desc = MeshDescription((2, 4), ("data", "model"))
+    for kind in ("prefill", "train"):
+        ranks = [dryrun.run_cell("qwen2-7b", dict(seq_len=64, global_batch=8, kind=kind),
+                                 mesh=desc.at(model=m), cfg=cfg, verbose=False)
+                 for m in range(4)]
+        for r in ranks:
+            assert r["status"] == "ok" and r["layout"] == "sequence-parallel"
+            assert r["memory"]["argument_bytes"] == r["spec_argument_bytes"]
+            assert r["n_devices"] == 8 and r["collective_counts"]["all-gather"] > 0
+            # a reduce-scatter runs as an all-reduce of the whole and one's own block
+            assert r["collective_bytes"]["all-reduce"] > 0
+            assert "reduce-scatter" not in r["collective_bytes"]
+        if kind == "prefill":
+            one = dryrun.run_cell("qwen2-7b", dict(seq_len=64, global_batch=4, kind=kind),
+                                  cfg=cfg, verbose=False)
+            assert sum(r["flops"] for r in ranks) == pytest.approx(one["flops"], rel=0.02)
+    # one microbatch's loss and gradients, without the update (each rank
+    # updates its block only)
+    flops = []
+    for m in range(4):
+        step, _, _ = S.build_train_step(cfg, accum=1, device=S.META, mesh=desc.at(model=m))
+        specs = S.input_specs(cfg, dict(seq_len=64, global_batch=8, kind="train"),
+                              desc.at(model=m))
+        gsum = step.begin(specs["params"])
+        flops.append(opcost.count(step.microbatch, specs["params"], specs["batch"], gsum).flops)
+    step, _, _ = S.build_train_step(cfg, accum=1, device=S.META)
+    specs = S.input_specs(cfg, dict(seq_len=64, global_batch=4, kind="train"))
+    one = opcost.count(step.microbatch, specs["params"], specs["batch"],
+                       step.begin(specs["params"])).flops
+    assert sum(flops) == pytest.approx(one, rel=0.02)
+
+
+def test_mesh_cells_name_their_layout_and_skip_decode():
+    desc = MeshDescription((2, 4), ("data", "model"))
+    cfg = get_smoke_config("zamba2-1.2b")
+    r = dryrun.run_cell("zamba2-1.2b", dict(seq_len=64, global_batch=8, kind="prefill"),
+                        mesh=desc, cfg=cfg, verbose=False)
+    assert r["status"] == "ok" and r["layout"] == "gathered-whole"
+    assert r["device"] == {"data": 0, "model": 3}
+    assert r["memory"]["argument_bytes"] == r["spec_argument_bytes"]
+    r = dryrun.run_cell("qwen2-7b", "decode_32k", mesh=make_production_mesh(), verbose=False)
+    assert r["status"] == "skipped" and r["reason"] == dryrun.MESH_DECODE_REASON
+    assert not torch.cuda.is_initialized()
+
+
+def test_cli_counts_a_device_of_the_production_mesh(tmp_path):
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(["--arch", "qwen2-7b", "--shape", "decode_32k", "--mesh", "production",
+                     "--multi-pod", "--out", str(tmp_path)])
+    assert e.value.code == 0
+    r = json.loads((tmp_path / "qwen2-7b__decode_32k__2x16x16.json").read_text())
+    assert r["status"] == "skipped" and r["mesh"]["shape"] == [2, 16, 16]
+    assert r["device"] == {"pod": 0, "data": 0, "model": 15} and r["n_devices"] == 512
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(["--arch", "qwen2-7b", "--shape", "train_4k", "--multi-pod"])
+    assert e.value.code == 2

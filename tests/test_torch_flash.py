@@ -5,8 +5,12 @@ On the CPU ``attention`` takes the plain chunked version; it is held against
 sweep of ``tests/test_kernels.py`` (MHA, GQA, MQA, window, Sq != Sk
 non-causal, Sk off the block), in f32 and bf16, at that file's tolerances
 (2e-5 and 2e-2).  Inputs are made with numpy and rounded to the working type
-by each package.  The ``cuda``-marked tests hold the CUDA kernel against the
-plain version and run only where there is a card.
+by each package.  ``attention(q_offset=...)`` (a q block whose rows sit at
+absolute positions from ``q_offset``, the sequence-parallel layout's) is
+held against ``repro``'s ``mha_chunked(q_offset=...)`` at offsets that are
+and are not multiples of a block, with a window, with GQA, Sq < Sk.  The
+``cuda``-marked tests hold the CUDA kernel against the plain version and run
+only where there is a card.
 """
 
 import importlib.util
@@ -54,6 +58,30 @@ CUDA_EDGES = [
     (1, 2, 2, 4100, 129, 64, True, None),
     (1, 2, 1, 200, 60, 64, True, 16),
     (2, 600, 600, 16, 16, 64, True, None),
+]
+
+
+# q blocks at an offset: (B, Hq, Hkv, Sq, Sk, D, causal, window, q_offset),
+# blocks of 16 on the CPU; the last q block, offsets off and on a block,
+# GQA and MQA, a window, offset 0 with Sq < Sk, non-causal
+OFFSETS = [
+    (1, 2, 2, 16, 64, 16, True, None, 48),
+    (2, 4, 2, 12, 48, 32, True, None, 20),
+    (1, 4, 1, 24, 80, 16, True, 16, 37),
+    (1, 2, 2, 8, 40, 16, True, 8, 0),
+    (1, 2, 2, 10, 40, 16, False, None, 13),
+]
+# the same on the card, against the kernel's tiles (64 rows f32, 128 bf16):
+# offsets off every tile, a window of 4,096 crossing tiles, a window
+# narrower than a tile, a group of 7 at the last of 16 blocks of qwen2-7b's
+# 4,096 tokens, non-causal
+CUDA_OFFSETS = [
+    (1, 2, 2, 100, 300, 64, True, None, 200),
+    (1, 4, 2, 129, 700, 128, True, None, 517),
+    (1, 14, 2, 256, 4096, 128, True, None, 3840),
+    (1, 4, 1, 300, 5000, 128, True, 4096, 4700),
+    (2, 4, 4, 64, 1000, 72, True, 100, 63),
+    (1, 2, 2, 77, 500, 64, False, None, 11),
 ]
 
 
@@ -147,6 +175,35 @@ def test_plain_version_takes_any_sm_scale(sm_scale, dtype):
     _close(got, interp, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window,q_offset", OFFSETS)
+def test_plain_version_at_an_offset_matches_repro(B, Hq, Hkv, Sq, Sk, D, causal, window,
+                                                  q_offset, dtype):
+    """``attention(q_offset=...)`` against ``repro``'s ``mha_chunked`` at the
+    same offset, and a causal block against the rows it is of attention
+    over a whole sequence (q made of the block and rows before it)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from repro.kernels.flash_attention.ref import mha_chunked as j_chunked
+
+    q, k, v = _inputs((B, Hq, Hkv, Sq, Sk, D), seed=q_offset * 100 + Sq)
+    jd = getattr(jnp, dtype)
+    jq, jk, jv = (jnp.asarray(a).astype(jd) for a in (q, k, v))
+    tq, tk, tv = (torch.as_tensor(a).to(T_DTYPES[dtype]) for a in (q, k, v))
+    kw = dict(causal=causal, window=window)
+    want = np.asarray(j_chunked(jq, jk, jv, q_offset=q_offset, block_q=16, block_k=16,
+                                **kw).astype(jnp.float32))
+    got = attention(tq, tk, tv, q_offset=q_offset, block_q=16, block_k=16, **kw)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    _close(got, want, dtype)
+    _close(attention(tq, tk, tv, q_offset=q_offset, **kw), want, dtype)
+    if causal and q_offset + Sq <= Sk:
+        full = torch.cat([torch.zeros(B, Hq, q_offset, D, dtype=tq.dtype), tq], dim=2)
+        rows = attention(full, tk[:, :, :q_offset + Sq], tv[:, :, :q_offset + Sq], **kw)
+        _close(got, to_np(rows[:, :, q_offset:].float()), dtype)
+
+
 def _chip_smoke():
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
@@ -218,6 +275,28 @@ def test_cuda_kernel_matches_plain(cuda_device, B, Hq, Hkv, Sq, Sk, D, causal, w
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window,q_offset", OFFSETS + CUDA_OFFSETS)
+def test_cuda_kernel_at_an_offset_matches_plain(cuda_device, B, Hq, Hkv, Sq, Sk, D, causal,
+                                                window, q_offset, dtype):
+    q, k, v = (torch.as_tensor(a, device=cuda_device).to(T_DTYPES[dtype])
+               for a in _inputs((B, Hq, Hkv, Sq, Sk, D), seed=q_offset + 1))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = flash_kernel.flash_attention.launches
+    at_offset = flash_kernel.flash_attention.launches_at_offset
+    got = attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_kernel.flash_attention.launches == before + 1
+    assert flash_kernel.flash_attention.launches_at_offset == at_offset + bool(q_offset)
+    want = attention(q, k, v, impl="reference", **kw)
+    assert torch.isfinite(got).all()
+    _close(got, to_np(want.float()), dtype)
+    if dtype == "bfloat16" and Sq >= 256:
+        smoke = _chip_smoke()
+        assert smoke.require_block_rel_l2("kernel", got, want) <= smoke.FLASH_BLOCK_REL_TOL
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D", [(2, 28, 4, 1000, 1000, 128), (1, 32, 32, 700, 700, 64)])
 def test_cuda_bf16_kernel_is_deterministic(cuda_device, B, Hq, Hkv, Sq, Sk, D):
     """The same inputs twice give the same bytes: no race on the stage ring."""
@@ -260,3 +339,7 @@ def test_cuda_kernel_refuses_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="16-byte"):
         x = torch.zeros(4 * 8 * 16 + 1, device=cuda_device)[1:].view(1, 4, 8, 16)
         flash_kernel.flash_attention(x, x, x)
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_kernel.flash_attention(q, q, q, q_offset=1)  # causal: q_offset + Sq > Sk
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_kernel.flash_attention(q, q, q, q_offset=-1, causal=False)

@@ -11,7 +11,8 @@ granite smoke configs, with the smoke capacity factor (2) and a tight one
   data shard's rows, and its output within 2e-5 of that run;
 * on a world of one rank, a (1, 1) mesh, bit for bit ``moe_apply``.
 
-And ``LM.hidden_states(run={"sp": True, "mesh": ...})``, ``LM.loss`` and
+And ``LM.hidden_states(run={"sp": True, "mesh": ...})`` (the rank's
+token block of its rows, in the sequence-parallel layout), ``LM.loss`` and
 three ``decode_step(run={"decode_moe_shardmap": True, ...})`` on (2, 2),
 with the parameters as each rank's blocks, within 2e-5 of the one-device
 port on each data shard's rows.  The expert weights are numpy draws handed
@@ -254,9 +255,11 @@ def test_lm_on_a_mesh_is_the_one_device_lm_on_each_shards_rows(ranks, arch):
                 logits.append(lg.numpy())
         auxes.append(float(aux))
         xent.append(float(loss) - 0.01 * float(aux))
+        n = toks.shape[1] // 2
         for m in range(2):
             r = ranks[2 * d + m]["lm"][arch]
-            np.testing.assert_allclose(r["hid"], hid.numpy(), atol=TOL, rtol=0)
+            np.testing.assert_allclose(r["hid"], hid.numpy()[:, m * n:(m + 1) * n], atol=TOL,
+                                       rtol=0)
             np.testing.assert_allclose(r["logits"], np.stack(logits), atol=TOL, rtol=0)
     for rank in range(4):
         r = ranks[rank]["lm"][arch]

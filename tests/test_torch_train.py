@@ -426,12 +426,12 @@ def test_train_cli_crashes_and_resumes(tmp_path, capsys):
 _ATTENTION, _SCAN = flash_ops.attention, ssd_ops.ssd_scan  # the real entry points
 
 
-def _plain_flash(q, k, v, *, causal=True, window=None, sm_scale=None):
+def _plain_flash(q, k, v, *, causal=True, window=None, sm_scale=None, q_offset=0):
     """A stand-in for the CUDA kernel: the plain version, with no graph (as
     the kernel's wrapper hands back), counting launches."""
     with torch.no_grad():
         out = flash_ref.mha_chunked(q, k, v, causal=causal, window=window, sm_scale=sm_scale,
-                                    block_q=8, block_k=8, q_offset=0)
+                                    block_q=8, block_k=8, q_offset=q_offset)
     _plain_flash.launches += 1
     return out
 
