@@ -109,8 +109,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    compared too; in scalar mode a one-column decay must give the kernel's
    result bit for bit.
 9. rwkv6-3b (ssm; arXiv:2404.05892) at full width (d_model 2560, 40 heads
-   of 64, d_ff 8960, vocab 65536, bf16), 8 of its 32 layers (all 32 before
-   phase 22's sequence-parallel run came), as phase 6: the prefill of
+   of 64, d_ff 8960, vocab 65536, bf16), 4 of its 32 layers (all 32 before
+   phase 22's sequence-parallel run came, then 8 until its decode came), as
+   phase 6: the prefill of
    2 x 4,096 tokens runs ``ssd_scan`` once per layer.  The kernel is held
    to the plain scan on the bf16 inputs that the prefill gave the first and
    last layer's scan (within 5e-2, outputs and final states), and the whole
@@ -123,10 +124,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    counted.
 10. zamba2-1.2b (hybrid; arXiv:2411.15242) at full width (d_model 2048,
    mamba2 with 64 heads, N 64, conv 4, the shared MHA block after every 6
-   layers), 20 of its 38 layers (3 groups and a tail of 2, as at full width;
-   all 38 before phase 22's sequence-parallel run came), the same way:
-   ``ssd_scan`` (scalar decay) 20 times and ``flash_attention`` 3 times a
-   prefill, and ``paged_attention`` in the
+   layers), 14 of its 38 layers (2 groups and a tail of 2, as at full width;
+   all 38 before phase 22's sequence-parallel run came, then 20 until its
+   decode came), the same way: ``ssd_scan`` (scalar decay) 14 times and
+   ``flash_attention`` twice a prefill, and ``paged_attention`` in the
    drain on the first and last occurrence of the shared block (MHA, 32
    heads of 64).  The prefill does not produce the
    shared block's KV cache (nor does the reference's), so the handoff is
@@ -240,21 +241,22 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    causal, window 4,096, beside SDPA with the window's boolean mask.
 18. llama-3.2-vision-11b (vlm; hf:meta-llama/Llama-3.2-11B-Vision) at full
    width (a gated cross-attention block after every 5 layers, GQA 32/8 of
-   128, vocab 128256), 10 of its 40 layers (all 40 before phase 22's
-   sequence-parallel run came), both tanh gates and 4,096 image tokens of
-   d_model drawn nonzero from the seed: the prefill (with the image tokens)
-   launches ``flash_attention`` non-causal at Sq = Sk = 4,096 2 times beside
-   the 10 causal self-attention launches.  16 prompt tokens decoded one at a time
-   over the cross K/V that ``decode_init`` precomputes must give the
-   prefill's logits at every position within 3e-2 relative L2 on an f32
-   copy of the first group (5 layers, its cross block, ``ln_f`` and the
-   head; the decode launches the kernel at Sq 1 against 4,096 keys); the
-   whole bf16 model's figure is reported.  Serving is text-only, as in the
+   128, vocab 128256), 5 of its 40 layers (all 40 before phase 22's
+   sequence-parallel run came, then 10 until its decode came), both tanh
+   gates and 4,096 image tokens of d_model drawn nonzero from the seed: the
+   prefill (with the image tokens) launches ``flash_attention`` non-causal
+   at Sq = Sk = 4,096 once beside the 5 causal self-attention launches.
+   16 prompt tokens decoded one at a time over the cross K/V that
+   ``decode_init`` precomputes must give the prefill's logits at every
+   position within 3e-2 relative L2 on an f32 copy of the first group (5
+   layers, its cross block, ``ln_f`` and the head; the decode launches the
+   kernel at Sq 1 against 4,096 keys); the whole bf16 model's figure is
+   reported.  Serving is text-only, as in the
    reference, with all of phase 6's checks; ``flash_attention`` is timed at
    the cross-attention shape (B 2, Hq 32, Hkv 8, Sq = Sk = 4,096, D 128,
    non-causal).
-19. musicgen-medium (audio; arXiv:2306.05284) at full width (12 of its 48
-   layers, all 48 before phase 22's sequence-parallel run came,
+19. musicgen-medium (audio; arXiv:2306.05284) at full width (6 of its 48
+   layers, all 48 before phase 22's sequence-parallel run came, then 12,
    d_model 1536, MHA 24 of 64, 4 codebooks of 2,048, layernorm with bias,
    GeLU, sinusoid positions): a prefill of 2 x 4,096 frames x 4 codebooks,
    whose (B, 1, 4, Vp) logits are held as phase 6 holds its own; serving
@@ -331,14 +333,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    otherwise and a near tie fall the other way; the widest such margin that
    differed is printed), and every layer's dispatch int for int with the
    numpy twin on the rank's own router probabilities (with more layers,
-   the later layers' differences from one device are printed); two
-   f32 train steps (``build_train_step(mesh=...)``, accum 1, the token
+   the later layers' differences from one device are printed); an f32
+   train step (``build_train_step(mesh=...)``, accum 1, the token
    stream's rows of the rank's data coordinate), every gradient leaf within
    1e-3 relative L2 of one device (phase 20's gate; the oracle, on rank 0,
    runs each data shard's rows alone, as the sharded MoE dispatches
    token-locally, and steps its own whole state with the gathered
    gradients),
-   the last under the profiler (the ranks' kernel time summed over the
+   under the profiler (the ranks' kernel time summed over the
    slowest rank's wall time) with its collectives timed; that step's
    ``compressed_psum`` of three gradient leaves over the world, alike on
    every rank and equal to numpy on the host bit for bit; a checkpoint (the
@@ -366,7 +368,23 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    card runs phase 20)
    predicting each rank's argument bytes of the bf16 prefill on (2, 2)
    exactly, and its arguments plus temporaries within 15% of the measured
-   peak.  The ``kernels`` line gains ``flash_attention`` timed at the last
+   peak.  Then decode on (2, 2) in the striped-cache layout
+   (``build_decode_step(mesh=)``: the cache's T striped over "model", the
+   partial softmaxes merged, one layer's weights gathered at a time): the
+   same qwen2-7b from one random cache at len 4,096 of T 8,192 drawn from
+   the seed (each rank its stripe of 4,096 rows of its row), 3 bf16 and 3
+   f32 steps against one device's decode of the rank's rows (its greedy
+   tokens fed to both; in f32 on one rank at a time): f32 logits within
+   2e-5 relative L2 and greedy tokens equal (a one-device top-2 margin
+   below 1e-5 excepted, and printed), bf16 within 3e-2, the rank's cache
+   blocks after the steps within the same limits, and every model rank's
+   logits bit for bit; each rank's memory at the first bf16 step beside the
+   same step with every weight gathered whole and the cache's T whole, and
+   the dry run of that step (counted with the prefill's) held as the
+   prefill's is; then zamba2-1.2b's first group (6 mamba2 layers and the
+   shared block) at full width in f32, 3 steps from random states and a
+   random ``shared_kv`` of the same lengths, the states on their blocks,
+   within 2e-5 of one device.  The ``kernels`` line gains ``flash_attention`` timed at the last
    of 4 blocks of qwen2-7b's prefill (Sq 1,024 at ``q_offset`` 3,072
    against 4,096 keys), with phase 22's launches at an offset.
 
@@ -389,11 +407,13 @@ import itertools  # noqa: E402
 import json  # noqa: E402
 import multiprocessing  # noqa: E402
 import re  # noqa: E402
+import resource  # noqa: E402
 import shutil  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 import tempfile  # noqa: E402
+import threading  # noqa: E402
 import time  # noqa: E402
 from pathlib import Path  # noqa: E402
 
@@ -439,15 +459,17 @@ from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.checkpoint import CheckpointStore  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticTokenStream  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
-from repro_torch.launch.shardings import data_rows  # noqa: E402
+from repro_torch.launch.shardings import cache_pspecs, data_rows  # noqa: E402
 from repro_torch.parallel import collectives as mesh_collectives  # noqa: E402
 from repro_torch.parallel.mesh import MeshDescription, make_host_mesh  # noqa: E402
 from repro_torch.parallel.spec import local_shard  # noqa: E402
-from repro_torch.launch.steps import build_prefill_step, build_run, build_train_step  # noqa: E402
+from repro_torch.launch.steps import (  # noqa: E402
+    build_decode_step, build_prefill_step, build_run, build_train_step)
 from repro_torch.launch.train import TrainRunner  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import blocks as model_blocks  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
+from repro_torch.models.lm import ring_record  # noqa: E402
 from repro_torch.models.module import param_bytes, param_count, tree_leaves, tree_map  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, opt_pspecs  # noqa: E402
 from repro_torch.optim.compress import compressed_psum, ef_init  # noqa: E402
@@ -601,8 +623,12 @@ MIXTRAL_PREFILL_LEN = 8192  # twice its 4,096 window, so the window masks keys
 # amplify rounding (llama-3.2-vision, musicgen): rwkv6-3b 32 -> 8 layers,
 # zamba2-1.2b 38 -> 20 (3 groups of 6, each with the shared block, and a
 # mamba2 tail of 2, as at full width), llama-3.2-vision 40 -> 10 (2 groups
-# of 5 and their cross blocks), musicgen 48 -> 12
-SSM_LAYERS, HYBRID_LAYERS, VLM_LAYERS, AUDIO_LAYERS = 8, 20, 10, 12
+# of 5 and their cross blocks), musicgen 48 -> 12; and for the time of its
+# decode runs: rwkv6-3b 8 -> 2, zamba2-1.2b 20 -> 14 (2 groups and the
+# tail), musicgen 12 -> 6 (at 3 one of its 8 prefill top-1s flipped
+# against the plain version's); llama-3.2-vision keeps its 2 groups, so
+# that the walk from one group's cross block into the next runs
+SSM_LAYERS, HYBRID_LAYERS, VLM_LAYERS, AUDIO_LAYERS = 2, 14, 10, 6
 XATTN_DECODE_TOKENS = 16    # phase 18's decode over the cross K/V against the prefill
 
 # ssd_scan against its plain version: tests/test_kernels.py's sweep and
@@ -687,7 +713,12 @@ MESH_ROUTER_TIE = 1e-5       # (b): a near tie of router probabilities rounding 
 MESH_STAGING_BYTES = 256 << 20  # a list all-gather's result whose staging is measured
 MESH_RANKS = MESH_SHAPE[0] * MESH_SHAPE[1]
 MESH_F32_REL_L2, MESH_BF16_REL_L2 = 1e-5, 2e-2   # (b)'s prefill against one device
-MESH_TRAIN_STEPS, MESH_ACCUM = 2, 1  # one microbatch a step: half the gathers
+# one f32 step (2 until phase 22's decode came: cut for its time), one
+# microbatch a step: half the gathers; the step's gradients are held to one
+# device, and the parameters it leaves to a one-device AdamW on the same
+# gradients (tests/test_torch_tp.py's rule against repro)
+MESH_TRAIN_STEPS, MESH_ACCUM = 1, 1
+MESH_PARAMS_REL_L2, MESH_PARAMS_SMALL = 2e-4, 1e-6
 MESH_COMPRESS_LEAVES = ("blocks/attn/wq", "blocks/ffn/router", "ln_f/scale")
 MESH_TIMEOUT_S = 300         # a collective that waits longer raises
 MESH_GRAPH_LOADS, MESH_GRAPH_TRAVERSALS = 8, 2  # (c): phase 15's first batches
@@ -699,6 +730,13 @@ MESH_DENSE_ARCH, MESH_DENSE_LAYERS, MESH_DENSE_BATCH = LM_ARCH, 2, 2
 MESH_SEQ_SHAPE = (1, 4)
 MESH_DENSE_BF16_REL_L2 = 3e-2
 SP_BLOCKS = MESH_SEQ_SHAPE[1]  # the kernels line's row at an offset: the last of 4 blocks
+# (b)'s decode in the striped-cache layout on (2, 2): qwen2-7b (the dense
+# run's 2 layers) and zamba2-1.2b's first group (6 mamba2 layers and the
+# shared block, f32), each from a random cache at len 4,096 of T 8,192
+MESH_DECODE_T, MESH_DECODE_LEN, MESH_DECODE_STEPS = 8192, 4096, 3
+MESH_DECODE_F32_REL_L2 = 2e-5  # f32 logits against one device (bf16: MESH_DENSE_BF16_REL_L2)
+MESH_DECODE_TIE = 1e-5       # a greedy token may differ only below this top-2 margin
+MESH_HYBRID_LAYERS = 6       # zamba2-1.2b's first group
 BF16_DENSE_FLOPS = 989e12  # H100 SXM, bf16 dense, at 700 W (NVIDIA data sheet)
 
 
@@ -3204,7 +3242,7 @@ def start_dry_run():
     run, started in worker processes on the host (spawned: the workers never
     touch the card).  Returns the pool and the pending result of
     ``dryrun.run_cell`` a cell of ``DRYRUN_CELLS``, and a rank of phase 22
-    under ``("mesh", rank)``."""
+    under ``("mesh", kind, rank)``."""
     pool = multiprocessing.get_context("spawn").Pool(2, initializer=torch.set_num_threads,
                                                      initargs=(1,))
     pending = {key: pool.apply_async(dryrun.run_cell, (arch, shape), {"verbose": False})
@@ -3503,6 +3541,34 @@ def _host_compressed_mean(parts, n: int):
     return mean, [x - q.astype(np.float32) * scale for x, q in zip(xs, qs)]
 
 
+def _mesh_params_gate(blocks, whole, spec_leaves, mesh, rank: int, paths) -> dict:
+    """(b)'s parameters after the train steps (``blocks``, the rank's),
+    each leaf gathered whole in turn, against rank 0's one-device AdamW
+    (``whole``) stepped with the same gathered gradients, by
+    tests/test_torch_tp.py's rule: ``MESH_PARAMS_REL_L2`` relative L2 a
+    leaf, ``MESH_PARAMS_SMALL`` absolute where the one-device leaf's norm
+    is below 1e-3 (no granite leaf starts at zero, that rule's exception).
+    Rank 0 raises where a leaf misses it."""
+    rec = {"rel_l2_worst": 0.0, "rel_l2_worst_leaf": None, "misses": []}
+    for i, (blk, sp) in enumerate(zip(tree_leaves(blocks), spec_leaves)):
+        got = mesh_collectives.whole(blk, mesh, sp)
+        if rank == 0:
+            g, w = got.double(), tree_leaves(whole)[i].double()
+            small = bool(w.norm() < 1e-3)
+            err = float((g - w).abs().max()) if small else _rel_l2(g, w)
+            if err > (MESH_PARAMS_SMALL if small else MESH_PARAMS_REL_L2):
+                rec["misses"].append((paths[i], err))
+            if not small and err >= rec["rel_l2_worst"]:
+                rec.update(rel_l2_worst=err, rel_l2_worst_leaf=paths[i])
+        del got
+    if rec["misses"]:
+        raise RuntimeError(f"phase 22 (b): the parameters after the f32 train step(s) against "
+                           f"a one-device AdamW on the same gradients: {rec} (limit "
+                           f"{MESH_PARAMS_REL_L2} relative L2 a leaf, {MESH_PARAMS_SMALL} "
+                           f"absolute below a norm of 1e-3)")
+    return rec if rank == 0 else {}
+
+
 def _one_rank_at_a_time(rank: int, world: int, fn):
     """``fn()`` on each rank in turn, the others waiting at a barrier: one
     whole f32 model on the shared card at a time."""
@@ -3593,6 +3659,7 @@ def _mesh_dense(rank: int, world: int, mesh, seed: int, dev) -> dict:
                 raise RuntimeError(f"phase 22 (b) rank {rank}: {cfg.name}'s {dtype} prefill "
                                    f"on {name} against one device: {rec} (limit {limit})")
             del blocks, lg, want
+    _release_host("the dense prefills", rank)
     # the f32 loss and every gradient leaf on (2, 2), against one device
     n_dp = MESH_SHAPE[0]
     per = MESH_DENSE_BATCH // n_dp
@@ -3633,6 +3700,173 @@ def _mesh_dense(rank: int, world: int, mesh, seed: int, dev) -> dict:
                            f"on {MESH_SHAPE} against one device: {out['train']} (limits "
                            f"{GATE_LOSS_RTOL}, {GATE_GRAD_REL_L2})")
     out["launches_at_offset"] = fak.flash_attention.launches_at_offset - at_offset
+    out["seconds"] = time.perf_counter() - t0
+    del blocks, grads
+    torch.cuda.empty_cache()
+    out["host"] = _release_host("the dense run", rank)
+    out["decode"] = _mesh_decode(rank, world, mesh, seed, dev, params)
+    return out
+
+
+def _host_memory() -> dict:
+    """This process's peak resident host memory (``ru_maxrss``; pinned pages
+    included) and the machine's available memory (MemAvailable), in GB."""
+    with open("/proc/meminfo") as f:
+        avail = next(int(line.split()[1]) for line in f if line.startswith("MemAvailable:"))
+    return {"rss_peak_gb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9,
+            "available_gb": avail * 1024 / 1e9}
+
+
+def _release_host(what: str, rank=None) -> dict:
+    """Returns the pinned blocks the allocator caches (each gloo collective
+    of a card's tensor stages it in pinned host memory, in blocks rounded up
+    to a power of two, which the allocator keeps), and logs
+    :func:`_host_memory` after ``what``."""
+    torch._C._host_emptyCache()
+    mem = _host_memory()
+    who = "" if rank is None else f" rank {rank}"
+    log(f"phase 22{who}: host memory after {what} (GB): "
+        f"{json.dumps({k: round(v, 3) for k, v in mem.items()})}")
+    return mem
+
+
+def _random_cache(model, batch: int, seed: int, dev):
+    """A decode cache of ``batch`` rows at ``len`` ``MESH_DECODE_LEN`` of T
+    ``MESH_DECODE_T``, its K/V rings and recurrent states drawn in f32 from
+    the seed on the card (alike on every rank, and in either dtype)."""
+    cache = model.decode_init(batch, MESH_DECODE_T)
+    gen = torch.Generator(device=dev).manual_seed(seed + 26)
+    for name in ("kv", "shared_kv", "states"):
+        for leaf in tree_leaves(cache.get(name, {})):
+            leaf.copy_(torch.randn(leaf.shape, generator=gen, device=dev))
+    cache["len"].fill_(MESH_DECODE_LEN)
+    return cache
+
+
+def _cache_rows(cache, rows):
+    """The one-device cache of ``rows`` of a whole cache (copies)."""
+    return {k: v if k == "len" else tree_map(lambda t: t[:, rows].clone(), v)
+            for k, v in cache.items()}
+
+
+def _greedy_differences(got, want, vocab: int) -> list:
+    """The one-device top-2 margin of each row whose greedy token differs."""
+    g, w = got[..., :vocab].float(), want[..., :vocab].float()
+    top2 = w.topk(2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1])[g.argmax(-1) != w.argmax(-1)].tolist()
+
+
+def _decode_on_mesh(rank: int, world: int, mesh, cfg, params, seed: int, dev, *,
+                    limit: float, whole_beside: bool) -> dict:
+    """``MESH_DECODE_STEPS`` decode steps of ``cfg`` on ``mesh`` in the
+    striped-cache layout (every rank its blocks of ``params``, whole on each
+    rank, and of a random cache), against one device's decode of the rank's
+    rows from the same cache (on one rank at a time in f32), its greedy
+    tokens fed to both: the logits within ``limit`` relative L2 each step,
+    every model rank's logits bit for bit, in f32 the greedy tokens equal
+    but at a near tie (``MESH_DECODE_TIE``), and the rank's cache blocks
+    after the steps within ``limit`` of the one-device cache's.  The first
+    step's card memory is measured (arguments plus the peak above what was
+    allocated); with ``whole_beside``, beside the same step with every
+    weight gathered whole and the rank's rows of the cache T whole.  Every
+    gate raises on the rank that misses it."""
+    specs = LM(cfg, "meta").pspecs(multi_pod=False)
+    n_dp = dict(zip(mesh.mesh_dim_names, mesh.shape))["data"]
+    per = MESH_DENSE_BATCH // n_dp
+    rows = slice(mesh.get_local_rank("data") * per, (mesh.get_local_rank("data") + 1) * per)
+    rng = np.random.default_rng(seed + 26)
+    first = torch.as_tensor(rng.integers(0, cfg.vocab, (MESH_DENSE_BATCH, 1)).astype(np.int32),
+                            device=dev)[rows]
+    model = LM(cfg, dev)
+    whole = _random_cache(model, MESH_DENSE_BATCH, seed, dev)
+    cspecs = cache_pspecs(cfg, whole, MESH_DENSE_BATCH, mesh)
+    cache = tree_map(lambda t, sp: local_shard(t, sp, mesh), whole, cspecs)
+    cache["ring"] = ring_record(whole, dev)
+    mine = _cache_rows(whole, rows)
+    del whole
+    f32 = cfg.dtype == "float32"
+    # an f32 copy of bf16 parameters, whose norms and biases are f32 already
+    cast = (lambda t: t.float()) if f32 else (lambda t: t)
+
+    def oracle():
+        with uncounted(), torch.no_grad():
+            p = tree_map(cast, params)
+            one = build_decode_step(cfg, device=dev)[0]
+            oc = tree_map(lambda t: t.clone(), mine)
+            tok, logits, toks = first, [], []
+            for _ in range(MESH_DECODE_STEPS):
+                toks.append(tok)
+                lg, oc = one(p, tok, oc)
+                logits.append(lg)
+                tok = lg[..., :cfg.vocab].argmax(-1).to(torch.int32)
+            return logits, toks, oc
+
+    want, toks, want_cache = _one_rank_at_a_time(rank, world, oracle) if f32 else oracle()
+    blocks = tree_map(lambda t, sp: local_shard(cast(t), sp, mesh), params, specs)
+    step = build_decode_step(cfg, device=dev, mesh=mesh)[0]
+    args = _tree_bytes(blocks) + _tree_bytes(cache) + first.numel() * first.element_size()
+    rec = {"rel_l2": [], "s": [], "greedy_margins_differing": [], "model_ranks_identical": True,
+           "argument_bytes": args}
+    for s, tok in enumerate(toks):
+        if s == 0:
+            (lg, cache), sec, rec["peak_bytes"] = _step_memory(
+                lambda: step(blocks, tok, cache), args)
+        else:
+            (lg, cache), sec = wall_s(lambda: step(blocks, tok, cache))
+        rec["s"].append(sec)
+        rec["rel_l2"].append(_logits_distance(f"phase 22 (b) {cfg.name} decode step {s + 1}", lg,
+                                              want[s], cfg.vocab)[0])
+        every = mesh_collectives.all_gather(lg[None].contiguous(), mesh, "model", 0)
+        rec["model_ranks_identical"] &= all(_bits_equal(x, every[0]) for x in every)
+        if f32:
+            rec["greedy_margins_differing"] += _greedy_differences(lg, want[s], cfg.vocab)
+    # the rank's cache blocks after the steps against the one-device cache's
+    # (its rows alone: the data axis of one rank)
+    stripes = MeshDescription((1, mesh.shape[1]), ("data", "model"))
+    coord = {"data": 0, "model": mesh.get_local_rank("model")}
+    rec["cache_rel_l2"] = max(
+        _rel_l2(got.float(), local_shard(w, sp, stripes, coord).float())
+        for got, w, sp in zip(tree_leaves({k: v for k, v in cache.items() if k != "ring"}),
+                              tree_leaves(want_cache),
+                              tree_leaves(cache_pspecs(cfg, want_cache, per, stripes)))
+        if w.dim())
+    if whole_beside:
+        one = build_decode_step(cfg, device=dev)[0]
+        oc = tree_map(lambda t: t.clone(), mine)
+        args_w = _tree_bytes(blocks) + _tree_bytes(oc) + first.numel() * first.element_size()
+        with torch.no_grad():
+            _, rec["whole_s"], rec["whole_peak_bytes"] = _step_memory(
+                lambda: one(model._gathered(blocks, mesh), toks[0], oc), args_w)
+        del oc
+    del blocks, cache, mine, want, want_cache
+    torch.cuda.empty_cache()
+    _release_host(f"{cfg.name}'s {cfg.dtype} decode", rank)
+    if (max(rec["rel_l2"]) > limit or rec["cache_rel_l2"] > limit
+            or not rec["model_ranks_identical"]
+            or any(m >= MESH_DECODE_TIE for m in rec["greedy_margins_differing"])):
+        raise RuntimeError(f"phase 22 (b) rank {rank}: {cfg.name}'s {cfg.dtype} decode on "
+                           f"{tuple(mesh.shape)} against one device: {rec} (limit {limit}; a "
+                           f"greedy token may differ only below a margin of {MESH_DECODE_TIE})")
+    return rec
+
+
+def _mesh_decode(rank: int, world: int, mesh, seed: int, dev, dense_params) -> dict:
+    """(b)'s decode runs: qwen2-7b (``dense_params``, the dense run's bf16
+    parameters) in bf16 and in f32, then zamba2-1.2b's first group in f32."""
+    t0 = time.perf_counter()
+    cfg = get_config(MESH_DENSE_ARCH).scaled(n_layers=MESH_DENSE_LAYERS)
+    out = {"bfloat16": _decode_on_mesh(rank, world, mesh, cfg, dense_params, seed, dev,
+                                       limit=MESH_DENSE_BF16_REL_L2, whole_beside=True),
+           "float32": _decode_on_mesh(rank, world, mesh, cfg.scaled(dtype="float32"),
+                                      dense_params, seed, dev, limit=MESH_DECODE_F32_REL_L2,
+                                      whole_beside=False)}
+    out["dense_s"] = time.perf_counter() - t0
+    hyb = get_config(HYBRID_ARCH).scaled(n_layers=MESH_HYBRID_LAYERS, dtype="float32")
+    params = LM(hyb, dev).init(torch.Generator(device=dev).manual_seed(seed))
+    out["hybrid"] = _decode_on_mesh(rank, world, mesh, hyb, params, seed, dev,
+                                    limit=MESH_DECODE_F32_REL_L2, whole_beside=False)
+    del params
+    torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -3704,8 +3938,9 @@ def _mesh_rank(rank: int, world: int, rdv: str, out_dir: str, seed: int) -> None
             del lg_m, lg_1, kept_m, kept_1, p, b
         out["prefill"] = gates
         out["seconds"]["prefill"] = time.perf_counter() - t0
+        out.setdefault("host", {})["prefill"] = _release_host("prefill", rank)
 
-        # two f32 train steps; each step's gradients against one device
+        # the f32 train steps; each step's gradients against one device
         t0 = time.perf_counter()
         cfg32 = cfg.scaled(dtype="float32")
         model32 = LM(cfg32, dev)
@@ -3769,7 +4004,10 @@ def _mesh_rank(rank: int, world: int, rdv: str, out_dir: str, seed: int) -> None
             steps_out.append(rec)
             p = p_new
         out["train"] = steps_out
+        out["train_params"] = _mesh_params_gate(p, whole_p, spec_leaves, mesh, rank,
+                                                _leaf_paths(specs))
         out["seconds"]["train"] = time.perf_counter() - t0
+        out.setdefault("host", {})["train"] = _release_host("train", rank)
 
         # the last step's compressed_psum over the world, against the host
         t0 = time.perf_counter()
@@ -3794,6 +4032,7 @@ def _mesh_rank(rank: int, world: int, rdv: str, out_dir: str, seed: int) -> None
                 raise RuntimeError(f"phase 22 (b) rank {rank}: compressed_psum of {name}: {comp}")
         out["compressed_psum"] = comp
         out["seconds"]["compressed_psum"] = time.perf_counter() - t0
+        out.setdefault("host", {})["compressed_psum"] = _release_host("compressed psum", rank)
 
         # the parameters and the optimizer state saved on (2, 2), restored on
         # (4, 1) and on one device; each leaf gathered whole one at a time to
@@ -3834,13 +4073,18 @@ def _mesh_rank(rank: int, world: int, rdv: str, out_dir: str, seed: int) -> None
         dist.barrier()
         if not ok41 or not ckpt.get("restored_one_device_bit_equal", True):
             raise RuntimeError(f"phase 22 (b) rank {rank}: the checkpoint's restore: {ckpt}")
+        if rank == 0:  # its files, which the runs that follow do not read
+            shutil.rmtree(os.path.join(out_dir, "ckpt"))
         out["checkpoint"] = ckpt
         out["seconds"]["checkpoint"] = time.perf_counter() - t0
+        out.setdefault("host", {})["checkpoint"] = _release_host("checkpoint", rank)
         out["peak_bytes"] = max(peak_before, torch.cuda.max_memory_allocated())
         del tree, p, opt, gsum, sel, mean, resid
         torch.cuda.empty_cache()
         out["dense"] = _mesh_dense(rank, world, mesh, seed, dev)
         out["seconds"]["dense"] = out["dense"]["seconds"]
+        out["seconds"]["decode"] = out["dense"]["decode"]["seconds"]
+        out["host"]["decode"] = _host_memory()
         out["launches"] = _launch_counts()
     finally:
         dist.destroy_process_group()
@@ -3848,58 +4092,88 @@ def _mesh_rank(rank: int, world: int, rdv: str, out_dir: str, seed: int) -> None
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
+MESH_DRY_RUN = ("prefill", "decode")  # (b)'s bf16 steps on (2, 2) the dry run predicts
+
+
 def mesh_dense_predictions(pool) -> dict:
-    """The dry run of (b)'s dense bf16 prefill on (2, 2), one count a rank on
-    a ``MeshDescription`` standing for the rank's coordinate, submitted to
-    ``pool``: {("mesh", rank): pending result}."""
+    """The dry run of (b)'s dense bf16 prefill and decode step on (2, 2),
+    one count a rank on a ``MeshDescription`` standing for the rank's
+    coordinate, submitted to ``pool``: {("mesh", kind, rank): pending
+    result}."""
     cfg = get_config(MESH_DENSE_ARCH).scaled(n_layers=MESH_DENSE_LAYERS)
     desc = MeshDescription(MESH_SHAPE, ("data", "model"))
-    cell = dict(seq_len=PREFILL_LEN, global_batch=MESH_DENSE_BATCH, kind="prefill")
-    return {("mesh", r): pool.apply_async(dryrun.run_cell, (MESH_DENSE_ARCH, cell), {
+    cells = {"prefill": dict(seq_len=PREFILL_LEN, global_batch=MESH_DENSE_BATCH, kind="prefill"),
+             "decode": dict(seq_len=MESH_DECODE_T, global_batch=MESH_DENSE_BATCH,
+                            kind="decode")}
+    return {("mesh", kind, r): pool.apply_async(dryrun.run_cell, (MESH_DENSE_ARCH, cell), {
         "cfg": cfg, "verbose": False,
         "mesh": desc.at(data=r // MESH_SHAPE[1], model=r % MESH_SHAPE[1])})
-        for r in range(MESH_RANKS)}
+        for kind, cell in cells.items() for r in range(MESH_RANKS)}
 
 
 def _dense_against_dry_run(ranks: list, preds: dict) -> dict:
-    """Each rank's bf16 prefill on (2, 2) against the dry run of its
-    coordinate: argument bytes exactly, arguments plus temporaries within
+    """Each rank's bf16 prefill and first bf16 decode step on (2, 2) against
+    the dry run of its coordinate (``preds``: {kind: {rank: result}}):
+    argument bytes exactly, arguments plus temporaries within
     ``DRYRUN_PEAK_RTOL`` of the measured peak."""
     out = {}
-    for r, rank in enumerate(ranks):
-        got = rank["dense"]["prefill"]["2x2|bfloat16"]
-        mem = preds[r]["memory"]
-        pred = mem["argument_bytes"] + mem["temp_bytes"]
-        rel = (pred - got["peak_bytes"]) / got["peak_bytes"]
-        out[r] = {"argument_bytes": mem["argument_bytes"], "measured_argument_bytes":
-                  got["argument_bytes"], "predicted_peak_bytes": pred,
-                  "measured_peak_bytes": got["peak_bytes"], "peak_rel": rel,
-                  "device": preds[r]["device"], "collective_bytes": preds[r]["collective_bytes"],
-                  "trace_s": preds[r]["trace_s"]}
-        if mem["argument_bytes"] != got["argument_bytes"] or abs(rel) > DRYRUN_PEAK_RTOL:
-            raise SystemExit(f"phase 22 (b): the dry run of rank {r}'s bf16 prefill on "
-                             f"{MESH_SHAPE}: {out[r]} (argument bytes exactly, the peak within "
-                             f"{DRYRUN_PEAK_RTOL:.0%})")
+    for kind in MESH_DRY_RUN:
+        for r, rank in enumerate(ranks):
+            got = (rank["dense"]["prefill"]["2x2|bfloat16"] if kind == "prefill"
+                   else rank["dense"]["decode"]["bfloat16"])
+            pr = preds[kind][r]
+            mem = pr["memory"]
+            pred = mem["argument_bytes"] + mem["temp_bytes"]
+            rel = (pred - got["peak_bytes"]) / got["peak_bytes"]
+            out[f"{kind}|{r}"] = {"argument_bytes": mem["argument_bytes"],
+                              "measured_argument_bytes": got["argument_bytes"],
+                              "predicted_peak_bytes": pred,
+                              "measured_peak_bytes": got["peak_bytes"], "peak_rel": rel,
+                              "device": pr["device"], "layout": pr["layout"],
+                              "collective_bytes": pr["collective_bytes"],
+                              "trace_s": pr["trace_s"]}
+            if mem["argument_bytes"] != got["argument_bytes"] or abs(rel) > DRYRUN_PEAK_RTOL:
+                raise SystemExit(f"phase 22 (b): the dry run of rank {r}'s bf16 {kind} on "
+                                 f"{MESH_SHAPE}: {out[f'{kind}|{r}']} (argument bytes exactly, the "
+                                 f"peak within {DRYRUN_PEAK_RTOL:.0%})")
     return out
 
 
 def mesh_four_ranks(seed: int, tmp: Path, preds: dict) -> dict:
     """(b): the gloo world of four ranks, one process each, sharing the
     card; every rank's gates raise in it, and a failed rank fails the
-    phase.  ``preds``: the dry run of each rank's dense prefill ({rank:
-    ``run_cell``'s result}, :func:`mesh_dense_predictions`)."""
+    phase.  ``preds``: the dry run of each rank's dense prefill and decode
+    step ({kind: {rank: ``run_cell``'s result}}, :func:`mesh_dense_predictions`)."""
     torch.cuda.empty_cache()
+    host = _release_host("(a), before (b)'s ranks start (this process)")
+    # the machine's least available memory while the ranks run (its limit
+    # is its memory: gloo stages collectives in pinned host memory)
+    least, done = [host["available_gb"]], threading.Event()
+
+    def sample():
+        while not done.wait(0.2):
+            least[0] = min(least[0], _host_memory()["available_gb"])
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
     t0 = time.perf_counter()
-    torch.multiprocessing.spawn(_mesh_rank, args=(MESH_RANKS, str(tmp / "gloo_rendezvous"),
-                                                  str(tmp), seed), nprocs=MESH_RANKS)
+    try:
+        torch.multiprocessing.spawn(_mesh_rank, args=(MESH_RANKS, str(tmp / "gloo_rendezvous"),
+                                                      str(tmp), seed), nprocs=MESH_RANKS)
+    finally:
+        done.set()
+        sampler.join()
     wall = time.perf_counter() - t0
+    host["least_available_during_b_gb"] = least[0]
+    log(f"phase 22 (b): the machine's least available host memory while the ranks ran "
+        f"{least[0]:.3f} GB")
     ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(MESH_RANKS)]
     backends = {r["backend"] for r in ranks}
     last = [r["train"][-1] for r in ranks]
     busy = sum(x["device_busy_s"] for x in last) / max(x["wall_s"] for x in last)
     out = {
         "backend": backends.pop() if len(backends) == 1 else sorted(backends),
-        "wall_s": wall, "ranks": ranks,
+        "wall_s": wall, "ranks": ranks, "main_host_before": host,
         "launches": {name: sum(r["launches"][name] for r in ranks) for name in WRAPPERS},
         "last_step_busy_share": busy,
         "train_step_s": [max(r["train"][s]["wall_s"] for r in ranks)
@@ -3935,6 +4209,11 @@ def mesh_four_ranks(seed: int, tmp: Path, preds: dict) -> dict:
             f"clock, waits included; {rec['collective_calls']} calls a rank); every gradient "
             f"leaf within {rec['grad_rel_l2_worst']:.3e} relative L2 of one device (worst "
             f"{rec['grad_rel_l2_worst_leaf']}; limit {GATE_GRAD_REL_L2})")
+    pg = r0["train_params"]
+    log(f"phase 22 (b): the parameters after {MESH_TRAIN_STEPS} f32 step(s), each leaf gathered "
+        f"whole, against a one-device AdamW on the same gradients: every leaf within "
+        f"{pg['rel_l2_worst']:.3e} relative L2 (worst {pg['rel_l2_worst_leaf']}; limit "
+        f"{MESH_PARAMS_REL_L2}, {MESH_PARAMS_SMALL} absolute below a norm of 1e-3)")
     log(f"phase 22 (b): last step under the profiler: the card busy "
         f"{busy:.3f} of the slowest rank's wall time (the four ranks' kernel time summed), "
         f"{sum(x['kernel_launches'] for x in last)} kernel launches; "
@@ -3978,9 +4257,42 @@ def mesh_four_ranks(seed: int, tmp: Path, preds: dict) -> dict:
         f"{[round(x['peak_bytes'] / 1e9, 3) for x in tr]} GB; the attention kernel launched at "
         f"q_offset != 0 {out['dense_launches_at_offset']} times over the ranks; dense run "
         f"{[round(x['seconds'], 1) for x in dense]} s a rank")
+    dec = [x["decode"] for x in dense]
+    for dtype in ("bfloat16", "float32"):
+        g = [x[dtype] for x in dec]
+        whole = ""
+        if "whole_peak_bytes" in g[0]:
+            whole = (f"; with every weight gathered whole and the cache's T whole "
+                     f"{[round(x['whole_peak_bytes'] / 1e9, 3) for x in g]} GB, "
+                     f"{[round(x['whole_s'], 2) for x in g]} s")
+        log(f"phase 22 (b): {MESH_DENSE_ARCH} at full width cut to {MESH_DENSE_LAYERS} layers, "
+            f"{MESH_DECODE_STEPS} {dtype} decode steps on {MESH_SHAPE} in the striped-cache "
+            f"layout from a random cache at len {MESH_DECODE_LEN} of T {MESH_DECODE_T} "
+            f"({MESH_DECODE_T // MESH_SHAPE[1]} rows a stripe) against one device's decode of "
+            f"each rank's rows: logits within {max(max(x['rel_l2']) for x in g):.3e} relative L2 "
+            f"(limit {MESH_DECODE_F32_REL_L2 if dtype == 'float32' else MESH_DENSE_BF16_REL_L2}),"
+            f" cache blocks within {max(x['cache_rel_l2'] for x in g):.3e}, every model rank's "
+            f"logits bit for bit {all(x['model_ranks_identical'] for x in g)}, greedy tokens "
+            f"differing at one-device margins {[x['greedy_margins_differing'] for x in g]}; "
+            f"steps {[[round(t, 2) for t in x['s']] for x in g]} s a rank; arguments plus the "
+            f"card memory allocated at the first step's peak above the rank's resident state "
+            f"{[round(x['peak_bytes'] / 1e9, 3) for x in g]} GB{whole}")
+    g = [x["hybrid"] for x in dec]
+    log(f"phase 22 (b): {HYBRID_ARCH}'s first group ({MESH_HYBRID_LAYERS} mamba2 layers and the "
+        f"shared block) at full width in f32, {MESH_DECODE_STEPS} decode steps on {MESH_SHAPE} "
+        f"(states on their blocks, shared_kv striped) against one device: logits within "
+        f"{max(max(x['rel_l2']) for x in g):.3e} (limit {MESH_DECODE_F32_REL_L2}), cache blocks "
+        f"within {max(x['cache_rel_l2'] for x in g):.3e}, model ranks bit for bit "
+        f"{all(x['model_ranks_identical'] for x in g)}, greedy tokens differing at margins "
+        f"{[x['greedy_margins_differing'] for x in g]}; steps "
+        f"{[[round(t, 2) for t in x['s']] for x in g]} s a rank; peak "
+        f"{[round(x['peak_bytes'] / 1e9, 3) for x in g]} GB; decode runs "
+        f"{[round(x['seconds'], 1) for x in dec]} s a rank")
     out["dry_run"] = _dense_against_dry_run(ranks, preds)
-    for r, x in out["dry_run"].items():
-        log(f"phase 22 (b): the dry run of rank {r} ({x['device']}) of {MESH_SHAPE}, counted in "
+    for key, x in out["dry_run"].items():
+        kind, r = key.split("|")
+        log(f"phase 22 (b): the dry run of rank {r}'s bf16 {kind} ({x['device']}, "
+            f"{x['layout']}) of {MESH_SHAPE}, counted in "
             f"{x['trace_s']:.1f} s on the host: argument bytes {x['argument_bytes']} against "
             f"{x['measured_argument_bytes']} on the rank; arguments + temporaries "
             f"{x['predicted_peak_bytes'] / 1e9:.3f} GB against the measured "
@@ -4047,7 +4359,7 @@ def mesh_phase(seed: int, dev, preds: dict) -> dict:
     """Phase 22 with every launch count set to 0 just before it: (a) and
     (c) counted in this process, (b)'s ranks each from its own start; the
     path's kernels must have run.  ``preds``: the dry run of each rank of
-    (b)'s dense run ({rank: ``run_cell``'s result})."""
+    (b)'s dense run ({kind: {rank: ``run_cell``'s result}})."""
     tmp = Path(tempfile.mkdtemp(prefix="mesh_phase_", dir=ROOT / "build"))
     try:
         for w in WRAPPERS.values():
@@ -4207,8 +4519,8 @@ def main(argv=None) -> int:
         phase_s["20"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         summary["dryrun"] = dry_run_against_card(pending, summary, smi)
-        mesh_preds = {r: pending[("mesh", r)].get(timeout=DRYRUN_WAIT_S)
-                      for r in range(MESH_RANKS)}
+        mesh_preds = {kind: {r: pending[("mesh", kind, r)].get(timeout=DRYRUN_WAIT_S)
+                             for r in range(MESH_RANKS)} for kind in MESH_DRY_RUN}
         phase_s["21"] = time.perf_counter() - t0
     finally:
         pool.terminate()

@@ -45,12 +45,13 @@ both backends allocate for the port's list all-gather
 (``parallel/collectives.py``; ``chip_smoke.py`` phase 22 measures it on
 each).  ``collective_bytes`` and ``fits`` are that program's.  The attention stacks run in the sequence-parallel layout
 (``build_run``'s ``sp``); the recurrent stacks (ssm, hybrid) in the layout
-they run on a mesh today, every dense weight gathered whole for the step
-(``layout`` names it).  The decode cells wait for decode on a mesh (the
-cache's T stripes over "model" and the merge of partial softmaxes) and are
-reported ``skipped``.  ``spec_argument_bytes`` is the bytes of the inputs
-the step reads by their specs' block shapes, which ``argument_bytes`` (what
-the count saw read) must equal.
+they run on a mesh today, every dense weight gathered whole for the step;
+every decode cell in the striped-cache layout (``build_decode_step(mesh=)``:
+the cache's T striped over "model", the partial softmaxes merged, one
+layer's weights gathered at a time).  ``layout`` names it.
+``spec_argument_bytes`` is the bytes of the inputs the step reads by their
+specs' block shapes, which ``argument_bytes`` (what the count saw read) must
+equal.
 """
 
 from __future__ import annotations
@@ -63,6 +64,7 @@ import time
 import traceback
 
 from ..configs import ARCH_NAMES, SHAPES, cell_is_runnable, get_config
+from ..models.lm import ring_record
 from ..models.module import tree_leaves
 from ..parallel.mesh import axis_sizes, make_production_mesh
 from . import opcost
@@ -72,8 +74,6 @@ from . import steps as S
 # reports a little more (``total_memory``), which chip_smoke.py checks
 H100_BYTES = 80 * 10**9
 SKIP_REASON = "long_500k requires sub-quadratic attention (DESIGN.md §5)"
-MESH_DECODE_REASON = ("decode on a mesh (the cache's T stripes over \"model\" and the merge "
-                      "of partial softmaxes) is not ported yet")
 
 
 def counted_device(mesh):
@@ -85,11 +85,19 @@ def counted_device(mesh):
 def _read_input_bytes(kind: str, specs) -> int:
     """The bytes of the stand-ins a step of ``kind`` reads: everything for a
     train step; the parameters, the tokens and the image memory for a
-    prefill (the batch's targets and mask are not read)."""
+    prefill (the batch's targets and mask are not read); the parameters,
+    the tokens and the cache for a decode step (the image memory is taken
+    and not read, and without the cross K/V in the cache, as ``cache_specs``
+    gives it, the cross blocks do not run)."""
     if kind == "prefill":
         batch = specs["batch"]
         specs = {"params": specs["params"], "tokens": batch["tokens"],
                  "memory": batch.get("memory")}
+    elif kind == "decode":
+        params = specs["params"]
+        if "xkv" not in specs["cache"]:
+            params = {k: v for k, v in params.items() if k != "xattn"}
+        specs = {"params": params, "tokens": specs["tokens"], "cache": specs["cache"]}
     return sum(t.numel() * t.element_size() for t in tree_leaves(specs) if t is not None)
 
 
@@ -138,9 +146,6 @@ def run_cell(arch: str, shape, *, mesh=None, verbose: bool = True, cfg=None) -> 
         placed = {"mesh": {"shape": list(mesh.shape), "axes": list(mesh.mesh_dim_names)},
                   "device": dict(zip(mesh.mesh_dim_names, mesh.coordinate)),
                   "n_devices": int(math.prod(mesh.shape))}
-        if kind == "decode":
-            return {"arch": arch, "shape": name, "status": "skipped",
-                    "reason": MESH_DECODE_REASON, **placed}
     t0 = time.perf_counter()
     specs = S.input_specs(cfg, sh, mesh)
     micro = None
@@ -152,14 +157,18 @@ def run_cell(arch: str, shape, *, mesh=None, verbose: bool = True, cfg=None) -> 
         step, model, run = S.build_prefill_step(cfg, device=S.META, mesh=mesh)
         costs = opcost.count(step, **specs)
     else:
-        step, model, run = S.build_decode_step(cfg, device=S.META)
+        step, model, run = S.build_decode_step(cfg, device=S.META, mesh=mesh)
+        ring = ring_record(S.cache_specs(cfg, sh), S.META) if mesh is not None else None
+        if ring is not None:  # as shardings.decode_cache records the rings' T
+            specs["cache"]["ring"] = ring
         costs = opcost.count(step, **specs)
     trace_s = time.perf_counter() - t0
     if mesh is not None:
-        # the layout a step on a mesh runs: the sequence-parallel one, or
-        # every dense weight gathered whole for the step
-        placed.update(layout="sequence-parallel" if model.uses_sp_layout(run)
-                      else "gathered-whole", spec_argument_bytes=_read_input_bytes(kind, specs))
+        # the layout a step on a mesh runs: the striped-cache decode, the
+        # sequence-parallel one, or every dense weight gathered whole
+        layout = ("striped-cache" if kind == "decode" else
+                  "sequence-parallel" if model.uses_sp_layout(run) else "gathered-whole")
+        placed.update(layout=layout, spec_argument_bytes=_read_input_bytes(kind, specs))
     summary = opcost.summarize(costs)
     memory = {"argument_bytes": costs.argument_bytes, "output_bytes": costs.output_bytes,
               "temp_bytes": costs.temp_bytes, "alias_bytes": costs.alias_bytes}

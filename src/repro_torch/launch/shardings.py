@@ -16,14 +16,21 @@ layout:
 * image memory: batch -> data, token axis -> "model".
 
 ``mesh`` is a ``DeviceMesh`` or a
-:class:`~repro_torch.parallel.mesh.MeshDescription`.
+:class:`~repro_torch.parallel.mesh.MeshDescription`.  :func:`decode_cache`
+allocates ``LM.decode_init``'s cache as one rank's blocks by
+:func:`cache_pspecs` (the striped-cache decode of ``models/lm.py``).
 """
 
 from __future__ import annotations
 
+import torch
+
+from ..models import LM
+from ..models.lm import ring_record
 from ..models.config import ArchConfig
+from ..models.module import tree_map
 from ..parallel.mesh import data_axes
-from ..parallel.spec import axis_size, spec_entry
+from ..parallel.spec import axis_size, first_split_dim, local_shape, spec_entry
 
 
 def _maybe(dim_size: int, axes, mesh):
@@ -53,10 +60,9 @@ def cache_pspecs(cfg: ArchConfig, cache_shapes, B: int, mesh):
     def state_spec(shape):
         # recurrent: (L, B, ...) — the first trailing dim divisible by "model"
         spec = [None, bs] + [None] * (len(shape) - 2)
-        for i in range(2, len(shape)):
-            if shape[i] % n_model == 0 and shape[i] >= n_model:
-                spec[i] = "model"
-                break
+        dim = first_split_dim(shape, n_model, 2)
+        if dim is not None:
+            spec[dim] = "model"
         return tuple(spec)
 
     def assign(keys, leaf):
@@ -74,6 +80,40 @@ def cache_pspecs(cfg: ArchConfig, cache_shapes, B: int, mesh):
         return assign(keys, tree)
 
     return walk(cache_shapes, ())
+
+
+def decode_cache(model: LM, batch: int, max_len: int, mesh, *, params=None, memory=None):
+    """``model.decode_init(batch, max_len)`` on ``mesh``: each leaf zeros of
+    this rank's block by :func:`cache_pspecs` (``batch`` the global batch,
+    split over the data axes where it divides), on the model's device.  The
+    K/V rings' T (``min(max_len, window)``) must split over "model" (a
+    ``ValueError`` otherwise): the decode step on a mesh reads the rank's
+    rows as its stripe of T / M, and could not tell a whole T from one.
+    For a vlm given ``params`` (the rank's blocks) and ``memory`` (the
+    rank's block of the image tokens, as :func:`batch_pspecs` lays them
+    out), ``xkv`` is projected from them: the rank's block of the cross
+    K/V, its image tokens striped over "model".  The cache records its
+    rings' global T (``cache["ring"]``, ``models.lm.ring_record``), which
+    the decode step on a mesh checks its stripes against."""
+    cfg = model.cfg
+    shapes = LM(cfg, "meta").decode_init(batch, max_len)
+    specs = cache_pspecs(cfg, shapes, batch, mesh)
+    n = axis_size(mesh, "model")
+    for name in ("kv", "shared_kv"):
+        if name in specs and n > 1 and specs[name]["k"][3] is None:
+            raise ValueError(f"decode on a mesh stripes the cache's T over \"model\": "
+                             f"{shapes[name]['k'].shape[3]} rows do not split over {n} ranks")
+    cache = tree_map(lambda t, s: torch.zeros(local_shape(t.shape, s, mesh), dtype=t.dtype,
+                                              device=model.device), shapes, specs)
+    ring = ring_record(shapes, model.device)
+    if ring is not None:
+        cache["ring"] = ring
+    if cfg.xattn_every and params is not None and memory is not None:
+        if n > 1 and cfg.n_img_tokens % n:
+            raise ValueError(f"the cross K/V's {cfg.n_img_tokens} image tokens do not split "
+                             f"over \"model\" ({n} ranks)")
+        cache["xkv"] = model.cross_kv(params, memory, mesh=mesh)
+    return cache
 
 
 def data_rows(global_batch: int, accum: int, n_dp: int, index: int) -> list:

@@ -9,7 +9,8 @@ Port of ``build_run``, ``TRAIN_ACCUM``, ``build_train_step``,
   accumulated in f32, then the AdamW update;
 * ``prefill`` — forward over the full prompt (and the vlm's image tokens,
   ``batch["memory"]``), returns last-token logits;
-* ``decode``  — one new token against a KV cache.
+* ``decode``  — one new token against a KV cache (on a mesh, the cache's
+  T striped over "model": ``models/lm.py``'s striped-cache layout).
 
 PyTorch runs eagerly, so the step is the plain function the reference
 hands to ``jax.jit``.  The model lives on the card unless ``device`` says
@@ -195,9 +196,20 @@ def build_prefill_step(cfg: ArchConfig, *, run_overrides: dict = None, device=No
     return prefill_step, model, run
 
 
-def build_decode_step(cfg: ArchConfig, *, run_overrides: dict = None, device=None):
+def build_decode_step(cfg: ArchConfig, *, run_overrides: dict = None, device=None,
+                      mesh=None):
+    """``decode_step(params, tokens, cache, memory=None) -> (logits,
+    cache')``.  On a ``mesh``, this rank's blocks of the parameters, its
+    rows of the tokens and its blocks of the cache (``shardings.decode_cache``
+    allocates them), in the striped-cache layout of ``models/lm.py``; the
+    logits of the rank's rows on every model rank.  An MoE model there runs
+    its FFN as ``moe_apply_shardmap`` (``decode_moe_shardmap`` on, token-local
+    capacity over the rank's rows), where the reference's ``build_run``
+    leaves that knob off and lets GSPMD dispatch globally: the port has no
+    global dispatch on a mesh."""
     model = LM(cfg, device)
-    run = {**DEFAULT_RUN, **(run_overrides or {})}
+    placed = {} if mesh is None else {"mesh": mesh, "decode_moe_shardmap": cfg.moe is not None}
+    run = {**DEFAULT_RUN, **placed, **(run_overrides or {})}
 
     @torch.no_grad()
     def decode_step(params, tokens, cache, memory=None):

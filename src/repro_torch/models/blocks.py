@@ -20,13 +20,23 @@ reference.  ``shard=True`` runs the MoE FFN as the reference's
 ``moe_apply_shardmap`` on the ``mesh`` it is given (a ``ValueError``
 without one).
 
-``sp=`` (a :class:`~repro_torch.models.layers.SeqParallel`) runs an
-attention or cross-attention block in the sequence-parallel layout on the
-rank's token block, with ``p`` the rank's blocks of the layer's weights:
+``layout=`` (``layers``' module docstring) places an attention or
+cross-attention block on a mesh.  A
+:class:`~repro_torch.models.layers.SeqParallel` runs it in the
+sequence-parallel layout on the rank's token block, with ``p`` the rank's
+blocks of the layer's weights:
 the block gathers them itself (:func:`sp_block_view`), so a caller that
 checkpoints the block holds one layer's gathered weights at a time and
 gathers them again when the backward recomputes it, as the reference's
 remat does.
+
+A :class:`~repro_torch.models.layers.StripedCache` runs its decode step in
+the striped-cache layout: ``x`` is alike on every model rank, ``p`` the
+rank's blocks, which the block gathers
+as :func:`sp_block_view` does (attention whole, the dense FFN's "model"
+blocks, the MoE's as they are), so one layer's gathered weights are alive at
+a time.  The recurrent blocks' decode step on a mesh reads its layer
+gathered whole (:func:`whole_block_view`).
 """
 
 from __future__ import annotations
@@ -89,7 +99,8 @@ def attn_block_meta(cfg: ArchConfig, *, moe: bool = False):
 
 def sp_block_view(p, meta, mesh, *, moe: bool = False):
     """A layer's blocks ``p`` (laid out by the specs of ``meta``, its meta
-    tree) as the layer's sequence-parallel forward reads them: attention
+    tree) as the layer's sequence-parallel forward, or its striped-cache
+    decode step, reads them: attention
     weights, norms and gates gathered whole over every axis (their
     gradients summed over "model" too, whose ranks hold different tokens);
     a dense FFN's leaves gathered over the data axes only, each rank keeping
@@ -107,38 +118,46 @@ def sp_block_view(p, meta, mesh, *, moe: bool = False):
     return out
 
 
+def whole_block_view(p, meta, mesh):
+    """A layer's blocks ``p`` (laid out by the specs of ``meta``) gathered
+    whole, every model rank computing alike with them."""
+    specs = build_pspecs(meta, multi_pod=is_multi_pod(mesh))
+    return tree_map(lambda t, s: C.param_view(t, s, mesh, model="alike"), p, specs)
+
+
 def attn_block_apply(p, cfg: ArchConfig, x, *, moe=False, positions=None, kv_cache=None,
                      attn_impl="chunked", shard=False, mesh=None,
-                     block_q=512, block_k=512, sp: SeqParallel = None):
+                     block_q=512, block_k=512, layout=None):
     """Returns (x', new_cache, aux); aux is the MoE balancing loss, 0.0 for
     the dense MLP.  ``shard=True`` runs the MoE FFN as
     ``moe_apply_shardmap`` on ``mesh`` (``x`` this rank's rows, ``p["ffn"]``
     its blocks of the expert weights); it raises ``ValueError`` without a
-    mesh, as the reference's shard_map does.  With ``sp`` (see the module
-    docstring) ``x`` is the rank's token block, ``positions`` their absolute
-    positions and ``p`` the rank's blocks of the layer; an MoE FFN then
-    needs ``shard``."""
+    mesh, as the reference's shard_map does.  With a ``layout`` (see the
+    module docstring) ``p`` is the rank's blocks of the layer, and an MoE
+    FFN needs ``shard``: in a :class:`SeqParallel` one ``x`` is the rank's
+    token block and ``positions`` their absolute positions, in a
+    :class:`StripedCache` one ``kv_cache`` is the rank's stripe."""
     if moe and shard and mesh is None:
         raise ValueError("attn_block_apply(shard=True): moe_apply_shardmap needs a mesh "
                          "(pass mesh=, or run['mesh'] to the LM)")
-    if sp is not None:
+    if layout is not None:
         if moe and not shard:
-            raise ValueError("attn_block_apply(sp=...): an MoE FFN in the sequence-parallel "
-                             "layout runs as moe_apply_shardmap (shard=True)")
-        p = sp_block_view(p, attn_block_meta(cfg, moe=moe), sp.mesh, moe=moe)
+            raise ValueError("attn_block_apply(layout=...): an MoE FFN on a mesh runs as "
+                             "moe_apply_shardmap (shard=True)")
+        p = sp_block_view(p, attn_block_meta(cfg, moe=moe), layout.mesh, moe=moe)
     h, new_cache = attn_apply(
         p["attn"], cfg, norm_apply(p["ln1"], cfg, x),
         positions=positions, kv_cache=kv_cache, attn_impl=attn_impl,
-        block_q=block_q, block_k=block_k, sp=sp,
+        block_q=block_q, block_k=block_k, layout=layout,
     )
     x = x + h
     if moe and shard:
         f, aux = moe_apply_shardmap(p["ffn"], cfg, norm_apply(p["ln2"], cfg, x), mesh=mesh,
-                                    sp=sp is not None)
+                                    sp=isinstance(layout, SeqParallel))
     elif moe:
         f, aux = moe_apply(p["ffn"], cfg, norm_apply(p["ln2"], cfg, x))
     else:
-        f, aux = mlp_apply(p["ffn"], cfg, norm_apply(p["ln2"], cfg, x), sp=sp), 0.0
+        f, aux = mlp_apply(p["ffn"], cfg, norm_apply(p["ln2"], cfg, x), layout), 0.0
     return x + f, new_cache, aux
 
 
@@ -166,22 +185,23 @@ def xattn_block_meta(cfg: ArchConfig):
 
 
 def xattn_block_apply(p, cfg: ArchConfig, x, memory=None, kv_override=None, *,
-                      attn_impl="chunked", sp: SeqParallel = None):
+                      attn_impl="chunked", layout=None):
     """Cross attention to ``memory`` (or to its precomputed K/V heads) and
     the MLP, each scaled by its tanh gate.  With neither given the attention
     is the reference's: its self-attention path with this block's weights
-    (no gate on it).  With ``sp`` the queries are the rank's token block,
-    ``memory`` the whole image memory (the caller gathers its token axis
-    over "model") and ``p`` the rank's blocks of the block's weights."""
-    if sp is not None:
-        p = sp_block_view(p, xattn_block_meta(cfg), sp.mesh)
+    (no gate on it).  With a ``layout`` ``p`` is the rank's blocks of the
+    block's weights: in a :class:`SeqParallel` one the queries are the
+    rank's token block and ``memory`` the whole image memory (the caller
+    gathers its token axis over "model"), in a :class:`StripedCache` one
+    ``kv_override`` is the rank's stripe of the image K/V."""
+    if layout is not None:
+        p = sp_block_view(p, xattn_block_meta(cfg), layout.mesh)
     h, _ = attn_apply(
         p["attn"], cfg, norm_apply(p["ln1"], cfg, x),
-        memory=memory, kv_override=kv_override, attn_impl=attn_impl,
-        sp=sp,
+        memory=memory, kv_override=kv_override, attn_impl=attn_impl, layout=layout,
     )
     x = x + h
-    f = mlp_apply(p["ffn"], cfg, norm_apply(p["ln2"], cfg, x), sp=sp)
+    f = mlp_apply(p["ffn"], cfg, norm_apply(p["ln2"], cfg, x), layout)
     return x + f * torch.tanh(p["ffn_gate"]).to(f.dtype)
 
 

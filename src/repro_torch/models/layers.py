@@ -20,8 +20,11 @@ tensor code, as they are jnp in the reference.  ``moe_apply_shardmap``
 runs the MoE FFN on a rank's rows of a (data, model) mesh with explicit
 collectives (:mod:`repro_torch.parallel.collectives`).
 
-**The sequence-parallel layout** (``sp=``, a :class:`SeqParallel`: the
-mesh, and the position of this rank's first token): ``x`` is the rank's
+A layer on a mesh takes its place there as one ``layout=`` argument: a
+:class:`SeqParallel` or a :class:`StripedCache`, each holding the mesh.
+
+**The sequence-parallel layout** (:class:`SeqParallel`: the mesh, and the
+position of this rank's first token): ``x`` is the rank's
 block of S / M tokens of its rows, the tokens [m S / M, (m + 1) S / M) of
 model index m.  :func:`attn_apply` takes whole projection weights,
 computes q, k and v for its tokens, all-gathers K and V over "model" along
@@ -36,6 +39,18 @@ reduce-scattered in f32 back onto the rank's tokens (backward an
 all-gather).  ``moe_apply_shardmap(..., sp=True)`` gathers the whole
 sequence over "model" (the reference's shard_map takes x whole over it)
 and reduce-scatters its output onto the rank's tokens.
+
+**The striped-cache decode** (:class:`StripedCache`): the decode hidden
+(B / D, 1, d) is alike on every model rank, and the cache's T axis is
+striped over "model", the rank at model index m holding the global slots
+[m T / M, (m + 1) T / M).  :func:`attn_apply` takes whole projection
+weights, so every model rank computes q, k and v alike; only the rank whose
+stripe holds slot ``len % T`` writes the new row, each attends over its own
+stripe with the masks taken on the global slot, and the partial softmaxes
+are merged over "model" (:func:`_striped_attention`, the reference's
+flash-decoding merge).  The vlm's cross attention merges the same way over
+its striped image K/V.  :func:`mlp_apply` runs on the rank's "model"
+blocks and sums its partial over "model" in f32.
 """
 
 from __future__ import annotations
@@ -48,7 +63,7 @@ import torch.nn.functional as F
 from ..kernels.flash_attention import ops as flash_ops
 from ..parallel import collectives as C
 from ..parallel.mesh import data_axes
-from ..parallel.spec import axis_size
+from ..parallel.spec import axis_index, axis_size
 from .config import ArchConfig
 from .module import ParamMeta
 
@@ -63,6 +78,13 @@ class SeqParallel(NamedTuple):
 
     mesh: Any
     start: int
+
+
+class StripedCache(NamedTuple):
+    """A rank's place in the striped-cache decode: the mesh, whose "model"
+    axis stripes the cache's T."""
+
+    mesh: Any
 
 
 # ---------------------------------------------------------------------------
@@ -197,6 +219,20 @@ def _split_heads(x, n_heads, d_head):
     return x.reshape(B, S, n_heads, d_head).transpose(1, 2)
 
 
+def _gqa_scores(q, k, mask, fill: float):
+    """The scaled scores (B, Hkv, g, S, T) in f32 of q (B, Hq, S, Dh)
+    against k (B, Hkv, T, Dh), each of the g = Hq / Hkv query heads of a
+    group against its K/V head; ``fill`` where ``mask`` (B or 1, T) is
+    False, or nowhere where it is None."""
+    B, Hq, S, Dh = q.shape
+    Hkv = k.shape[1]
+    qf = q.reshape(B, Hkv, Hq // Hkv, S, Dh).to(F32) * (Dh ** -0.5)
+    s = torch.einsum("bhgsd,bhtd->bhgst", qf, k.to(F32))
+    if mask is None:
+        return s
+    return torch.where(mask[:, None, None, None, :], s, torch.tensor(fill, device=q.device))
+
+
 def _decode_attention(q, k, v, valid, start=None):
     """q: (B,Hq,1,Dh); k,v: (B,Hkv,T,Dh); attend over slots < valid.
 
@@ -204,18 +240,64 @@ def _decode_attention(q, k, v, valid, start=None):
     offset: the serving engine reuses cache slots, and a re-admitted
     sequence must not attend to its predecessor's stale rows."""
     B, Hq, S, Dh = q.shape
-    _, Hkv, T, _ = k.shape
-    g = Hq // Hkv
-    qf = q.reshape(B, Hkv, g, S, Dh).to(F32) * (Dh ** -0.5)
-    s = torch.einsum("bhgsd,bhtd->bhgst", qf, k.to(F32))
+    T = k.shape[2]
     slot = torch.arange(T, device=q.device)
     mask = slot[None, :] < torch.as_tensor(valid, device=q.device).expand(B)[:, None]
     if start is not None:
         mask = mask & (slot[None, :] >= start[:, None])
-    s = torch.where(mask[:, None, None, None, :], s, torch.tensor(-1e30, device=q.device))
-    p = torch.softmax(s, dim=-1)
+    p = torch.softmax(_gqa_scores(q, k, mask, -1e30), dim=-1)
     out = torch.einsum("bhgst,bhtd->bhgsd", p, v.to(F32))
     return out.reshape(B, Hq, S, Dh).to(q.dtype)
+
+
+def _striped_attention(q, k, v, mask, mesh):
+    """Attention of q (B, Hq, S, Dh) over this rank's stripe of the keys, k
+    and v (B, Hkv, T / M, Dh), merged over "model" into attention over all
+    T.  ``mask`` (B or 1, T / M) marks the valid keys, or is None (all
+    valid).  Each rank's partial, in f32, is its running max, its sum of
+    exponentials and their product with v; the partials are all-gathered
+    and merged in rank order, so every model rank ends with the same bits.
+    The merge rescales by the global max: a stripe without a valid key has
+    the max -inf and weight exactly 0 (normalised alone, the one-device
+    fill of -1e30 would give it the mean of v).  A row with no valid key at
+    all gives 0."""
+    B, Hq, S, Dh = q.shape
+    s = _gqa_scores(q, k, mask, float("-inf"))
+    mx = s.amax(-1, keepdim=True)
+    e = torch.exp(s - torch.where(torch.isfinite(mx), mx, 0.0))
+    part = torch.cat([mx, e.sum(-1, keepdim=True),
+                      torch.einsum("bhgst,bhtd->bhgsd", e, v.to(F32))], dim=-1)
+    parts = C.all_gather(part[None], mesh, "model", 0)
+    top = parts[..., :1].amax(0)
+    w = torch.exp(parts[..., :1] - torch.where(torch.isfinite(top), top, 0.0))
+    tot = (w * parts[..., 1:]).sum(0)
+    out = tot[..., 1:] / torch.where(tot[..., :1] > 0, tot[..., :1], 1.0)
+    return out.reshape(B, Hq, S, Dh).to(q.dtype)
+
+
+def _striped_decode(q, k, v, kv_cache, mesh):
+    """The decode step's write and attention over a K/V ring striped over
+    "model" (see the module docstring): ``kv_cache``'s k and v are the
+    rank's stripe (B, Hkv, T / M, Dh) of the ring of T rows, its local row
+    t the global slot m T / M + t.  The rank whose stripe holds slot
+    ``len % T`` writes the new row in place (the others write their row back
+    unchanged, which reads nothing from the device); the masks ``slot <
+    min(len + S, T)`` and ``slot >= start`` are taken on the global slot."""
+    ck, cv, idx = kv_cache["k"], kv_cache["v"], kv_cache["len"]
+    S, local_T = q.shape[2], ck.shape[2]
+    T = local_T * axis_size(mesh, "model")
+    first = axis_index(mesh, "model") * local_T
+    row = torch.remainder(idx, T) - first
+    mine = (row >= 0) & (row < local_T)
+    at = torch.clamp(row, 0, local_T - 1).reshape(1).long()
+    ck.index_copy_(2, at, torch.where(mine, k, ck.index_select(2, at)))
+    cv.index_copy_(2, at, torch.where(mine, v, cv.index_select(2, at)))
+    slot = first + torch.arange(local_T, device=q.device)
+    mask = (slot < torch.clamp(idx + S, max=T))[None, :]
+    start = kv_cache.get("start")
+    if start is not None:
+        mask = mask & (slot[None, :] >= start[:, None])
+    return _striped_attention(q, ck, cv, mask, mesh)
 
 
 def attn_apply(
@@ -230,7 +312,7 @@ def attn_apply(
     attn_impl: str = "chunked",
     block_k: int = 512,
     block_q: int = 512,
-    sp: Optional[SeqParallel] = None,
+    layout=None,            # a SeqParallel or a StripedCache on a mesh
 ):
     """Returns (out, new_kv_cache or None).
 
@@ -245,14 +327,23 @@ def attn_apply(
     added to a given K/V; it is non-causal and unwindowed, and its output is
     scaled by ``tanh(gate)``.
 
-    With ``sp`` (a prefill in the sequence-parallel layout; see the module
+    With a :class:`SeqParallel` ``layout`` (a prefill; see the module
     docstring) ``x`` is the rank's tokens and ``positions`` their absolute
     positions; self attention gathers K and V over "model" and attends
     with ``q_offset`` the rank's first position; cross attention takes the
     whole ``memory`` (the caller gathers it) without an offset.
+
+    With a :class:`StripedCache` ``layout`` (a decode step; see the module
+    docstring) ``kv_cache``'s k and v, or the ``kv_override`` of cross
+    attention, are the rank's stripe of the keys, and the partial softmaxes
+    are merged over "model"; on a model axis of one rank the stripe is the
+    whole ring, which attends as on one device.
     """
     if attn_impl not in _ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
+    sp = layout if isinstance(layout, SeqParallel) else None
+    stripes = (layout.mesh if isinstance(layout, StripedCache)
+               and axis_size(layout.mesh, "model") > 1 else None)
     B, S, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cross = memory is not None or kv_override is not None
@@ -289,14 +380,19 @@ def attn_apply(
     if kv_cache is not None:
         # decode (S == 1): ring-buffer write + attend over the valid slots
         ck, cv = kv_cache["k"], kv_cache["v"]
-        T = ck.shape[2]
         idx = kv_cache["len"]
-        write = torch.remainder(idx, T).reshape(1).long()
-        ck.index_copy_(2, write, k)
-        cv.index_copy_(2, write, v)
         new_cache = {"k": ck, "v": cv, "len": idx + S}
-        valid = torch.clamp(idx + S, max=T)
-        out = _decode_attention(q, ck, cv, valid, start=kv_cache.get("start"))
+        if stripes is not None:
+            out = _striped_decode(q, k, v, kv_cache, stripes)
+        else:
+            T = ck.shape[2]
+            write = torch.remainder(idx, T).reshape(1).long()
+            ck.index_copy_(2, write, k)
+            cv.index_copy_(2, write, v)
+            valid = torch.clamp(idx + S, max=T)
+            out = _decode_attention(q, ck, cv, valid, start=kv_cache.get("start"))
+    elif cross and stripes is not None:
+        out = _striped_attention(q, k, v, None, stripes)
     else:
         out = flash_ops.attention(
             q.contiguous(), k.contiguous(), v.contiguous(), causal=not cross,
@@ -328,10 +424,13 @@ def mlp_meta(cfg: ArchConfig):
     return m
 
 
-def mlp_apply(p, cfg: ArchConfig, x, sp: Optional[SeqParallel] = None):
-    """The dense FFN.  With ``sp`` (see the module docstring), ``x`` is the
-    rank's tokens and ``p`` holds its "model" blocks of ``wi``, ``wg``,
-    ``bi`` (columns) and ``wo`` (rows), ``bo`` whole."""
+def mlp_apply(p, cfg: ArchConfig, x, layout=None):
+    """The dense FFN.  In either ``layout`` (see the module docstring) ``p``
+    holds the rank's "model" blocks of ``wi``, ``wg``, ``bi`` (columns) and
+    ``wo`` (rows), ``bo`` whole.  With a :class:`SeqParallel` one ``x`` is
+    the rank's tokens; with a :class:`StripedCache` one ``x`` is alike on
+    every model rank and the partial is summed over "model" in f32."""
+    sp = layout if isinstance(layout, SeqParallel) else None
     if sp is not None:
         x = C.gather(x, sp.mesh, "model", 1)
     h = x @ p["wi"]
@@ -346,6 +445,8 @@ def mlp_apply(p, cfg: ArchConfig, x, sp: Optional[SeqParallel] = None):
     out = h @ p["wo"]
     if sp is not None:
         out = C.scatter(out.to(F32), sp.mesh, "model", 1).to(x.dtype)
+    elif layout is not None:
+        out = C.reduce_forward(out.to(F32), layout.mesh, "model").to(x.dtype)
     if cfg.mlp_bias:
         out = out + p["bo"].to(out.dtype)
     return out

@@ -30,7 +30,7 @@ mamba2 layers and the shared block) and each layer of its mamba2 tail
 ("pod", "data", "model"), whose data axes are every axis but "model", or a
 ``MeshDescription`` standing for one device, with ``meta`` tensors, for the
 dry run): ``params`` are this rank's blocks, each laid out by its spec
-(:meth:`LM.pspecs`), and ``tokens`` this rank's rows.  Two layouts:
+(:meth:`LM.pspecs`), and ``tokens`` this rank's rows.  Three layouts:
 
 * **Sequence parallel** (``run["sp"]``, on by default on a mesh, as the
   reference's ``build_run``; the attention stacks: dense, moe, audio, vlm;
@@ -52,13 +52,38 @@ dry run): ``params`` are this rank's blocks, each laid out by its spec
   for its backward: ``_GatheredXent``).
   :meth:`hidden_states` returns the rank's token block, :meth:`prefill`
   the last token's logits on every rank.
-* **Gathered whole** (``sp`` off, the recurrent stacks ssm and hybrid
-  whatever ``sp`` says, and every decode step):
-  :meth:`LM.mesh_params` gathers the dense weights whole for the call
-  (their backward a reduce-scatter over the data axes and one's own block
-  over "model", whose ranks compute them alike), the MoE experts left as
-  blocks for ``moe_apply_shardmap``.  The recurrent stacks' d-sharded
-  residual is later work.
+* **Gathered whole** (prefill and loss with ``sp`` off, and the recurrent
+  stacks ssm and hybrid whatever ``sp`` says): :meth:`LM.mesh_params`
+  gathers the dense weights whole for the call (their backward a
+  reduce-scatter over the data axes and one's own block over "model", whose
+  ranks compute them alike), the MoE experts left as blocks for
+  ``moe_apply_shardmap``.  The recurrent stacks' d-sharded residual is
+  later work.
+* **Striped cache** (every decode step on a mesh).  The cache is the
+  rank's blocks by ``launch.shardings.cache_pspecs``
+  (``shardings.decode_cache`` allocates them): its rows, the K/V rings'
+  (``kv``, ``shared_kv``, ``xkv``) T striped over "model" (the rank at model
+  index m holds the global slots [m T / M, (m + 1) T / M)), each recurrent
+  state on its first trailing dim that "model" splits, ``len`` whole.  The
+  hidden (B / D, 1, d) stays alike on every model rank, as the reference's
+  ``decode_pin_replicated`` keeps it.  Each layer gathers its own weights
+  just before it runs (``blocks.sp_block_view``; one layer's at a time):
+  the attention's weights, norms and gates whole, so every model rank
+  computes q, k and v alike; the dense FFN on its "model" column and row
+  blocks, its partial summed over "model" in f32; an MoE FFN through
+  ``moe_apply_shardmap`` (``run["decode_moe_shardmap"]``).  Only the rank
+  whose stripe holds slot ``len % T`` writes the new K/V row; each rank
+  attends over its stripe (masks on the global slot), and the partial
+  softmaxes are merged over "model" in rank order
+  (``layers._striped_attention``), so every model rank ends the step with
+  the same bits.  The vlm's cross block merges the same way over its
+  striped ``xkv``, the hybrid's shared block over its striped
+  ``shared_kv``.  A recurrent layer (rwkv6, mamba2) gathers its weights
+  and its state whole over "model", steps as on one device and keeps its
+  own block of the new state: a few MB a layer (rwkv6-3b's ``h`` at 8 rows
+  is 5.2 MB in f32, zamba2-1.2b's 8.4 MB); the head- or d-split step is
+  later work.  The embedding, ``ln_f`` and the head are gathered where they
+  are used.
 
 An MoE model runs its FFN as ``moe_apply_shardmap`` where the reference's
 ``sp`` (prefill and loss) or ``decode_moe_shardmap`` (decode) picks it;
@@ -91,7 +116,7 @@ from ..device import resolve_device
 from ..kernels._grad import checkpointed
 from ..parallel import collectives as C
 from ..parallel.mesh import axis_sizes, data_axes, is_multi_pod
-from ..parallel.spec import axis_size, token_range
+from ..parallel.spec import axis_size, first_split_dim, token_range
 from . import blocks as B
 from . import layers as L
 from .config import ArchConfig
@@ -114,6 +139,28 @@ _BLOCK_KINDS = {"dense": "attn", "moe": "attn", "audio": "attn", "vlm": "attn",
 
 def _layer(blocks, i: int):
     return tree_map(lambda a: a[i], blocks)
+
+
+def _mesh_of(sp):
+    """The mesh of the sequence-parallel layout ``sp``; None outside it."""
+    return None if sp is None else sp.mesh
+
+
+def ring_record(cache, device):
+    """The record a decode cache on a mesh carries of its K/V rings'
+    global T (``cache["ring"]``), for ``cache`` the whole cache (its leaves'
+    shapes, ``LM.decode_init``'s): a tensor of no elements and shape (0,
+    T), which adds no bytes and keeps its shape on the ``meta`` device.
+    None for a cache without K/V rings."""
+    for name in ("kv", "shared_kv"):
+        if name in cache:
+            return torch.empty((0, cache[name]["k"].shape[3]), dtype=torch.int8, device=device)
+    return None
+
+
+def _striped(mesh):
+    """The striped-cache decode's layout on ``mesh``; None without one."""
+    return None if mesh is None else L.StripedCache(mesh)
 
 
 def _unstack(blocks, n: int) -> list:
@@ -239,15 +286,16 @@ class LM:
 
         return walk(params, specs, ())
 
-    def _whole(self, params, name: str, sp, only=None):
-        """``params[name]`` (the embedding or ``ln_f``) gathered whole where
-        it is used in the sequence-parallel layout, its gradient summed over
-        every axis (of the embedding, only the leaves ``only`` names: the
-        table for a lookup, the head for the logits); as it is otherwise."""
-        if sp is None:
+    def _whole(self, params, name: str, mesh, only=None):
+        """``params[name]`` (the embedding or ``ln_f``) gathered whole over
+        ``mesh`` where it is used (the sequence-parallel layout and the
+        striped-cache decode), its gradient summed over every axis (of the
+        embedding, only the leaves ``only`` names: the table for a lookup,
+        the head for the logits); as it is without a mesh."""
+        if mesh is None:
             return params[name]
-        specs = self.pspecs(multi_pod=is_multi_pod(sp.mesh))[name]
-        return {k: tree_map(lambda t, s: C.param_view(t, s, sp.mesh, model="whole"),
+        specs = self.pspecs(multi_pod=is_multi_pod(mesh))[name]
+        return {k: tree_map(lambda t, s: C.param_view(t, s, mesh, model="whole"),
                             params[name][k], specs[k]) if only is None or k in only
                 else params[name][k] for k in sorted(params[name])}
 
@@ -299,7 +347,7 @@ class LM:
         last = hid[:, -1:]
         if sp is not None:
             last = C.all_gather(last, sp.mesh, "model", 1)[:, -1:]
-        head = {"embed": self._whole(params, "embed", sp, self._head_leaves())}
+        head = {"embed": self._whole(params, "embed", _mesh_of(sp), self._head_leaves())}
         return self._logits(head, last), aux, new_states
 
     def _forward(self, params, tokens, memory, run, positions, states, shard, sp=None):
@@ -312,7 +360,7 @@ class LM:
             positions = (torch.arange(sp.start, stop, device=tokens.device) if positions is None
                          else positions[..., sp.start:stop])
             memory = self._sp_memory(memory, sp.mesh)
-        x = L.embed_apply(self._whole(params, "embed", sp, ("tok",)), cfg, tokens)
+        x = L.embed_apply(self._whole(params, "embed", _mesh_of(sp), ("tok",)), cfg, tokens)
         if self.block_kind == "attn":
             if not cfg.rope:
                 pos = positions if positions is not None else torch.arange(x.shape[1],
@@ -323,7 +371,7 @@ class LM:
         else:
             x, new_states = self._recurrent_stack(params, x, run, positions, states)
             aux = 0.0
-        x = L.norm_apply(self._whole(params, "ln_f", sp), cfg, x)
+        x = L.norm_apply(self._whole(params, "ln_f", _mesh_of(sp)), cfg, x)
         return x, aux, new_states
 
     def _attn_block(self, p, x, run, positions, moe=False, shard=False, sp=None):
@@ -331,7 +379,7 @@ class LM:
         x, _, aux = B.attn_block_apply(
             p, self.cfg, x, moe=moe, positions=positions, attn_impl=run["attn_impl"],
             shard=shard, mesh=run.get("mesh"),
-            block_q=run["attn_block_q"], block_k=run["attn_block_k"], sp=sp,
+            block_q=run["attn_block_q"], block_k=run["attn_block_k"], layout=sp,
         )
         return x, aux
 
@@ -358,7 +406,7 @@ class LM:
                 aux = aux + a
             if cfg.xattn_every:
                 x = B.xattn_block_apply(xblocks[g], cfg, x, memory, attn_impl=run["attn_impl"],
-                                        sp=sp)
+                                        layout=sp)
             return x, aux
 
         aux = 0.0
@@ -461,8 +509,8 @@ class LM:
 
             def whole(blocks):
                 it = iter(blocks)
-                return self._whole({"embed": tree_map(lambda _: next(it), embed)}, "embed", sp,
-                                   self._head_leaves())
+                return self._whole({"embed": tree_map(lambda _: next(it), embed)}, "embed",
+                                   sp.mesh, self._head_leaves())
 
             tot = _GatheredXent.apply(hid, targets, mask, cfg, run["loss_chunk"], whole,
                                       *tree_leaves(embed))
@@ -484,8 +532,9 @@ class LM:
         for hybrid, whose KV buffers hold one entry per occurrence of the
         shared block.  For vlm archs given ``params`` and the image
         ``memory``, the cross-attention K/V are projected here once (``xkv``,
-        stacked per cross-attention block) instead of at every step; without
-        them decode runs the text layers alone, as the reference's does."""
+        :meth:`cross_kv`) instead of at every step; without them decode runs
+        the text layers alone, as the reference's does.  On a mesh,
+        ``launch.shardings.decode_cache`` allocates the rank's blocks."""
         cfg = self.cfg
         dt, dev = cfg.param_dtype, self.device
         cache: Dict[str, Any] = {"len": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -499,15 +548,27 @@ class LM:
         if self.block_kind == "attn":
             cache["kv"] = kv(cfg.n_layers)
             if cfg.xattn_every and memory is not None and params is not None:
-                pairs = [B.xattn_precompute_kv(_layer(params["xattn"], i), cfg, memory)
-                         for i in range(cfg.n_layers // cfg.xattn_every)]
-                cache["xkv"] = {"k": torch.stack([k for k, _ in pairs]),
-                                "v": torch.stack([v for _, v in pairs])}
+                cache["xkv"] = self.cross_kv(params, memory)
         else:
             cache["states"] = self.init_recurrent_states(batch, dt)
         if self.block_kind == "mamba2":
             cache["shared_kv"] = kv(cfg.n_layers // cfg.shared_attn_every)
         return cache
+
+    def cross_kv(self, params, memory, *, mesh=None):
+        """The vlm's cross-attention K/V heads of the image ``memory`` (B, M,
+        d), stacked per cross block.  On ``mesh``, ``params`` are the rank's
+        blocks (each block's attention gathered whole) and ``memory`` its
+        block of rows and image tokens, which projects to its block of the
+        K/V: the image tokens striped over "model"."""
+        pairs = []
+        for i in range(self.cfg.n_layers // self.cfg.xattn_every):
+            p = _layer(params["xattn"], i)
+            if mesh is not None:
+                p = {"attn": B.whole_block_view(p["attn"], L.attn_meta(self.cfg, cross=True),
+                                                mesh)}
+            pairs.append(B.xattn_precompute_kv(p, self.cfg, memory))
+        return {"k": torch.stack([k for k, _ in pairs]), "v": torch.stack([v for _, v in pairs])}
 
     def decode_step(self, params, tokens, cache, *, memory=None, run=None):
         """One token per sequence; tokens (B, 1), or (B, 1, n_codebooks) for
@@ -517,33 +578,65 @@ class LM:
         ``cache["start"]`` offset masks the KV rows of its predecessor.  The
         vlm's cross attention reads ``cache["xkv"]`` (see
         :meth:`decode_init`); ``memory`` is taken for the reference's
-        signature and, as there, not read."""
+        signature and, as there, not read.  On ``run["mesh"]`` the step runs
+        in the striped-cache layout (the module docstring): ``params``,
+        ``tokens``, ``cache`` (``start`` too) are the rank's blocks, and the
+        logits of the rank's rows come out alike on every model rank.  There
+        a cache with K/V rings must carry their global T (``cache["ring"]``,
+        :func:`ring_record`; ``launch.shardings.decode_cache`` sets it), and
+        its stripes must make it up over "model": a ``ValueError`` otherwise,
+        as for a vlm's ``xkv`` whose stripes do not make up its image
+        tokens."""
         cfg = self.cfg
         run = {**DEFAULT_RUN, **(run or {})}
         shard = self._check_engine(run, "decode_moe_shardmap")
-        if run.get("mesh") is not None:
-            params = self._gathered(params, run["mesh"])
+        mesh = run.get("mesh")
+        if mesh is not None:
+            self._check_stripes(cache, axis_size(mesh, "model"))
         pos = cache["len"]
-        x = L.embed_apply(params["embed"], cfg, tokens)
+        x = L.embed_apply(self._whole(params, "embed", mesh, ("tok",)), cfg, tokens)
         if self.block_kind == "attn":
             if not cfg.rope:
                 x = x + L.sinusoid_embed(pos.reshape(1), cfg.d_model)[None].to(x.dtype)
-            x = self._attn_decode(params, x, cache, run, shard)
+            x = self._attn_decode(params, x, cache, mesh, shard)
         else:
-            x = self._recurrent_decode(params, x, cache)
-        x = L.norm_apply(params["ln_f"], cfg, x)
-        return self._logits(params, x), {**cache, "len": pos + 1}
+            x = self._recurrent_decode(params, x, cache, mesh)
+        x = L.norm_apply(self._whole(params, "ln_f", mesh), cfg, x)
+        head = {"embed": self._whole(params, "embed", mesh, self._head_leaves())}
+        return self._logits(head, x), {**cache, "len": pos + 1}
 
-    def _attn_decode_block(self, p, x, k, v, cache, moe=False, shard=False, run=None):
-        """One attention block's decode step against its K/V ring buffers."""
+    def _check_stripes(self, cache, n: int) -> None:
+        """Refuses a decode cache whose K/V rings, or ``xkv``, are not one
+        rank's stripes over a model axis of ``n`` > 1 ranks: read as a
+        stripe, a whole ring would be written and attended at the wrong
+        slots."""
+        if n == 1:
+            return
+        rings = [cache[name]["k"].shape[3] for name in ("kv", "shared_kv") if name in cache]
+        ring = cache.get("ring")
+        if rings and (ring is None or ring.shape[1] != rings[0] * n):
+            raise ValueError(
+                f"decode on a mesh reads the cache's K/V rings as this rank's stripes of T "
+                f"over \"model\" ({n} ranks): {rings[0]} rows a stripe, and the cache records "
+                f"{'no T' if ring is None else f'T {ring.shape[1]}'} (allocate it with "
+                f"launch.shardings.decode_cache)")
+        if "xkv" in cache and cache["xkv"]["k"].shape[3] * n != self.cfg.n_img_tokens:
+            raise ValueError(
+                f"decode on a mesh reads the cross K/V as this rank's stripe of the "
+                f"{self.cfg.n_img_tokens} image tokens over \"model\" ({n} ranks), not "
+                f"{cache['xkv']['k'].shape[3]} (project it with LM.cross_kv(mesh=))")
+
+    def _attn_decode_block(self, p, x, k, v, cache, mesh, moe=False, shard=False):
+        """One attention block's decode step against its K/V ring buffers
+        (on ``mesh``, the rank's stripe of them)."""
         pos = cache["len"]
         kv = {"k": k, "v": v, "len": pos, "start": cache.get("start")}
         x, _, _ = B.attn_block_apply(p, self.cfg, x, moe=moe, kv_cache=kv, shard=shard,
-                                     mesh=run.get("mesh") if shard else None,
+                                     mesh=mesh if shard else None, layout=_striped(mesh),
                                      positions=pos + torch.arange(x.shape[1], device=x.device))
         return x
 
-    def _attn_decode(self, params, x, cache, run, shard=False):
+    def _attn_decode(self, params, x, cache, mesh, shard=False):
         """Every layer's decode step, or with the vlm's ``xkv`` the group walk
         of :meth:`_attn_stack`, each group's cross-attention block reading
         its precomputed K/V."""
@@ -555,28 +648,51 @@ class LM:
             for i in range(g * every, (g + 1) * every):
                 x = self._attn_decode_block(_layer(params["blocks"], i), x,
                                             cache["kv"]["k"][i], cache["kv"]["v"][i], cache,
-                                            moe, shard, run)
+                                            mesh, moe, shard)
             if cross:
                 x = B.xattn_block_apply(_layer(params["xattn"], g), cfg, x,
                                         kv_override=(cache["xkv"]["k"][g],
-                                                     cache["xkv"]["v"][g]))
+                                                     cache["xkv"]["v"][g]),
+                                        layout=_striped(mesh))
         return x
 
-    def _recurrent_decode(self, params, x, cache):
+    def _state_dims(self, mesh) -> Dict[str, Any]:
+        """{state name: the dim of a layer's state (B, ...) that "model"
+        splits, or None} by ``launch.shardings.cache_pspecs``' rule, from
+        the whole state's shape."""
+        init = B.mamba2_state_init if self.block_kind == "mamba2" else B.rwkv6_state_init
+        one = init(self.cfg, 1, self.cfg.param_dtype, "meta")
+        n = axis_size(mesh, "model")
+        return {name: first_split_dim(t.shape, n, 1) for name, t in one.items()}
+
+    def _recurrent_decode(self, params, x, cache, mesh=None):
         """rwkv6 steps, or the hybrid group walk mirroring
         :meth:`_recurrent_stack`: mamba2 steps, with the shared attention
-        block against its per-occurrence KV cache after each full group."""
+        block against its per-occurrence KV cache after each full group.  On
+        ``mesh`` each layer gathers its weights and its state whole over
+        "model", steps as on one device and keeps its own block of the new
+        state."""
         cfg = self.cfg
         hybrid = self.block_kind == "mamba2"
         apply = B.mamba2_block_apply if hybrid else B.rwkv6_block_apply
         states = cache["states"]
+        split = self._state_dims(mesh) if mesh is not None else {}
         occ = 0
         for i in range(cfg.n_layers):
-            x, ns = apply(_layer(params["blocks"], i), cfg, x, state=_layer(states, i))
+            p, st = _layer(params["blocks"], i), _layer(states, i)
+            if mesh is not None:
+                p = B.whole_block_view(p, self._block_meta(), mesh)
+                st = {k: t if split[k] is None else C.all_gather(t, mesh, "model", split[k])
+                      for k, t in st.items()}
+            x, ns = apply(p, cfg, x, state=st)
+            del p, st
+            if mesh is not None:
+                ns = {k: t if split[k] is None else C.own_block(t, mesh, "model", split[k])
+                      for k, t in ns.items()}
             _write_state(states, i, ns)
             if hybrid and self._shared_after(i):
                 x = self._attn_decode_block(params["shared_attn"], x, cache["shared_kv"]["k"][occ],
-                                          cache["shared_kv"]["v"][occ], cache)
+                                            cache["shared_kv"]["v"][occ], cache, mesh)
                 occ += 1
         return x
 

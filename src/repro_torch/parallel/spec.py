@@ -96,3 +96,13 @@ def token_range(mesh, seq_len: int) -> tuple:
                          f"\"model\" ({n} ranks): they do not divide")
     start = axis_index(mesh, "model") * (seq_len // n)
     return start, start + seq_len // n
+
+
+def first_split_dim(shape, n: int, start: int):
+    """The first dim of ``shape`` from ``start`` on that ``n`` ranks split:
+    one that ``n`` divides and that is at least ``n`` long; None where no
+    dim is (the decode cache's rule for a recurrent state over "model")."""
+    for i in range(start, len(shape)):
+        if shape[i] % n == 0 and shape[i] >= n:
+            return i
+    return None

@@ -30,12 +30,20 @@ Per device of a mesh (``--mesh production``):
   equal the one-device count of the same rows within 2%, the counted
   argument bytes equal the specs' on every rank, and the collectives are
   counted by kind; zamba2 (hybrid) is counted in the gathered-whole
-  layout; a decode cell is skipped with its reason.
+  layout;
+* a decode cell in the striped-cache layout: qwen2-7b ``decode_32k`` on
+  the production mesh is ``ok``, its argument bytes its specs', its K/V
+  blocks the whole cache's over 256; on a (2, 4) description each smoke
+  config's decode cell counts, rank by rank, what the rank holds: its
+  parameter blocks, its token rows and the cache ``shardings.decode_cache``
+  allocates for it (the same allocation as the ranks of
+  ``test_torch_mesh_decode.py``).
 
 JAX is imported in a fixture.
 """
 
 import json
+import math
 import sys
 
 import pytest
@@ -46,9 +54,11 @@ from repro_torch.configs import ARCH_NAMES, SHAPES, cell_is_runnable, get_config
     get_smoke_config
 from repro_torch.launch import dryrun, opcost
 from repro_torch.launch import steps as S
+from repro_torch.launch.shardings import decode_cache
 from repro_torch.models import LM
-from repro_torch.models.module import param_bytes
+from repro_torch.models.module import param_bytes, tree_leaves
 from repro_torch.parallel.mesh import MeshDescription, make_production_mesh
+from repro_torch.parallel.spec import local_shape
 
 MESH_SHAPES = ("train_4k", "prefill_32k")
 
@@ -283,9 +293,47 @@ def test_mesh_cells_name_their_layout_and_skip_decode():
     assert r["status"] == "ok" and r["layout"] == "gathered-whole"
     assert r["device"] == {"data": 0, "model": 3}
     assert r["memory"]["argument_bytes"] == r["spec_argument_bytes"]
-    r = dryrun.run_cell("qwen2-7b", "decode_32k", mesh=make_production_mesh(), verbose=False)
-    assert r["status"] == "skipped" and r["reason"] == dryrun.MESH_DECODE_REASON
+    # a decode cell runs in the striped-cache layout
+    mesh = make_production_mesh()
+    r = dryrun.run_cell("qwen2-7b", "decode_32k", mesh=mesh, verbose=False)
+    assert r["status"] == "ok" and r["layout"] == "striped-cache"
+    assert r["memory"]["argument_bytes"] == r["spec_argument_bytes"]
+    cfg, device = get_config("qwen2-7b"), dryrun.counted_device(mesh)
+    assert r["spec_argument_bytes"] == _bytes(S.input_specs(cfg, "decode_32k", device))
+    whole, block = S.cache_specs(cfg, "decode_32k"), S.cache_specs(cfg, "decode_32k", device)
+    assert _bytes(block["kv"]) * 256 == _bytes(whole["kv"])
+    assert r["collective_counts"]["all-gather"] > 0 and r["collective_bytes"]["all-reduce"] > 0
     assert not torch.cuda.is_initialized()
+
+
+def _bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "mixtral-8x7b", "granite-moe-3b-a800m",
+                                  "llama-3.2-vision-11b", "musicgen-medium", "rwkv6-3b",
+                                  "zamba2-1.2b"])
+def test_decode_cell_counts_what_a_rank_holds(arch):
+    """Each model rank of data index 1 of a (2, 4) description: the count's
+    argument bytes are the rank's parameter blocks (``LM.pspecs``; a vlm's
+    cross blocks do not run without the cross K/V), its token rows and the
+    cache ``decode_cache`` allocates for it."""
+    cfg = get_smoke_config(arch)
+    desc = MeshDescription((2, 4), ("data", "model"))
+    B, T = 8, 64
+    model = LM(cfg, device="meta")
+    for m in range(4):
+        at = desc.at(data=1, model=m)
+        r = dryrun.run_cell(arch, dict(seq_len=T, global_batch=B, kind="decode"), mesh=at,
+                            cfg=cfg, verbose=False)
+        assert r["status"] == "ok" and r["layout"] == "striped-cache"
+        params = {k: v for k, v in model.shapes().items() if k != "xattn"}
+        specs = model.pspecs(multi_pod=False)
+        held = sum(math.prod(local_shape(t.shape, s, at)) * t.element_size()
+                   for t, s in zip(tree_leaves(params), tree_leaves(
+                       {k: specs[k] for k in params})))
+        held += _bytes(decode_cache(model, B, T, at)) + (B // 2) * cfg.n_codebooks * 4
+        assert r["memory"]["argument_bytes"] == r["spec_argument_bytes"] == held, m
 
 
 def test_cli_counts_a_device_of_the_production_mesh(tmp_path):
@@ -294,7 +342,9 @@ def test_cli_counts_a_device_of_the_production_mesh(tmp_path):
                      "--multi-pod", "--out", str(tmp_path)])
     assert e.value.code == 0
     r = json.loads((tmp_path / "qwen2-7b__decode_32k__2x16x16.json").read_text())
-    assert r["status"] == "skipped" and r["mesh"]["shape"] == [2, 16, 16]
+    assert r["status"] == "ok" and r["layout"] == "striped-cache"
+    assert r["mesh"]["shape"] == [2, 16, 16]
+    assert r["memory"]["argument_bytes"] == r["spec_argument_bytes"]
     assert r["device"] == {"pod": 0, "data": 0, "model": 15} and r["n_devices"] == 512
     with pytest.raises(SystemExit) as e:
         dryrun.main(["--arch", "qwen2-7b", "--shape", "train_4k", "--multi-pod"])

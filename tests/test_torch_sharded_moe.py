@@ -14,8 +14,9 @@ granite smoke configs, with the smoke capacity factor (2) and a tight one
 And ``LM.hidden_states(run={"sp": True, "mesh": ...})`` (the rank's
 token block of its rows, in the sequence-parallel layout), ``LM.loss`` and
 three ``decode_step(run={"decode_moe_shardmap": True, ...})`` on (2, 2),
-with the parameters as each rank's blocks, within 2e-5 of the one-device
-port on each data shard's rows.  The expert weights are numpy draws handed
+with the parameters and the cache as each rank's blocks (the cache's T
+striped over "model", ``shardings.decode_cache``), within 2e-5 of the
+one-device port on each data shard's rows.  The expert weights are numpy draws handed
 to both packages; the worlds run once a session.
 """
 
@@ -113,6 +114,7 @@ def _lm_setup(arch):
 
 
 def _lm_on_mesh(mesh, d):
+    from repro_torch.launch.shardings import decode_cache
     from repro_torch.parallel.spec import local_shard
 
     out = {}
@@ -125,7 +127,7 @@ def _lm_on_mesh(mesh, d):
         with torch.no_grad():
             hid, aux, _ = model.hidden_states(blocks, toks[rows], run=run)
             loss = model.loss(blocks, {"tokens": toks[rows], "targets": toks[rows]}, run=run)
-            cache = model.decode_init(2, 8)
+            cache = decode_cache(model, 4, 8, mesh)
             logits = []
             for t in steps:
                 lg, cache = model.decode_step(blocks, t[rows], cache,

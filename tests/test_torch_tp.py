@@ -21,8 +21,9 @@ by default on a mesh), each rank holding only its blocks:
   alive when it does, where ``sp=False`` (the gathered-whole layout) holds
   every layer's at once; the dense FFN's blocks stay the rank's "model"
   blocks;
-* the sequence-parallel attention (``layers.attn_apply(sp=...)``) on the
-  (1, 4) mesh against whole attention, output and gradients.
+* the sequence-parallel attention (``layers.attn_apply(layout=
+  SeqParallel(...))``) on the (1, 4) mesh against whole attention, output
+  and gradients.
 """
 
 import textwrap
@@ -185,7 +186,7 @@ def _attention_case(arch, mesh):
     xl = x[:, m * n:(m + 1) * n].clone().requires_grad_()
     pl = {k: v.clone().requires_grad_() for k, v in p.items()}
     out, _ = TL.attn_apply(pl, cfg, xl, positions=torch.arange(m * n, (m + 1) * n),
-                           sp=TL.SeqParallel(mesh, m * n))
+                           layout=TL.SeqParallel(mesh, m * n))
     w = torch.linspace(-1, 1, out.numel()).reshape(out.shape)
     gx, *gp = torch.autograd.grad((out * w).sum(), [xl] + [pl[k] for k in sorted(pl)])
     return {"out": out.detach().numpy(), "gx": gx.numpy(),
