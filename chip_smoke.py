@@ -262,8 +262,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    whose (B, 1, 4, Vp) logits are held as phase 6 holds its own; serving
    with (P, 4) prompts and all of phase 6's checks; ``flash_attention``
    timed at B 2, H 24, S 4,096, D 64, causal.
-20. Training zamba2-1.2b at full width (38 mamba2 layers, the shared
-   block after every 6, vocab 32,000), weights drawn on the card from
+20. Training zamba2-1.2b at full width (20 of its 38 mamba2 layers: 3
+   groups of 6, each followed by the shared block, and a tail of 2, as at
+   full width; all 38 before phase 22's recurrent runs came; vocab
+   32,000), weights drawn on the card from
    ``--seed``.  Both kernels run forward under autograd, inside the
    ``torch.autograd.Function`` of their ``ops.py``, whose backward
    recomputes and differentiates the plain version (``repro`` has no
@@ -297,7 +299,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    microbatch's shapes (``plain_backward_ms``).
 21. The dry run (``repro_torch.launch.dryrun.run_cell``) of the steps that
    phases 6 and 20 ran: qwen2-7b's prefill of 2 x 4,096 and zamba2-1.2b's
-   train step of 4 x 4,096 at accum 2, bf16, counted on ``meta`` in a worker
+   train step (20 layers) of 4 x 4,096 at accum 2, bf16, counted on ``meta`` in a worker
    process on the host while the card runs phase 20 (it needs no card).
    Its argument bytes must equal the bytes of the tensors the phase passed
    to its step (the parameters, the optimizer state, the batch), its
@@ -384,7 +386,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    prefill's is; then zamba2-1.2b's first group (6 mamba2 layers and the
    shared block) at full width in f32, 3 steps from random states and a
    random ``shared_kv`` of the same lengths, the states on their blocks,
-   within 2e-5 of one device.  The ``kernels`` line gains ``flash_attention`` timed at the last
+   within 2e-5 of one device.  Then the recurrent stacks in the d-sharded
+   layout (``models/lm.py``: the residual's d over "model" between layers,
+   each layer's heads dealt over it), f32, parameters and a global batch
+   of 2 x 4,096 from the seed: zamba2-1.2b's first group on (2, 2) (32 of
+   its 64 heads a rank) and rwkv6-3b at 2 of its 32 layers on (1, 4) (10 of
+   its 40 heads a rank): the prefill of each rank's rows within 1e-5
+   relative L2 of one device's (and with ``sp`` off, every dense weight
+   gathered whole, the same), ``ssd_scan`` on each rank's first and last
+   scan inputs at its head count held to its plain version within 1e-4,
+   the loss on the global batch within 1e-5 relative, and every gradient
+   leaf of each within 1e-3 relative L2 (the one-device oracles on one
+   rank at a time); each rank's card memory at the prefill's peak beside
+   the same prefill with ``sp`` off, and the dry run of zamba2's prefill
+   on a (2, 2) description held as the dense prefill's.  The ``kernels``
+   line gains ``flash_attention`` timed at the last
    of 4 blocks of qwen2-7b's prefill (Sq 1,024 at ``q_offset`` 3,072
    against 4,096 keys), with phase 22's launches at an offset.
 
@@ -673,6 +689,11 @@ PAGED_LENS = {LM_ARCH: (4096, 32768), HYBRID_ARCH: (1024, 4096)}
 # of bf16 weights and f32 m, v and master, fits one card; the reference's
 # TRAIN_ACCUM of 2), from the token stream of --seed
 TRAIN_ARCH = HYBRID_ARCH
+# 20 of its 38 layers (3 groups of 6, each with the shared block, and a
+# mamba2 tail of 2, as at full width): cut from 38 for the time of phase 22
+# (b)'s recurrent runs (about 46 s); the phase's gates do not amplify
+# rounding (finite losses, the loss lower after the steps, launch counts)
+TRAIN_LAYERS = 20
 # a step took 26-30 s on the card, the plain backward most of it; 2 steps (3
 # before phase 22 came: cut for its time), the first profiled, so the second,
 # timed alone, is a step past the first call's warm-ups
@@ -695,8 +716,10 @@ RESUME_LAYERS, RESUME_AT, RESUME_STEPS = 6, 1, 2
 # phases 6 and 20 ran, counted on the host in a worker process while the
 # card runs phase 20 (the count needs no card, and takes about a minute)
 DRYRUN_CELLS = {
-    "prefill": (LM_ARCH, dict(seq_len=PREFILL_LEN, global_batch=PREFILL_BATCH, kind="prefill")),
-    "train": (TRAIN_ARCH, dict(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, kind="train")),
+    "prefill": (get_config(LM_ARCH), dict(seq_len=PREFILL_LEN, global_batch=PREFILL_BATCH,
+                                          kind="prefill")),
+    "train": (get_config(TRAIN_ARCH).scaled(n_layers=TRAIN_LAYERS),
+              dict(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, kind="train")),
 }
 DRYRUN_PEAK_RTOL = 0.15  # its arguments and temporaries against the phase's peak
 DRYRUN_WAIT_S = 600
@@ -722,7 +745,7 @@ MESH_PARAMS_REL_L2, MESH_PARAMS_SMALL = 2e-4, 1e-6
 MESH_COMPRESS_LEAVES = ("blocks/attn/wq", "blocks/ffn/router", "ln_f/scale")
 MESH_TIMEOUT_S = 300         # a collective that waits longer raises
 MESH_GRAPH_LOADS, MESH_GRAPH_TRAVERSALS = 8, 2  # (c): phase 15's first batches
-MESH_PATH = ("flash_attention",) + GRAPH_PATH
+MESH_PATH = ("flash_attention", "ssd_scan") + GRAPH_PATH
 # (b)'s dense run in the sequence-parallel layout: qwen2-7b at full width
 # cut to 2 layers, a global batch of 2 x 4,096, on the (2, 2) mesh and, for
 # the prefill, a (1, 4) mesh of the same world
@@ -737,6 +760,11 @@ MESH_DECODE_T, MESH_DECODE_LEN, MESH_DECODE_STEPS = 8192, 4096, 3
 MESH_DECODE_F32_REL_L2 = 2e-5  # f32 logits against one device (bf16: MESH_DENSE_BF16_REL_L2)
 MESH_DECODE_TIE = 1e-5       # a greedy token may differ only below this top-2 margin
 MESH_HYBRID_LAYERS = 6       # zamba2-1.2b's first group
+# (b)'s recurrent runs in the d-sharded layout, f32: zamba2-1.2b's first
+# group on the (2, 2) mesh (32 of its 64 heads a rank) and rwkv6-3b at 2 of
+# its 32 layers on the (1, 4) mesh (10 of its 40 heads a rank), a global
+# batch of 2 x 4,096; the limits of the dense run's f32 gates
+MESH_SSM_LAYERS, MESH_RECURRENT_BATCH = 2, 2
 BF16_DENSE_FLOPS = 989e12  # H100 SXM, bf16 dense, at 700 W (NVIDIA data sheet)
 
 
@@ -2033,16 +2061,18 @@ def _near_tie_differences(mesh_call, one_call, k: int) -> dict:
 
 
 @contextlib.contextmanager
-def _scan_inputs_of(calls):
+def _scan_inputs_of(calls, to=None):
     """The model's prefill scans run as they would; the inputs of the scan
-    calls numbered ``calls`` (in the order the layers make them) are kept."""
+    calls numbered ``calls`` (in the order the layers make them) are kept
+    (copied to the device ``to``, by default where they are)."""
     kept, n, real = {}, [0], ssd_ops.ssd_scan
+
+    def keep(t):
+        return None if t is None else t.clone() if to is None else t.to(to, copy=True)
 
     def recording(q, k, v, w, **kw):
         if n[0] in calls:
-            h0 = kw["h0"]
-            kept[n[0]] = ((q.clone(), k.clone(), v.clone(), w.clone()),
-                          {**kw, "h0": None if h0 is None else h0.clone()})
+            kept[n[0]] = ((keep(q), keep(k), keep(v), keep(w)), {**kw, "h0": keep(kw["h0"])})
         n[0] += 1
         return real(q, k, v, w, **kw)
 
@@ -2062,19 +2092,23 @@ def _scan_margin(got, hT, want, want_h, tol: float) -> dict:
 
 
 def _layer_scan_gate(kept) -> dict:
-    """``ssd_scan`` on the kept inputs of model layers (bf16, as the prefill
-    gave them) against its plain version, outputs and final states within
-    the bf16 tolerance of phase 8; per scan call the max abs error and
-    :func:`_scan_margin`."""
-    tol, out = SSD_TOL[torch.bfloat16], {}
+    """``ssd_scan`` on the kept inputs of model layers (in the dtype the
+    prefill gave them) against its plain version, outputs and final states
+    within that dtype's tolerance of phase 8; per scan call the max abs
+    error, its heads and :func:`_scan_margin`."""
+    out = {}
     with uncounted():
         for i, (args, kw) in sorted(kept.items()):
             kw = {**kw, "return_state": True}
             del kw["impl"]
+            dtype = args[0].dtype
+            tol = SSD_TOL[dtype]
             got, hT = ssk.ssd_scan(*args, **kw)
             want, want_h = ssd_scan(*args, **kw, impl="reference")
-            what = f"ssd_scan on the inputs of scan call {i} of the bf16 prefill"
+            what = (f"ssd_scan on the inputs of scan call {i} of the "
+                    f"{str(dtype).removeprefix('torch.')} prefill ({args[0].shape[1]} heads)")
             out[f"call {i}"] = {
+                "heads": args[0].shape[1],
                 "max_abs_err": max(require_close(what, got, want, tol),
                                    require_close(what + ", final state", hT, want_h, tol)),
                 **_scan_margin(got, hT, want, want_h, tol)}
@@ -3202,10 +3236,11 @@ def train_backward_ms(cfg, dev) -> dict:
 def train_path(seed: int, dev) -> dict:
     """Phase 20: the f32 gradient gate, bf16 training at full width and the
     bit-exact resume, the weights drawn on the card from ``seed``."""
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(TRAIN_ARCH).scaled(n_layers=TRAIN_LAYERS)
     model = LM(cfg, dev)
     params, init_s = wall_s(lambda: model.init(torch.Generator(device=dev).manual_seed(seed)))
-    log(f"phase 20: {cfg.name} at full width ({param_count(model.meta())} parameters, "
+    log(f"phase 20: {cfg.name} at full width, {cfg.n_layers} of its "
+        f"{get_config(TRAIN_ARCH).n_layers} layers ({param_count(model.meta())} parameters, "
         f"{param_bytes(model.meta()) / 1e9:.2f} GB bf16) drawn on the card in {init_s:.2f} s; "
         f"train state with f32 m, v and master {param_count(model.meta()) * 14 / 1e9:.2f} GB")
     stream = SyntheticTokenStream(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
@@ -3245,8 +3280,9 @@ def start_dry_run():
     under ``("mesh", kind, rank)``."""
     pool = multiprocessing.get_context("spawn").Pool(2, initializer=torch.set_num_threads,
                                                      initargs=(1,))
-    pending = {key: pool.apply_async(dryrun.run_cell, (arch, shape), {"verbose": False})
-               for key, (arch, shape) in DRYRUN_CELLS.items()}
+    pending = {key: pool.apply_async(dryrun.run_cell, (cfg.name, shape),
+                                     {"verbose": False, "cfg": cfg})
+               for key, (cfg, shape) in DRYRUN_CELLS.items()}
     pending.update(mesh_dense_predictions(pool))
     return pool, pending
 
@@ -3273,7 +3309,8 @@ def dry_run_against_card(pending, summary: dict, smi: str) -> dict:
                   train["profile"]["kernel_launches"], "phase 20"),
     }
     out = {"budget_bytes": dryrun.H100_BYTES, "total_memory": total}
-    for key, (arch, shape) in DRYRUN_CELLS.items():
+    for key, (cfg, shape) in DRYRUN_CELLS.items():
+        arch = cfg.name
         r = pending[key].get(timeout=DRYRUN_WAIT_S)
         args, peak, med, launches, phase = measured[key]
         mem = r["memory"]
@@ -3871,6 +3908,125 @@ def _mesh_decode(rank: int, world: int, mesh, seed: int, dev, dense_params) -> d
     return out
 
 
+def _recurrent_batch(cfg, seed: int, dev) -> dict:
+    """(b)'s recurrent runs' global batch: tokens and targets from the seed,
+    the mask holding zeros."""
+    rng = np.random.default_rng(seed + 28)
+    shape = (MESH_RECURRENT_BATCH, PREFILL_LEN)
+    mask = np.ones(shape, np.float32)
+    mask[0, :PREFILL_LEN // 8] = 0.0
+    return {k: torch.as_tensor(v, device=dev) for k, v in (
+        ("tokens", rng.integers(0, cfg.vocab, shape).astype(np.int32)),
+        ("targets", rng.integers(0, cfg.vocab, shape).astype(np.int32)), ("mask", mask))}
+
+
+def _recurrent_on_mesh(rank: int, world: int, mesh, cfg, seed: int, dev) -> dict:
+    """``cfg`` (f32) on ``mesh`` in the d-sharded layout, every rank its
+    blocks of parameters drawn from the seed: the prefill of the rank's rows
+    against one device's (logits within ``MESH_F32_REL_L2``; the rank's
+    first and last scan through the kernel at its head count held to the
+    plain scan on their own inputs), its card memory beside the same
+    prefill with ``sp`` off (every dense weight gathered whole); the loss
+    on the global batch (within ``GATE_LOSS_RTOL``) and every gradient leaf
+    (within ``GATE_GRAD_REL_L2``), against one device run on one rank at a
+    time.  Every gate raises on the rank that misses it."""
+    model = LM(cfg, dev)
+    specs = model.pspecs(multi_pod=False)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    batch = _recurrent_batch(cfg, seed, dev)
+    n_dp = dict(zip(mesh.mesh_dim_names, mesh.shape))["data"]
+    per = MESH_RECURRENT_BATCH // n_dp
+    d = mesh.get_local_rank("data")
+    mine = {k: v[d * per:(d + 1) * per] for k, v in batch.items()}
+    blocks = tree_map(lambda t, sp: local_shard(t, sp, mesh), params, specs)
+    args = _tree_bytes(blocks) + mine["tokens"].numel() * 4
+    out = {"mesh": tuple(mesh.shape)}
+    t0 = time.perf_counter()
+    step, _, run = build_prefill_step(cfg, device=dev, mesh=mesh)
+    if model.layout(run) != "d-sharded":
+        raise RuntimeError(f"phase 22 (b): {cfg.name} on a mesh ran {model.layout(run)}")
+    # the scans' inputs kept on the host, out of the measured peak
+    with _scan_inputs_of((0, cfg.n_layers - 1), to="cpu") as kept:
+        lg, sec, peak = _step_memory(lambda: step(blocks, {"tokens": mine["tokens"]}), args)
+    scans = _layer_scan_gate({i: (tuple(t.to(dev) for t in a),
+                                  {**kw, "h0": None if kw["h0"] is None else kw["h0"].to(dev)})
+                              for i, (a, kw) in kept.items()})
+    del kept
+
+    def oracle():
+        with uncounted(), torch.no_grad():
+            return build_prefill_step(cfg, device=dev)[0](params, {"tokens": mine["tokens"]})
+
+    want = _one_rank_at_a_time(rank, world, oracle)
+    rel, top1 = _logits_distance(f"phase 22 (b) {cfg.name} d-sharded prefill", lg, want,
+                                 cfg.vocab)
+    step_w, _, run_w = build_prefill_step(cfg, device=dev, mesh=mesh, run_overrides={"sp": False})
+    lg_w, sec_w, peak_w = _step_memory(lambda: step_w(blocks, {"tokens": mine["tokens"]}), args)
+    out["prefill"] = {"rel_l2": rel, "top1": top1, "s": sec, "peak_bytes": peak,
+                      "argument_bytes": args, "whole_peak_bytes": peak_w, "whole_s": sec_w,
+                      "whole_layout": model.layout(run_w),
+                      "whole_rel_l2": _logits_distance("phase 22 (b) gathered whole", lg_w, want,
+                                                       cfg.vocab)[0],
+                      "scans": scans}
+    del lg, lg_w, want
+    if rel > MESH_F32_REL_L2 or out["prefill"]["whole_rel_l2"] > MESH_F32_REL_L2:
+        raise RuntimeError(f"phase 22 (b) rank {rank}: {cfg.name}'s f32 d-sharded prefill on "
+                           f"{tuple(mesh.shape)} against one device: {out['prefill']} (limit "
+                           f"{MESH_F32_REL_L2})")
+    _release_host(f"{cfg.name}'s prefill", rank)
+    # the loss (and its gradients) on the global batch, against one device
+    run = build_run(cfg, mesh=mesh)
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(blocks)]
+
+    def loss_grads():
+        it = iter(leaves)
+        with torch.enable_grad():
+            loss = model.loss(tree_map(lambda _: next(it), blocks), mine, run=run)
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    (loss, g), sec, peak = _step_memory(loss_grads, _tree_bytes(blocks) + _tree_bytes(mine))
+    del leaves
+
+    def oracle_loss():
+        with uncounted(), torch.enable_grad():
+            want_loss, want = _loss_and_grads(model, params, batch, {})
+            errs = [_rel_l2(x, local_shard(w, sp, mesh)) if w.norm() > 0 else float(x.norm())
+                    for x, w, sp in zip(g, want, tree_leaves(specs))]
+            return float(want_loss), errs
+
+    want_loss, errs = _one_rank_at_a_time(rank, world, oracle_loss)
+    rec = {"loss": float(loss), "one_device_loss": want_loss,
+           "loss_rel": abs(float(loss) - want_loss) / abs(want_loss), "s": sec,
+           "peak_bytes": peak}
+    worst = int(np.argmax(errs))
+    rec.update(grad_rel_l2_worst=errs[worst], grad_rel_l2_worst_leaf=_leaf_paths(specs)[worst])
+    out["loss"] = rec
+    out["seconds"] = time.perf_counter() - t0
+    del blocks, params, g
+    torch.cuda.empty_cache()
+    _release_host(f"{cfg.name}'s loss", rank)
+    if rec["loss_rel"] > GATE_LOSS_RTOL or rec["grad_rel_l2_worst"] > GATE_GRAD_REL_L2:
+        raise RuntimeError(f"phase 22 (b) rank {rank}: {cfg.name}'s f32 d-sharded loss on "
+                           f"{tuple(mesh.shape)} against one device: {rec} (limits "
+                           f"{GATE_LOSS_RTOL}, {GATE_GRAD_REL_L2})")
+    return out
+
+
+def _mesh_recurrent(rank: int, world: int, mesh, seed: int, dev) -> dict:
+    """(b)'s recurrent runs in the d-sharded layout: zamba2-1.2b's first
+    group on (2, 2), then rwkv6-3b at ``MESH_SSM_LAYERS`` layers on (1, 4),
+    each its prefill, loss and gradients."""
+    t0 = time.perf_counter()
+    hyb = get_config(HYBRID_ARCH).scaled(n_layers=MESH_HYBRID_LAYERS, dtype="float32")
+    out = {"hybrid": _recurrent_on_mesh(rank, world, mesh, hyb, seed, dev)}
+    ssm = get_config(SSM_ARCH).scaled(n_layers=MESH_SSM_LAYERS, dtype="float32")
+    mesh14 = make_host_mesh(MESH_SEQ_SHAPE, device_type="cuda")
+    out["ssm"] = _recurrent_on_mesh(rank, world, mesh14, ssm, seed, dev)
+    out["seconds"] = time.perf_counter() - t0
+    out["host"] = _release_host("the recurrent runs", rank)
+    return out
+
+
 def _mesh_rank(rank: int, world: int, rdv: str, out_dir: str, seed: int) -> None:
     """(b): one rank of the gloo world sharing the card; writes its results
     to ``out_dir/rank<r>.pt``."""
@@ -4085,6 +4241,9 @@ def _mesh_rank(rank: int, world: int, rdv: str, out_dir: str, seed: int) -> None
         out["seconds"]["dense"] = out["dense"]["seconds"]
         out["seconds"]["decode"] = out["dense"]["decode"]["seconds"]
         out["host"]["decode"] = _host_memory()
+        out["recurrent"] = _mesh_recurrent(rank, world, mesh, seed, dev)
+        out["seconds"]["recurrent"] = out["recurrent"]["seconds"]
+        out["host"]["recurrent"] = out["recurrent"]["host"]
         out["launches"] = _launch_counts()
     finally:
         dist.destroy_process_group()
@@ -4092,35 +4251,44 @@ def _mesh_rank(rank: int, world: int, rdv: str, out_dir: str, seed: int) -> None
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
-MESH_DRY_RUN = ("prefill", "decode")  # (b)'s bf16 steps on (2, 2) the dry run predicts
+# (b)'s steps on (2, 2) the dry run predicts: the dense bf16 prefill and
+# decode step, and zamba2-1.2b's f32 d-sharded prefill
+MESH_DRY_RUN = ("prefill", "decode", "hybrid_prefill")
 
 
 def mesh_dense_predictions(pool) -> dict:
-    """The dry run of (b)'s dense bf16 prefill and decode step on (2, 2),
-    one count a rank on a ``MeshDescription`` standing for the rank's
+    """The dry run of (b)'s dense bf16 prefill and decode step and of its
+    zamba2-1.2b f32 prefill (the first group, d-sharded) on (2, 2), one
+    count a rank on a ``MeshDescription`` standing for the rank's
     coordinate, submitted to ``pool``: {("mesh", kind, rank): pending
     result}."""
-    cfg = get_config(MESH_DENSE_ARCH).scaled(n_layers=MESH_DENSE_LAYERS)
+    dense = get_config(MESH_DENSE_ARCH).scaled(n_layers=MESH_DENSE_LAYERS)
+    hyb = get_config(HYBRID_ARCH).scaled(n_layers=MESH_HYBRID_LAYERS, dtype="float32")
     desc = MeshDescription(MESH_SHAPE, ("data", "model"))
-    cells = {"prefill": dict(seq_len=PREFILL_LEN, global_batch=MESH_DENSE_BATCH, kind="prefill"),
-             "decode": dict(seq_len=MESH_DECODE_T, global_batch=MESH_DENSE_BATCH,
-                            kind="decode")}
-    return {("mesh", kind, r): pool.apply_async(dryrun.run_cell, (MESH_DENSE_ARCH, cell), {
+    cells = {"prefill": (dense, dict(seq_len=PREFILL_LEN, global_batch=MESH_DENSE_BATCH,
+                                     kind="prefill")),
+             "decode": (dense, dict(seq_len=MESH_DECODE_T, global_batch=MESH_DENSE_BATCH,
+                                    kind="decode")),
+             "hybrid_prefill": (hyb, dict(seq_len=PREFILL_LEN, global_batch=MESH_RECURRENT_BATCH,
+                                          kind="prefill"))}
+    return {("mesh", kind, r): pool.apply_async(dryrun.run_cell, (cfg.name, cell), {
         "cfg": cfg, "verbose": False,
         "mesh": desc.at(data=r // MESH_SHAPE[1], model=r % MESH_SHAPE[1])})
-        for kind, cell in cells.items() for r in range(MESH_RANKS)}
+        for kind, (cfg, cell) in cells.items() for r in range(MESH_RANKS)}
 
 
 def _dense_against_dry_run(ranks: list, preds: dict) -> dict:
-    """Each rank's bf16 prefill and first bf16 decode step on (2, 2) against
-    the dry run of its coordinate (``preds``: {kind: {rank: result}}):
-    argument bytes exactly, arguments plus temporaries within
-    ``DRYRUN_PEAK_RTOL`` of the measured peak."""
+    """Each rank's bf16 prefill and first bf16 decode step of the dense run,
+    and its f32 zamba2-1.2b prefill, on (2, 2) against the dry run of its
+    coordinate (``preds``: {kind: {rank: result}}): argument bytes exactly,
+    arguments plus temporaries within ``DRYRUN_PEAK_RTOL`` of the measured
+    peak."""
     out = {}
     for kind in MESH_DRY_RUN:
         for r, rank in enumerate(ranks):
-            got = (rank["dense"]["prefill"]["2x2|bfloat16"] if kind == "prefill"
-                   else rank["dense"]["decode"]["bfloat16"])
+            got = {"prefill": lambda: rank["dense"]["prefill"]["2x2|bfloat16"],
+                   "decode": lambda: rank["dense"]["decode"]["bfloat16"],
+                   "hybrid_prefill": lambda: rank["recurrent"]["hybrid"]["prefill"]}[kind]()
             pr = preds[kind][r]
             mem = pr["memory"]
             pred = mem["argument_bytes"] + mem["temp_bytes"]
@@ -4133,7 +4301,7 @@ def _dense_against_dry_run(ranks: list, preds: dict) -> dict:
                               "collective_bytes": pr["collective_bytes"],
                               "trace_s": pr["trace_s"]}
             if mem["argument_bytes"] != got["argument_bytes"] or abs(rel) > DRYRUN_PEAK_RTOL:
-                raise SystemExit(f"phase 22 (b): the dry run of rank {r}'s bf16 {kind} on "
+                raise SystemExit(f"phase 22 (b): the dry run of rank {r}'s {kind} on "
                                  f"{MESH_SHAPE}: {out[f'{kind}|{r}']} (argument bytes exactly, the "
                                  f"peak within {DRYRUN_PEAK_RTOL:.0%})")
     return out
@@ -4288,10 +4456,37 @@ def mesh_four_ranks(seed: int, tmp: Path, preds: dict) -> dict:
         f"{[[round(t, 2) for t in x['s']] for x in g]} s a rank; peak "
         f"{[round(x['peak_bytes'] / 1e9, 3) for x in g]} GB; decode runs "
         f"{[round(x['seconds'], 1) for x in dec]} s a rank")
+    rec = [x["recurrent"] for x in ranks]
+    for key, arch, layers in (("hybrid", HYBRID_ARCH, f"its first group ({MESH_HYBRID_LAYERS} "
+                               f"mamba2 layers and the shared block)"),
+                              ("ssm", SSM_ARCH, f"{MESH_SSM_LAYERS} layers")):
+        g = [x[key] for x in rec]
+        pf, ls = [x["prefill"] for x in g], [x["loss"] for x in g]
+        scans = {k: (v["heads"], v["max_abs_err"]) for k, v in pf[0]["scans"].items()}
+        grads = (f", every gradient leaf within {max(x['grad_rel_l2_worst'] for x in ls):.3e} "
+                 f"relative L2 (limit {GATE_GRAD_REL_L2}; worst "
+                 f"{ls[0]['grad_rel_l2_worst_leaf']} on rank 0)")
+        log(f"phase 22 (b): {arch} at full width, {layers}, f32, d-sharded on {g[0]['mesh']}, "
+            f"{MESH_RECURRENT_BATCH} x {PREFILL_LEN}: the prefill of each rank's rows against "
+            f"one device's, logits within {max(x['rel_l2'] for x in pf):.3e} relative L2 (limit "
+            f"{MESH_F32_REL_L2}), {[round(x['s'], 2) for x in pf]} s a rank, arguments plus "
+            f"the peak above the resident state {[round(x['peak_bytes'] / 1e9, 3) for x in pf]} "
+            f"GB; with sp off ({pf[0]['whole_layout']}) "
+            f"{[round(x['whole_peak_bytes'] / 1e9, 3) for x in pf]} GB, "
+            f"{[round(x['whole_s'], 2) for x in pf]} s, logits within "
+            f"{max(x['whole_rel_l2'] for x in pf):.3e}; ssd_scan on rank 0's first and last "
+            f"scan inputs (heads, max abs err against its plain version) {scans}; the loss on "
+            f"the global batch {ls[0]['loss']:.6f} within {max(x['loss_rel'] for x in ls):.3e} "
+            f"of one device (limit {GATE_LOSS_RTOL}){grads}, "
+            f"{[round(x['s'], 2) for x in ls]} s a rank, peak "
+            f"{[round(x['peak_bytes'] / 1e9, 3) for x in ls]} GB; the run "
+            f"{[round(x['seconds'], 1) for x in g]} s a rank")
+    log(f"phase 22 (b): the recurrent runs {[round(x['seconds'], 1) for x in rec]} s a rank; "
+        f"host memory after them (GB) {[x['host'] for x in rec]}")
     out["dry_run"] = _dense_against_dry_run(ranks, preds)
     for key, x in out["dry_run"].items():
         kind, r = key.split("|")
-        log(f"phase 22 (b): the dry run of rank {r}'s bf16 {kind} ({x['device']}, "
+        log(f"phase 22 (b): the dry run of rank {r}'s {kind} ({x['device']}, "
             f"{x['layout']}) of {MESH_SHAPE}, counted in "
             f"{x['trace_s']:.1f} s on the host: argument bytes {x['argument_bytes']} against "
             f"{x['measured_argument_bytes']} on the rank; arguments + temporaries "

@@ -5,6 +5,7 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-7b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--out DIR] [--force]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh production [--multi-pod]
+      [--sp-off]
 
 The port's counterpart of ``repro.launch.dryrun``, which lowers and compiles
 each cell's step on ``ShapeDtypeStruct`` stand-ins for a mesh of 256 or 512
@@ -44,8 +45,10 @@ allocates beside its result the staging buffer of the result's size that
 both backends allocate for the port's list all-gather
 (``parallel/collectives.py``; ``chip_smoke.py`` phase 22 measures it on
 each).  ``collective_bytes`` and ``fits`` are that program's.  The attention stacks run in the sequence-parallel layout
-(``build_run``'s ``sp``); the recurrent stacks (ssm, hybrid) in the layout
-they run on a mesh today, every dense weight gathered whole for the step;
+(``build_run``'s ``sp``), the recurrent stacks (ssm, hybrid) in the
+d-sharded one (the residual's d over "model" between layers, each layer's
+heads dealt over it; ``LM.layout`` names both, and ``gathered-whole`` where
+``sp`` is off: every dense weight gathered whole for the step);
 every decode cell in the striped-cache layout (``build_decode_step(mesh=)``:
 the cache's T striped over "model", the partial softmaxes merged, one
 layer's weights gathered at a time).  ``layout`` names it.
@@ -127,12 +130,14 @@ def _train_costs(step, params, opt_state, batch) -> opcost.Costs:
     return total
 
 
-def run_cell(arch: str, shape, *, mesh=None, verbose: bool = True, cfg=None) -> dict:
+def run_cell(arch: str, shape, *, mesh=None, verbose: bool = True, cfg=None,
+             run_overrides: dict = None) -> dict:
     """One cell: ``shape`` is a name of ``SHAPES`` or a dict with its keys
     (``seq_len``, ``global_batch``, ``kind``).  With ``mesh`` (a
     ``MeshDescription``), the program of one device of it: the one its
     ``coordinate`` names, or :func:`counted_device`.  ``cfg`` stands in for
-    the arch's config (a test's smoke config)."""
+    the arch's config (a test's smoke config); ``run_overrides`` go to the
+    step's builder (``{"sp": False}`` counts the gathered-whole layout)."""
     cfg = cfg or get_config(arch)
     name = shape if isinstance(shape, str) else dict(shape)
     if isinstance(shape, str) and not cell_is_runnable(cfg, shape):
@@ -150,24 +155,27 @@ def run_cell(arch: str, shape, *, mesh=None, verbose: bool = True, cfg=None) -> 
     specs = S.input_specs(cfg, sh, mesh)
     micro = None
     if kind == "train":
-        step, model, run = S.build_train_step(cfg, device=S.META, mesh=mesh)
+        step, model, run = S.build_train_step(cfg, device=S.META, mesh=mesh,
+                                              run_overrides=run_overrides)
         costs = _train_costs(step, **specs)
         micro = step.accum
     elif kind == "prefill":
-        step, model, run = S.build_prefill_step(cfg, device=S.META, mesh=mesh)
+        step, model, run = S.build_prefill_step(cfg, device=S.META, mesh=mesh,
+                                                run_overrides=run_overrides)
         costs = opcost.count(step, **specs)
     else:
-        step, model, run = S.build_decode_step(cfg, device=S.META, mesh=mesh)
+        step, model, run = S.build_decode_step(cfg, device=S.META, mesh=mesh,
+                                               run_overrides=run_overrides)
         ring = ring_record(S.cache_specs(cfg, sh), S.META) if mesh is not None else None
         if ring is not None:  # as shardings.decode_cache records the rings' T
             specs["cache"]["ring"] = ring
         costs = opcost.count(step, **specs)
     trace_s = time.perf_counter() - t0
     if mesh is not None:
-        # the layout a step on a mesh runs: the striped-cache decode, the
-        # sequence-parallel one, or every dense weight gathered whole
-        layout = ("striped-cache" if kind == "decode" else
-                  "sequence-parallel" if model.uses_sp_layout(run) else "gathered-whole")
+        # the layout a step on a mesh runs: the striped-cache decode, or the
+        # prefill's and the loss's (``LM.layout``: sequence-parallel,
+        # d-sharded or gathered-whole)
+        layout = "striped-cache" if kind == "decode" else model.layout(run)
         placed.update(layout=layout, spec_argument_bytes=_read_input_bytes(kind, specs))
     summary = opcost.summarize(costs)
     memory = {"argument_bytes": costs.argument_bytes, "output_bytes": costs.output_bytes,
@@ -205,11 +213,17 @@ def main(argv=None) -> None:
                     help="count one device of the production mesh, (16, 16)")
     ap.add_argument("--multi-pod", action="store_true",
                     help="with --mesh: the (2, 16, 16) mesh over (pod, data, model)")
+    ap.add_argument("--sp-off", action="store_true",
+                    help="with --mesh: run_overrides {'sp': False}, the gathered-whole layout")
     args = ap.parse_args(argv)
     if args.multi_pod and not args.mesh:
         ap.error("--multi-pod counts a device of the production mesh: add --mesh production")
+    if args.sp_off and not args.mesh:
+        ap.error("--sp-off picks a layout on a mesh: add --mesh production")
     mesh = make_production_mesh(multi_pod=args.multi_pod) if args.mesh else None
     tag = "" if mesh is None else "__" + "x".join(str(n) for n in mesh.shape)
+    tag += "__sp_off" if args.sp_off else ""
+    overrides = {"sp": False} if args.sp_off else None
     if args.all:
         cells = [(arch, shape) for arch in ARCH_NAMES for shape in SHAPES]
     elif args.arch and args.shape:
@@ -225,7 +239,7 @@ def main(argv=None) -> None:
             print(f"[{arch} × {shape}] cached")
             continue
         try:
-            result = run_cell(arch, shape, mesh=mesh)
+            result = run_cell(arch, shape, mesh=mesh, run_overrides=overrides)
         except Exception as e:  # noqa: BLE001 — record the cell and go on
             traceback.print_exc()
             result = {"arch": arch, "shape": shape, "status": "error",

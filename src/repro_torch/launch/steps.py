@@ -69,9 +69,9 @@ def build_run(cfg: ArchConfig, *, mesh=None,
     cross-entropy in chunks of 512, as the reference's ``build_run``, with
     ``sp`` and the ``mesh``.  ``sp`` is on by default on a mesh, as the
     reference's default, and off without one: on a mesh it runs an
-    attention stack in the sequence-parallel layout (``models/lm.py``), and
-    ``sp=False`` there gathers the dense weights whole for the step (the
-    recurrent stacks take that layout whatever ``sp`` says).  The
+    attention stack in the sequence-parallel layout and a recurrent stack
+    in the d-sharded one (``models/lm.py``), and ``sp=False`` there gathers
+    the dense weights whole for the step.  The
     reference's ``attn_seq_shard`` (its pins of the sequence-parallel
     attention, which this layout is) and ``attn_block_q`` (its one q block
     of up to 4,096 in the plain attention, for fewer partial dK/dV

@@ -30,6 +30,29 @@ checkpoints the block holds one layer's gathered weights at a time and
 gathers them again when the backward recomputes it, as the reference's
 remat does.
 
+A :class:`~repro_torch.models.layers.DSharded` layout runs a recurrent
+block (rwkv6, mamba2) in the d-sharded layout of ``lm.py``'s docstring:
+``x`` is the rank's d block (B, S, d / M), ``p`` its blocks of the layer,
+and the block deals its H heads over "model" in contiguous ranges
+[⌊H m / M⌋, ⌊H (m + 1) / M⌋).  It gathers its normed inputs whole along d
+(backward a reduce-scatter: each rank's heads read them) and projects them
+onto its heads' channels only; each leaf whose "model" block is the rank's
+channels stays that block, every other is gathered whole with its gradient
+summed over "model" and sliced (:meth:`_HeadSplit.view`).  rwkv6 runs its
+scan, bonus and per-head group norm on its heads, and ``wo``'s rows of its
+channels give a (B, S, d) partial reduce-scattered onto its d block; its
+channel mix runs ``cwk``/``cwv`` on its "model" block of d_ff, their partial
+reduce-scattered, and ``cwr``'s column block gives the gate of its own d
+block.  mamba2 takes ``in_proj``'s columns of its heads' z, x and dt and the
+shared B and C (every rank computes those), its conv over its x channels
+and B and C, its heads of ``A_log``, ``D`` and ``dt_bias``; the gated
+RMSNorm's variance over the whole d_inner is an all-reduce over "model" of
+the (B, S, 1) f32 sums of squares (backward a sum as well: each rank
+normalises its own channels with it), and ``out_proj``'s rows of its
+channels give the partial reduce-scattered.  At its end the block gathers
+its heads' new state over "model" (padded to the largest share for the
+all-gather, and trimmed), so the state leaves whole on every model rank.
+
 A :class:`~repro_torch.models.layers.StripedCache` runs its decode step in
 the striped-cache layout: ``x`` is alike on every model rank, ``p`` the
 rank's blocks, which the block gathers
@@ -48,8 +71,11 @@ from ..kernels.ssd_scan import ops as ssd_ops
 from ..kernels.ssd_scan.ref import linear_scan_step
 from ..parallel import collectives as C
 from ..parallel.mesh import is_multi_pod
+from ..parallel.spec import axis_index, axis_size, dealt
+from ..parallel.spec import names as axis_names
 from .config import ArchConfig
 from .layers import (
+    DSharded,
     SeqParallel,
     _split_heads,
     attn_apply,
@@ -123,6 +149,82 @@ def whole_block_view(p, meta, mesh):
     whole, every model rank computing alike with them."""
     specs = build_pspecs(meta, multi_pod=is_multi_pod(mesh))
     return tree_map(lambda t, s: C.param_view(t, s, mesh, model="alike"), p, specs)
+
+
+class _HeadSplit:
+    """A rank's share of a recurrent layer in the d-sharded layout (the
+    module docstring): the heads [lo, hi) of its contiguous deal over
+    "model" (:func:`~repro_torch.parallel.spec.dealt`), their channels
+    [lo · hd, hi · hd), and the collectives over the residual's d."""
+
+    def __init__(self, layout: DSharded, n_heads: int, head_dim: int):
+        self.mesh = layout.mesh
+        self.n = axis_size(self.mesh, "model")
+        self.deal = dealt(n_heads, self.n)
+        self.lo, self.hi = self.deal[axis_index(self.mesh, "model")]
+        self.hd = head_dim
+        self.heads = slice(self.lo, self.hi)
+        self.chans = slice(self.lo * head_dim, self.hi * head_dim)
+
+    def chan_ranges(self, r: int, offset: int = 0, unit: int = None) -> list:
+        """Rank ``r``'s [start, stop) of its heads' items, ``unit`` a head
+        (``hd`` by default), from ``offset``."""
+        unit = self.hd if unit is None else unit
+        lo, hi = self.deal[r]
+        return [(offset + lo * unit, offset + hi * unit)]
+
+    def gather(self, x):
+        """The residual's d block gathered whole along d; its backward sums
+        every rank's share (each feeds its own heads)."""
+        return C.gather(x, self.mesh, "model", x.dim() - 1)
+
+    def scatter(self, out):
+        """A (B, S, d) partial of the rank's heads or d_ff block summed over
+        "model" onto the rank's d block (in f32 where ``out`` is narrower)."""
+        return C.scatter(out, self.mesh, "model", out.dim() - 1)
+
+    def view(self, p, meta, picks: dict):
+        """The layer's blocks ``p`` as the rank's share reads them.  A leaf
+        named in ``picks`` ({name: (dim, ranges of rank r)}) is the
+        concatenation of its ranges along dim: where they are the leaf's
+        "model" block on every rank, that block (``"block"``), else the leaf
+        gathered whole with its gradient summed over "model" and sliced.
+        Every other leaf is gathered whole, its gradient summed over "model"
+        (each rank reads it for other heads)."""
+        specs = build_pspecs(meta, multi_pod=is_multi_pod(self.mesh))
+        out = {}
+        for name in sorted(p):
+            t, spec = p[name], specs[name]
+            if name not in picks:
+                out[name] = tree_map(lambda t, sp: C.param_view(t, sp, self.mesh, model="whole"),
+                                     t, spec)
+                continue
+            dim, ranges = picks[name]
+            entry = spec[dim] if dim < len(spec) else None
+            if axis_names(entry) == ("model",):
+                size = t.shape[dim]
+                if all(ranges(r) == [(r * size, (r + 1) * size)] for r in range(self.n)):
+                    out[name] = C.param_view(t, spec, self.mesh, model="block")
+                    continue
+            w = C.param_view(t, spec, self.mesh, model="whole")
+            own = [w.narrow(dim, a, b - a) for a, b in ranges(axis_index(self.mesh, "model"))]
+            out[name] = own[0] if len(own) == 1 else torch.cat(own, dim)
+        return out
+
+    def whole_heads(self, t, dim: int, unit: int = 1):
+        """The rank's heads' items of ``t`` along ``dim`` (``unit`` a head)
+        gathered over "model" into every head's: each rank's padded to the
+        largest share for the all-gather, and trimmed after."""
+        most = max(hi - lo for lo, hi in self.deal) * unit
+        t = t.detach()
+        have = t.shape[dim]
+        if have < most:
+            pad = list(t.shape)
+            pad[dim] = most - have
+            t = torch.cat([t, t.new_zeros(pad)], dim)
+        every = C.all_gather(t.contiguous(), self.mesh, "model", dim)
+        return torch.cat([every.narrow(dim, r * most, (hi - lo) * unit)
+                          for r, (lo, hi) in enumerate(self.deal)], dim)
 
 
 def attn_block_apply(p, cfg: ArchConfig, x, *, moe=False, positions=None, kv_cache=None,
@@ -255,20 +357,56 @@ def _token_shift(x, prev):
     return torch.cat([prev[:, None, :], x[:, :-1, :]], dim=1)
 
 
-def rwkv6_block_apply(p, cfg: ArchConfig, x, state=None, *, chunk=64, scan_impl="chunked"):
+def _onto_block(out, split):
+    """A layer's output: as it is, or with a :class:`_HeadSplit` the rank's
+    (B, S, d) partial summed over "model" onto its d block (a temporary, so
+    that the partial is freed as soon as the residual takes it)."""
+    return out if split is None else split.scatter(out)
+
+
+def _rwkv6_picks(cfg: ArchConfig, split: _HeadSplit) -> dict:
+    """The leaves of an rwkv6 layer that a rank of the d-sharded layout
+    reads in part: its heads' columns of the r/k/v/g projections, of the
+    decay's second factor and base, the bonus and the group norm, its
+    heads' rows of ``wo``; the channel mix's "model" blocks (``cwr``'s
+    columns of the rank's d block, ``cwk``'s of its d_ff block, ``cwv``'s
+    rows)."""
+    own = split.chan_ranges
+    dm, fm = cfg.d_model // split.n, cfg.d_ff // split.n
+    cols = (1, own)
+    return {"wr": cols, "wk": cols, "wv": cols, "wg": cols, "wB": cols,
+            "w0": (0, own), "gn": (0, own), "wo": (0, own),
+            "bonus": (0, lambda r: own(r, unit=1)),
+            "cwr": (1, lambda r: [(r * dm, (r + 1) * dm)]),
+            "cwk": (1, lambda r: [(r * fm, (r + 1) * fm)]),
+            "cwv": (0, lambda r: [(r * fm, (r + 1) * fm)])}
+
+
+def rwkv6_block_apply(p, cfg: ArchConfig, x, state=None, *, chunk=64, scan_impl="chunked",
+                      layout=None):
     """state: None (fresh) or dict(tshift (B,d), cshift (B,d), h (B,H,K,V)).
     S > 1 runs the chunked scan (prefill, state-continuing); S == 1 with a
-    state runs the O(1) recurrent step (decode).  Returns (x', new_state)."""
-    B, S, d = x.shape
+    state runs the O(1) recurrent step (decode).  Returns (x', new_state).
+    With a :class:`DSharded` ``layout`` (the module docstring) ``x`` is the
+    rank's d block (B, S, d / M), ``p`` its blocks of the layer, and
+    ``state`` and the new state whole on every model rank."""
     H, hd = _rwkv_heads(cfg)
+    split = None if layout is None else _HeadSplit(layout, H, hd)
+    if split is not None:
+        p = split.view(p, rwkv6_block_meta(cfg), _rwkv6_picks(cfg, split))
+        H = split.hi - split.lo
+    xw = x if split is None else split.gather(x)
+    B, S, d = xw.shape
     decode = state is not None and S == 1
     zeros = torch.zeros((B, d), dtype=x.dtype, device=x.device)
     tprev = zeros if state is None else state["tshift"].to(x.dtype)
     cprev = zeros if state is None else state["cshift"].to(x.dtype)
     h0 = None if state is None else state["h"]
+    if h0 is not None and split is not None:
+        h0 = h0[:, split.heads].contiguous()
 
     # ---- time mix ----
-    xa = norm_apply(p["ln1"], cfg, x)
+    xa = norm_apply(p["ln1"], cfg, xw)
     xs = _token_shift(xa, tprev)
     mu = p["mu"].to(xa.dtype)
 
@@ -305,22 +443,24 @@ def rwkv6_block_apply(p, cfg: ArchConfig, x, state=None, *, chunk=64, scan_impl=
     mean = y.mean(-1, keepdim=True)
     var = y.var(-1, keepdim=True, correction=0)
     y = (y - mean) * torch.rsqrt(var + 1e-5)
-    y = y.transpose(1, 2).reshape(B, S, d) * p["gn"]
+    y = y.transpose(1, 2).reshape(B, S, H * hd) * p["gn"]
     y = y.to(x.dtype) * g
-    x = x + y @ p["wo"]
+    x = x + _onto_block(y @ p["wo"], split)
 
     # ---- channel mix ----
-    xc = norm_apply(p["ln2"], cfg, x)
+    xc = norm_apply(p["ln2"], cfg, x if split is None else split.gather(x))
     xcs = _token_shift(xc, cprev)
     cmu = p["cmu"].to(xc.dtype)
     xr = xc + (xcs - xc) * cmu[0]
     xk = xc + (xcs - xc) * cmu[1]
     kc = xk @ p["cwk"]
     kc = torch.square(F.relu(kc.to(F32))).to(xc.dtype)
-    vc = kc @ p["cwv"]
+    vc = _onto_block(kc @ p["cwv"], split)
     rc = torch.sigmoid((xr @ p["cwr"]).to(F32)).to(xc.dtype)
     x = x + rc * vc
 
+    if split is not None:  # every head's state, whole on every model rank
+        hT = split.whole_heads(hT, 1)
     return x, {"tshift": xa[:, -1, :], "cshift": xc[:, -1, :], "h": hT}
 
 
@@ -374,25 +514,62 @@ def _causal_conv(x, w, b, prev):
     return out + b.to(x.dtype), xp[:, -(K - 1):, :]
 
 
-def mamba2_block_apply(p, cfg: ArchConfig, x, state=None, *, chunk=64, scan_impl="chunked"):
+def _mamba2_picks(cfg: ArchConfig, split: _HeadSplit) -> dict:
+    """The leaves of a mamba2 layer that a rank of the d-sharded layout
+    reads in part: ``in_proj``'s columns of its heads' z, x and dt and the
+    shared B and C; the conv's channels of its x and B and C; its heads of
+    ``A_log``, ``D``, ``dt_bias``; its channels of the gated norm's scale and
+    its rows of ``out_proj``."""
+    d_inner, H, hd, N = _mamba_dims(cfg)
+    own = split.chan_ranges
+
+    def heads(r):
+        return own(r, unit=1)
+
+    def conv(r):
+        return own(r) + [(d_inner, d_inner + 2 * N)]
+
+    def proj(r):
+        return own(r) + [(a + d_inner, b + d_inner) for a, b in conv(r)] + \
+            own(r, offset=2 * d_inner + 2 * N, unit=1)
+
+    return {"in_proj": (1, proj), "conv_w": (1, conv), "conv_b": (0, conv),
+            "A_log": (0, heads), "D": (0, heads), "dt_bias": (0, heads),
+            "gn": (0, own), "out_proj": (0, own)}
+
+
+def mamba2_block_apply(p, cfg: ArchConfig, x, state=None, *, chunk=64, scan_impl="chunked",
+                       layout=None):
     """state: None (fresh) or dict(conv (B,K-1,C), h (B,H,N,hd)).  S > 1 runs
     the chunked scan; S == 1 with a state runs the decode step.  Returns
-    (x', new_state)."""
-    B, S, d = x.shape
+    (x', new_state).  With a :class:`DSharded` ``layout`` (the module
+    docstring) ``x`` is the rank's d block, ``p`` its blocks of the layer,
+    and ``state`` and the new state whole on every model rank."""
     d_inner, H, hd, N = _mamba_dims(cfg)
+    split = None if layout is None else _HeadSplit(layout, H, hd)
+    inner = d_inner
+    if split is not None:
+        p = split.view(p, mamba2_block_meta(cfg), _mamba2_picks(cfg, split))
+        H = split.hi - split.lo
+        inner = H * hd
+    xw = x if split is None else split.gather(x)
+    B, S, d = xw.shape
     decode = state is not None and S == 1
 
-    xa = norm_apply(p["ln"], cfg, x)
+    xa = norm_apply(p["ln"], cfg, xw)
     proj = xa @ p["in_proj"]
-    z, xbc, dt_raw = torch.split(proj, [d_inner, d_inner + 2 * N, H], dim=-1)
+    z, xbc, dt_raw = torch.split(proj, [inner, inner + 2 * N, H], dim=-1)
 
-    conv_prev = (
-        torch.zeros((B, cfg.ssm.conv - 1, d_inner + 2 * N), dtype=xbc.dtype, device=x.device)
-        if state is None else state["conv"].to(xbc.dtype)
-    )
+    if state is None:
+        conv_prev = torch.zeros((B, cfg.ssm.conv - 1, inner + 2 * N), dtype=xbc.dtype,
+                                device=x.device)
+    else:
+        conv_prev = state["conv"].to(xbc.dtype)
+        if split is not None:
+            conv_prev = torch.cat([conv_prev[..., split.chans], conv_prev[..., d_inner:]], -1)
     xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_prev)
     xbc = F.silu(xbc.to(F32)).to(x.dtype)
-    xin, Bmat, Cmat = torch.split(xbc, [d_inner, N, N], dim=-1)
+    xin, Bmat, Cmat = torch.split(xbc, [inner, N, N], dim=-1)
 
     dt_a = F.softplus(dt_raw.to(F32) + p["dt_bias"])            # (B,S,H)
     a = torch.exp(-torch.exp(p["A_log"])[None, None] * dt_a)    # (B,S,H) decay
@@ -408,6 +585,8 @@ def mamba2_block_apply(p, cfg: ArchConfig, x, state=None, *, chunk=64, scan_impl
     wh = a.transpose(1, 2)[..., None].to(xh.dtype)             # (B,H,S,1)
 
     h0 = None if state is None else state["h"]
+    if h0 is not None and split is not None:
+        h0 = h0[:, split.heads].contiguous()
     if decode:
         y1, hT = linear_scan_step(qh[:, :, 0], kh[:, :, 0], vh[:, :, 0], wh[:, :, 0], h0)
         y = y1[:, :, None, :]
@@ -417,14 +596,21 @@ def mamba2_block_apply(p, cfg: ArchConfig, x, state=None, *, chunk=64, scan_impl
                       scan_impl=scan_impl)
 
     y = y.to(F32) + p["D"][None, :, None, None] * xh.to(F32)
-    y = y.transpose(1, 2).reshape(B, S, d_inner)
+    y = y.transpose(1, 2).reshape(B, S, inner)
 
-    # gated RMSNorm (f32 gate), then the out projection
+    # gated RMSNorm (f32 gate), then the out projection; d-sharded, its
+    # variance sums every rank's channels
     y = y * F.silu(z.to(F32))
-    var = torch.mean(y * y, dim=-1, keepdim=True)
+    if split is None:
+        var = torch.mean(y * y, dim=-1, keepdim=True)
+    else:
+        var = C.psum(torch.sum(y * y, dim=-1, keepdim=True), split.mesh, "model") / d_inner
     y = y * torch.rsqrt(var + 1e-6) * p["gn"]
-    out = y.to(x.dtype) @ p["out_proj"]
-    return x + out, {"conv": conv_state, "h": hT}
+    if split is not None:  # every head's state, whole on every model rank
+        conv_state = torch.cat([split.whole_heads(conv_state[..., :inner], 2, hd),
+                                conv_state[..., inner:].detach()], -1)
+        hT = split.whole_heads(hT, 1)
+    return x + _onto_block(y.to(x.dtype) @ p["out_proj"], split), {"conv": conv_state, "h": hT}
 
 
 def mamba2_state_init(cfg: ArchConfig, batch: int, dtype, device):

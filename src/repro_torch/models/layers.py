@@ -21,7 +21,9 @@ runs the MoE FFN on a rank's rows of a (data, model) mesh with explicit
 collectives (:mod:`repro_torch.parallel.collectives`).
 
 A layer on a mesh takes its place there as one ``layout=`` argument: a
-:class:`SeqParallel` or a :class:`StripedCache`, each holding the mesh.
+:class:`SeqParallel` or a :class:`StripedCache`, each holding the mesh (the
+recurrent blocks take a :class:`DSharded` one, ``blocks``' module
+docstring).
 
 **The sequence-parallel layout** (:class:`SeqParallel`: the mesh, and the
 position of this rank's first token): ``x`` is the rank's
@@ -78,6 +80,14 @@ class SeqParallel(NamedTuple):
 
     mesh: Any
     start: int
+
+
+class DSharded(NamedTuple):
+    """A rank's place in the d-sharded layout of the recurrent stacks
+    (``blocks``' module docstring): the mesh, whose "model" axis splits the
+    residual's d and deals each layer's heads."""
+
+    mesh: Any
 
 
 class StripedCache(NamedTuple):

@@ -30,7 +30,8 @@ mamba2 layers and the shared block) and each layer of its mamba2 tail
 ("pod", "data", "model"), whose data axes are every axis but "model", or a
 ``MeshDescription`` standing for one device, with ``meta`` tensors, for the
 dry run): ``params`` are this rank's blocks, each laid out by its spec
-(:meth:`LM.pspecs`), and ``tokens`` this rank's rows.  Three layouts:
+(:meth:`LM.pspecs`), and ``tokens`` this rank's rows.  Four layouts (:meth:`LM.layout` names the
+prefill's and the loss's):
 
 * **Sequence parallel** (``run["sp"]``, on by default on a mesh, as the
   reference's ``build_run``; the attention stacks: dense, moe, audio, vlm;
@@ -52,13 +53,37 @@ dry run): ``params`` are this rank's blocks, each laid out by its spec
   for its backward: ``_GatheredXent``).
   :meth:`hidden_states` returns the rank's token block, :meth:`prefill`
   the last token's logits on every rank.
-* **Gathered whole** (prefill and loss with ``sp`` off, and the recurrent
-  stacks ssm and hybrid whatever ``sp`` says): :meth:`LM.mesh_params`
+* **d-sharded** (``run["sp"]``; the recurrent stacks: ssm and hybrid;
+  prefill and loss; the reference's ``P(dp, None, "model")`` residual).
+  Between layers the rank at model index m holds the d columns
+  [m d / M, (m + 1) d / M) of its rows' residual, (B / D, S, d / M): the
+  embedding, gathered where it is used and alike on every model rank, is
+  split to that block (backward an all-gather), and each layer's
+  checkpoint stores only that block.  Each layer gathers its own weights
+  inside its checkpoint and deals its H heads over "model" in contiguous
+  ranges [⌊H m / M⌋, ⌊H (m + 1) / M⌋) (rwkv6-3b's 40 over 16: 2, 3, 2, 3,
+  ...): the normed input gathered whole along d (backward a
+  reduce-scatter), the projections onto the rank's heads' channels, the
+  scan over its heads, and the output's partial reduce-scattered onto its d
+  block (``blocks``' module docstring).  No leaf of such a layer is read
+  alike: a leaf whose "model" block is the rank's channels stays that
+  block, every other is gathered whole with its gradient summed over
+  "model" and sliced.  The hybrid's shared attention block runs on the
+  residual gathered whole along d (backward one's own block), its weights
+  whole and alike on every model rank, and the rank keeps its d block of
+  its output (backward an all-gather).  The final hidden is gathered along d
+  before ``ln_f`` (backward one's own block); ``ln_f`` and the head, and so
+  the loss, are alike on every model rank, its count and sum over the data
+  axes only.  :meth:`hidden_states` returns the hidden of the rank's rows
+  whole, :meth:`prefill` the last token's logits; the new states leave
+  whole on every model rank (each layer's head blocks gathered at its end,
+  padded to ⌈H / M⌉ heads for the all-gather and trimmed), so the decode
+  handoff is as on one device.
+* **Gathered whole** (prefill and loss with ``sp`` off): :meth:`LM.mesh_params`
   gathers the dense weights whole for the call (their backward a
   reduce-scatter over the data axes and one's own block over "model", whose
   ranks compute them alike), the MoE experts left as blocks for
-  ``moe_apply_shardmap``.  The recurrent stacks' d-sharded residual is
-  later work.
+  ``moe_apply_shardmap``.
 * **Striped cache** (every decode step on a mesh).  The cache is the
   rank's blocks by ``launch.shardings.cache_pspecs``
   (``shardings.decode_cache`` allocates them): its rows, the K/V rings'
@@ -91,7 +116,8 @@ without a mesh those raise ``ValueError``, and so does an MoE model on a
 mesh without them (the global dispatch would need every rank's tokens).
 The loss is the global batch's on every rank: each rank's cross-entropy
 sum over its tokens over the token count summed over the data axes (and
-"model" in the sequence-parallel layout), summed over the same axes in the
+"model" in the sequence-parallel layout, whose model ranks hold other
+tokens), summed over the same axes in the
 forward (the identity backward: each rank's gradient is its own share),
 plus the data-mean balancing loss.  ``run["attn_seq_shard"]`` (the
 reference's pins of its sequence-parallel attention) is taken and changes
@@ -141,9 +167,18 @@ def _layer(blocks, i: int):
     return tree_map(lambda a: a[i], blocks)
 
 
-def _mesh_of(sp):
-    """The mesh of the sequence-parallel layout ``sp``; None outside it."""
-    return None if sp is None else sp.mesh
+def _mesh_of(place):
+    """The mesh of a layout (:class:`~repro_torch.models.layers.SeqParallel`
+    or :class:`~repro_torch.models.layers.DSharded`); None outside one."""
+    return None if place is None else place.mesh
+
+
+def _view_of(place) -> str:
+    """How the embedding, ``ln_f`` and the head are read in a layout
+    (``collectives.param_view``'s ``model``): alike on every model rank in
+    the d-sharded one, whose model ranks hold the same tokens there; summed
+    over "model" in the sequence-parallel one."""
+    return "alike" if isinstance(place, L.DSharded) else "whole"
 
 
 def ring_record(cache, device):
@@ -242,28 +277,39 @@ class LM:
                              f"run[{key!r}] (the global dispatch needs every rank's tokens)")
         return shard
 
-    def uses_sp_layout(self, run) -> bool:
-        """Whether the model runs in the sequence-parallel layout: an
-        attention stack on a mesh with ``run["sp"]``."""
-        return run.get("mesh") is not None and bool(run.get("sp")) and self.block_kind == "attn"
-
-    def _seq_parallel(self, run, seq_len: int):
-        """This rank's place in the sequence-parallel layout
-        (:class:`~repro_torch.models.layers.SeqParallel`), None outside it;
-        raises ``ValueError`` where the ``seq_len`` tokens do not divide
-        over "model"."""
-        if not self.uses_sp_layout(run):
+    def layout(self, run):
+        """The layout a prefill or a loss runs in on ``run["mesh"]`` (the
+        module docstring): ``"sequence-parallel"`` (an attention stack with
+        ``run["sp"]``), ``"d-sharded"`` (a recurrent stack with
+        ``run["sp"]``), ``"gathered-whole"`` (``sp`` off); None without a
+        mesh."""
+        if run.get("mesh") is None:
             return None
-        return L.SeqParallel(run["mesh"], token_range(run["mesh"], seq_len)[0])
+        if not run.get("sp"):
+            return "gathered-whole"
+        return "sequence-parallel" if self.block_kind == "attn" else "d-sharded"
+
+    def _placement(self, run, seq_len: int):
+        """This rank's place in its layout: a
+        :class:`~repro_torch.models.layers.SeqParallel` (raises
+        ``ValueError`` where the ``seq_len`` tokens do not divide over
+        "model"), a :class:`~repro_torch.models.layers.DSharded`, or None
+        (no mesh, or gathered whole)."""
+        layout = self.layout(run)
+        if layout == "sequence-parallel":
+            return L.SeqParallel(run["mesh"], token_range(run["mesh"], seq_len)[0])
+        if layout == "d-sharded":
+            return L.DSharded(run["mesh"])
+        return None
 
     def mesh_params(self, params, run):
         """The parameters as the forward reads them on ``run["mesh"]``
-        (``params`` unchanged without one).  In the sequence-parallel layout
-        they stay the rank's blocks: each layer gathers its own inside its
-        checkpointed function, the embedding, ``ln_f`` and the head are
-        gathered where used (see the module docstring).  Otherwise
-        :meth:`_gathered`."""
-        if run.get("mesh") is None or self.uses_sp_layout(run):
+        (``params`` unchanged without one).  In the sequence-parallel and
+        d-sharded layouts they stay the rank's blocks: each layer gathers
+        its own inside its checkpointed function, the embedding, ``ln_f``
+        and the head are gathered where used (see the module docstring).
+        Otherwise :meth:`_gathered`."""
+        if self.layout(run) in (None, "sequence-parallel", "d-sharded"):
             return params
         return self._gathered(params, run["mesh"])
 
@@ -286,16 +332,17 @@ class LM:
 
         return walk(params, specs, ())
 
-    def _whole(self, params, name: str, mesh, only=None):
+    def _whole(self, params, name: str, mesh, only=None, model: str = "whole"):
         """``params[name]`` (the embedding or ``ln_f``) gathered whole over
-        ``mesh`` where it is used (the sequence-parallel layout and the
-        striped-cache decode), its gradient summed over every axis (of the
-        embedding, only the leaves ``only`` names: the table for a lookup,
-        the head for the logits); as it is without a mesh."""
+        ``mesh`` where it is used (the sequence-parallel and d-sharded
+        layouts and the striped-cache decode), its gradient summed over the
+        data axes and, as ``model`` says (``collectives.param_view``), over
+        "model" (of the embedding, only the leaves ``only`` names: the table
+        for a lookup, the head for the logits); as it is without a mesh."""
         if mesh is None:
             return params[name]
         specs = self.pspecs(multi_pod=is_multi_pod(mesh))[name]
-        return {k: tree_map(lambda t, s: C.param_view(t, s, mesh, model="whole"),
+        return {k: tree_map(lambda t, s: C.param_view(t, s, mesh, model=model),
                             params[name][k], specs[k]) if only is None or k in only
                 else params[name][k] for k in sorted(params[name])}
 
@@ -328,9 +375,9 @@ class LM:
         ``memory`` (B, M, d) the vlm's image tokens."""
         run = {**DEFAULT_RUN, **(run or {})}
         shard = self._check_engine(run, "sp")
-        sp = self._seq_parallel(run, tokens.shape[1])
+        place = self._placement(run, tokens.shape[1])
         return self._forward(self.mesh_params(params, run), tokens, memory, run, positions,
-                             states, shard, sp)
+                             states, shard, place)
 
     def prefill(self, params, tokens, *, memory=None, run=None, states=None):
         """The prefill step's forward: :meth:`hidden_states` and the last
@@ -340,27 +387,35 @@ class LM:
         (B, 1, n_codebooks, Vp), aux, new_states)."""
         run = {**DEFAULT_RUN, **(run or {})}
         shard = self._check_engine(run, "sp")
-        sp = self._seq_parallel(run, tokens.shape[1])
+        place = self._placement(run, tokens.shape[1])
         params = self.mesh_params(params, run)
         hid, aux, new_states = self._forward(params, tokens, memory, run, None, states, shard,
-                                             sp)
+                                             place)
         last = hid[:, -1:]
-        if sp is not None:
-            last = C.all_gather(last, sp.mesh, "model", 1)[:, -1:]
-        head = {"embed": self._whole(params, "embed", _mesh_of(sp), self._head_leaves())}
+        if isinstance(place, L.SeqParallel):
+            last = C.all_gather(last, place.mesh, "model", 1)[:, -1:]
+        head = {"embed": self._whole(params, "embed", _mesh_of(place), self._head_leaves(),
+                                     _view_of(place))}
         return self._logits(head, last), aux, new_states
 
-    def _forward(self, params, tokens, memory, run, positions, states, shard, sp=None):
+    def _forward(self, params, tokens, memory, run, positions, states, shard, place=None,
+                 keep_states=True):
         """:meth:`hidden_states` on the parameters' view of
-        :meth:`mesh_params`; with ``sp``, on the rank's token block."""
+        :meth:`mesh_params`; in a :class:`~repro_torch.models.layers.SeqParallel`
+        ``place``, on the rank's token block; in a
+        :class:`~repro_torch.models.layers.DSharded` one, the residual the
+        rank's d block between the embedding and ``ln_f``.  Without
+        ``keep_states`` (the loss) no layer's new state is kept."""
         cfg = self.cfg
+        sp = place if isinstance(place, L.SeqParallel) else None
+        mesh, view = _mesh_of(place), _view_of(place)
         if sp is not None:
             stop = sp.start + tokens.shape[1] // axis_size(sp.mesh, "model")
             tokens = tokens[:, sp.start:stop]
             positions = (torch.arange(sp.start, stop, device=tokens.device) if positions is None
                          else positions[..., sp.start:stop])
             memory = self._sp_memory(memory, sp.mesh)
-        x = L.embed_apply(self._whole(params, "embed", _mesh_of(sp), ("tok",)), cfg, tokens)
+        x = L.embed_apply(self._whole(params, "embed", mesh, ("tok",), view), cfg, tokens)
         if self.block_kind == "attn":
             if not cfg.rope:
                 pos = positions if positions is not None else torch.arange(x.shape[1],
@@ -369,9 +424,14 @@ class LM:
             x, aux = self._attn_stack(params, x, memory, run, positions, shard, sp)
             new_states = None
         else:
-            x, new_states = self._recurrent_stack(params, x, run, positions, states)
+            if place is not None:  # d-sharded: the rank's d block from here on
+                x = C.split(x, mesh, "model", 2)
+            x, new_states = self._recurrent_stack(params, x, run, positions, states, place,
+                                                  keep_states)
+            if place is not None:  # alike on every model rank from here on
+                x = C.gather(x, mesh, "model", 2, grad="slice")
             aux = 0.0
-        x = L.norm_apply(self._whole(params, "ln_f", _mesh_of(sp)), cfg, x)
+        x = L.norm_apply(self._whole(params, "ln_f", mesh, model=view), cfg, x)
         return x, aux, new_states
 
     def _attn_block(self, p, x, run, positions, moe=False, shard=False, sp=None):
@@ -426,18 +486,36 @@ class LM:
         n_head = (self.cfg.n_layers // every) * every
         return (i + 1) % every == 0 and i < n_head
 
-    def _recurrent_stack(self, params, x, run, positions, states):
+    def _recurrent_stack(self, params, x, run, positions, states, place=None,
+                         keep_states=True):
         """rwkv6 layers (ssm), or zamba2's groups of ``every`` mamba2 layers
         each followed by the shared attention block, then the mamba2 tail
-        (hybrid).  Returns (x, stacked new states)."""
+        (hybrid).  Returns (x, stacked new states; None without
+        ``keep_states``, and then no layer's state outlives it).  In a
+        :class:`~repro_torch.models.layers.DSharded` ``place`` ``x`` is the
+        rank's d block: each layer gathers its own weights and deals its
+        heads (``blocks``' module docstring), each gathering its new state
+        whole at its end, and the shared block runs on the residual
+        gathered whole, its weights whole and alike on every model rank, the
+        rank keeping its d block of its output."""
         cfg = self.cfg
         hybrid = self.block_kind == "mamba2"
         apply = B.mamba2_block_apply if hybrid else B.rwkv6_block_apply
         blocks = _unstack(params["blocks"], cfg.n_layers)
+        mesh = _mesh_of(place)
 
         def layer(i, x):
             st = None if states is None else _layer(states, i)
-            return apply(blocks[i], cfg, x, state=st, scan_impl=run["scan_impl"])
+            x, ns = apply(blocks[i], cfg, x, state=st, scan_impl=run["scan_impl"], layout=place)
+            return x, ns if keep_states else None
+
+        def shared(x):
+            if place is None:
+                return self._attn_block(params["shared_attn"], x, run, positions)[0]
+            p = B.whole_block_view(params["shared_attn"], B.attn_block_meta(cfg), mesh)
+            x = self._attn_block(p, C.gather(x, mesh, "model", 2, grad="slice"), run,
+                                 positions)[0]
+            return C.split(x, mesh, "model", 2)
 
         def group(i0, i1, x):
             new = []
@@ -445,7 +523,7 @@ class LM:
                 x, ns = layer(i, x)
                 new.append(ns)
             if hybrid and self._shared_after(i1 - 1):
-                x, _ = self._attn_block(params["shared_attn"], x, run, positions)
+                x = shared(x)
             return x, new
 
         # the checkpointed spans: each group of the hybrid's head, else one layer
@@ -457,6 +535,8 @@ class LM:
         for i0, i1 in spans:
             x, ns = _remat(run, lambda x, i0=i0, i1=i1: group(i0, i1, x), x)
             new += ns
+        if not keep_states:
+            return x, None
         return x, {name: torch.stack([ns[name] for ns in new]) for name in new[0]}
 
     def init_recurrent_states(self, batch: int, dtype):
@@ -491,26 +571,28 @@ class LM:
         run = {**DEFAULT_RUN, **(run or {})}
         shard = self._check_engine(run, "sp")
         tokens = batch["tokens"]
-        sp = self._seq_parallel(run, tokens.shape[1])
+        place = self._placement(run, tokens.shape[1])
         params = self.mesh_params(params, run)
         states = self.init_recurrent_states(tokens.shape[0], cfg.param_dtype)
         hid, aux, _ = self._forward(params, tokens, batch.get("memory"), run, None, states,
-                                    shard, sp)
+                                    shard, place, keep_states=False)
         targets, mask = batch["targets"], batch.get("mask")
-        if sp is None:
+        if place is None:
             tot, cnt = _xent_sums(params["embed"], cfg, hid, targets, mask,
                                   chunk=run["loss_chunk"])
         else:
-            # the rank's tokens' targets; the head gathered once for the
-            # forward and once for the backward, alive only while each runs
-            own = slice(sp.start, sp.start + hid.shape[1])
-            targets, mask = targets[:, own], None if mask is None else mask[:, own]
+            # the head gathered once for the forward and once for the
+            # backward, alive only while each runs; in the sequence-parallel
+            # layout, on the rank's tokens' targets
+            if isinstance(place, L.SeqParallel):
+                own = slice(place.start, place.start + hid.shape[1])
+                targets, mask = targets[:, own], None if mask is None else mask[:, own]
             embed = params["embed"]
 
             def whole(blocks):
                 it = iter(blocks)
                 return self._whole({"embed": tree_map(lambda _: next(it), embed)}, "embed",
-                                   sp.mesh, self._head_leaves())
+                                   place.mesh, self._head_leaves(), _view_of(place))
 
             tot = _GatheredXent.apply(hid, targets, mask, cfg, run["loss_chunk"], whole,
                                       *tree_leaves(embed))
@@ -518,8 +600,11 @@ class LM:
         if run.get("mesh") is None:
             nll = tot / torch.clamp(cnt, min=1.0)
         else:
+            # every model rank holds the same tokens but in the
+            # sequence-parallel layout
             mesh = run["mesh"]
-            axes = data_axes(mesh) if sp is None else tuple(axis_sizes(mesh))
+            axes = (tuple(axis_sizes(mesh)) if isinstance(place, L.SeqParallel)
+                    else data_axes(mesh))
             cnt = C.all_reduce(cnt.detach(), mesh, axes)
             nll = C.reduce_forward(tot / torch.clamp(cnt, min=1.0), mesh, axes)
         return nll + 0.01 * aux

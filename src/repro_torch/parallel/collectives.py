@@ -31,7 +31,13 @@ The autograd versions (Megatron's pairs):
 * :func:`reduce_forward` — forward a sum over the axes, backward the
   identity (a partial result completed, then used alike on every rank);
 * :func:`reduce_backward` — forward the identity, backward a sum (a value
-  alike on every rank entering a computation each rank does in part).
+  alike on every rank entering a computation each rank does in part);
+* :func:`split` — forward one's own block, backward an all-gather (a tensor
+  alike on every rank, each rank going on with its block of it: the
+  d-sharded layout's embedding and shared attention block);
+* :func:`psum` — forward a sum over the axes, backward a sum (a partial
+  completed, then used by each rank in its own way: the d-sharded mamba2
+  block's gated norm, whose variance sums every rank's channels).
 
 **On a description.**  Given a
 :class:`~repro_torch.parallel.mesh.MeshDescription` (with the coordinate of
@@ -203,6 +209,28 @@ class _ReduceBackward(torch.autograd.Function):
         return all_reduce(g, ctx.mesh, ctx.names), None, None
 
 
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, names, dim):
+        ctx.mesh, ctx.names, ctx.dim = mesh, names, dim
+        return own_block(x, mesh, names, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.mesh, ctx.names, ctx.dim), None, None, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, names):
+        ctx.mesh, ctx.names = mesh, names
+        return all_reduce(x, mesh, names)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.mesh, ctx.names), None, None
+
+
 def gather(x: torch.Tensor, mesh, names, dim: int, *, grad: str = "sum") -> torch.Tensor:
     """All-gather along ``dim`` over the axes; its backward is a
     reduce-scatter (``grad="sum"``) or one's own block (``grad="slice"``)."""
@@ -224,6 +252,21 @@ def scatter(x: torch.Tensor, mesh, names, dim: int) -> torch.Tensor:
 def reduce_forward(x: torch.Tensor, mesh, names) -> torch.Tensor:
     """Sum over the axes forward, identity backward."""
     return _ReduceForward.apply(x, mesh, names)
+
+
+def split(x: torch.Tensor, mesh, names, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` over the axes; its backward
+    is an all-gather."""
+    if axis_size(mesh, names) == 1:
+        return x
+    return _Split.apply(x, mesh, names, dim)
+
+
+def psum(x: torch.Tensor, mesh, names) -> torch.Tensor:
+    """Sum over the axes forward and backward."""
+    if axis_size(mesh, names) == 1:
+        return x
+    return _Psum.apply(x, mesh, names)
 
 
 def reduce_backward(x: torch.Tensor, mesh, names) -> torch.Tensor:

@@ -98,6 +98,13 @@ def token_range(mesh, seq_len: int) -> tuple:
     return start, start + seq_len // n
 
 
+def dealt(total: int, n: int) -> list:
+    """(start, stop) of each of ``n`` ranks' contiguous share of ``total``
+    items (heads): rank ``m`` the items [⌊total·m/n⌋, ⌊total·(m+1)/n⌋), so
+    the shares differ by at most one where ``n`` does not divide ``total``."""
+    return [(total * m // n, total * (m + 1) // n) for m in range(n)]
+
+
 def first_split_dim(shape, n: int, start: int):
     """The first dim of ``shape`` from ``start`` on that ``n`` ranks split:
     one that ``n`` divides and that is at least ``n`` long; None where no

@@ -29,8 +29,8 @@ Per device of a mesh (``--mesh production``):
   summed flops (the prefill, and one microbatch's loss and gradients)
   equal the one-device count of the same rows within 2%, the counted
   argument bytes equal the specs' on every rank, and the collectives are
-  counted by kind; zamba2 (hybrid) is counted in the gathered-whole
-  layout;
+  counted by kind; zamba2 (hybrid) is counted in the d-sharded layout,
+  and with ``sp`` off in the gathered-whole one;
 * a decode cell in the striped-cache layout: qwen2-7b ``decode_32k`` on
   the production mesh is ``ok``, its argument bytes its specs', its K/V
   blocks the whole cache's over 256; on a (2, 4) description each smoke
@@ -288,11 +288,17 @@ def test_model_ranks_sum_to_the_one_device_count():
 def test_mesh_cells_name_their_layout_and_skip_decode():
     desc = MeshDescription((2, 4), ("data", "model"))
     cfg = get_smoke_config("zamba2-1.2b")
-    r = dryrun.run_cell("zamba2-1.2b", dict(seq_len=64, global_batch=8, kind="prefill"),
-                        mesh=desc, cfg=cfg, verbose=False)
-    assert r["status"] == "ok" and r["layout"] == "gathered-whole"
+    cell = dict(seq_len=64, global_batch=8, kind="prefill")
+    r = dryrun.run_cell("zamba2-1.2b", cell, mesh=desc, cfg=cfg, verbose=False)
+    assert r["status"] == "ok" and r["layout"] == "d-sharded"
     assert r["device"] == {"data": 0, "model": 3}
     assert r["memory"]["argument_bytes"] == r["spec_argument_bytes"]
+    # with sp off, every dense weight gathered whole for the step
+    w = dryrun.run_cell("zamba2-1.2b", cell, mesh=desc, cfg=cfg, verbose=False,
+                        run_overrides={"sp": False})
+    assert w["status"] == "ok" and w["layout"] == "gathered-whole"
+    assert w["memory"]["argument_bytes"] == w["spec_argument_bytes"] == r["spec_argument_bytes"]
+    assert r["collective_counts"]["all-gather"] > w["collective_counts"]["all-gather"]
     # a decode cell runs in the striped-cache layout
     mesh = make_production_mesh()
     r = dryrun.run_cell("qwen2-7b", "decode_32k", mesh=mesh, verbose=False)

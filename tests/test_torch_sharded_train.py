@@ -7,10 +7,19 @@ step's parts, so that its gradients are seen; the second a whole call):
 
 * the loss, and every gradient leaf gathered whole, within 2e-5 (relative
   L2 a leaf, as ``test_torch_train.py`` compares leaves) of the one-device
-  oracle, and the parameters and the optimizer state after each update
-  within 2e-5 the same way (Adam's first steps divide a gradient by its own
-  size, so an element whose gradient is near zero moves by up to the
-  learning rate on a rounding of it: no element-wise bound holds there);
+  oracle, and each update the same way: the state after step 1 against one
+  device's, and the state after step 2 against one device's step 2 from the
+  mesh's own state after step 1 (Adam's first step divides a gradient by
+  its own size, so an element whose gradient is near its eps moves by a
+  good part of the learning rate on a rounding of it, and step 2's
+  gradients are taken at those parameters).  A leaf that starts at zero
+  (zamba2's ``A_log``, ``conv_b``, ``dt_bias``) is after step 1 that update
+  alone, -lr · g / (|g| + eps) an element with g clipped: each of its
+  elements, and of its f32 master copy, is held to twice the bound
+  lr · |a - b| / (min(|a|, |b|) + eps) from the two clipped gradients a and
+  b, the rule of ``test_torch_tp.py``.  zamba2 runs in the default layout on
+  a mesh, d-sharded (``models/lm.py``), and once more in the gathered-whole
+  one (``sp`` off; the case ``zamba2-1.2b|1|gathered-whole``);
 * each rank holds only its blocks (``local_shape`` of each leaf's spec);
 * a checkpoint of the parameters and the optimizer state saved on (2, 2)
   gathers its leaves one at a time, a stacked leaf one layer at a time, no
@@ -62,6 +71,9 @@ from repro_torch.parallel.spec import local_shape, local_shard
 ARCHS = ["granite-moe-3b-a800m", "zamba2-1.2b"]
 ACCUMS = [1, 2]
 CASES = [(a, n) for a in ARCHS for n in ACCUMS]
+# the steps: each case in the default layout, and zamba2 gathered whole
+STEP_CASES = [(a, n, True) for a, n in CASES] + [("zamba2-1.2b", 1, False)]
+STEP_IDS = [f"{a}|{n}" + ("" if sp else "|gathered-whole") for a, n, sp in STEP_CASES]
 STEP_OPT = dict(warmup_steps=1, lr=1e-3, grad_dtype=None)
 B, SEQ, TOL = 4, 16, 2e-5
 REPRO_TOL, REPRO_SMALL = 2e-4, 1e-6  # test_torch_train.py's against repro
@@ -113,13 +125,13 @@ def _rank(rank, world, tmp):
     mesh41 = make_host_mesh((4, 1), device_type="cpu")
     d = mesh.get_local_rank("data")
     out = {}
-    for arch, accum in CASES:
+    for (arch, accum, sp), key in zip(STEP_CASES, STEP_IDS):
         cfg = get_smoke_config(arch)
         specs = _specs(cfg)
         params = tree_map(lambda t, s: local_shard(t, s, mesh), _params(cfg), specs["params"])
         opt = adamw_init(params)
         step, _, _ = build_train_step(cfg, accum=accum, opt_cfg=AdamWConfig(**STEP_OPT),
-                                      device="cpu", mesh=mesh)
+                                      device="cpu", mesh=mesh, run_overrides={"sp": sp})
         rows = data_rows(B, accum, 2, d)
         b1 = {k: v[rows] for k, v in _batch(cfg, 1).items()}
         b2 = {k: v[rows] for k, v in _batch(cfg, 2).items()}
@@ -133,8 +145,8 @@ def _rank(rank, world, tmp):
         grads = [(g / accum).numpy() for g in gsum]
         params, opt, m1 = step.finish(params, opt, gsum, loss)
         p1 = [t.numpy() for t in tree_leaves(params)]
+        s1 = [t.numpy() for t in tree_leaves({"params": params, "opt": opt})]
         params, opt, m2 = step(params, opt, b2)
-        key = f"{arch}|{accum}"
         tree = {"params": params, "opt": opt}
         # this rank's blocks (the test puts them together by coordinate)
         out[key] = {
@@ -142,9 +154,10 @@ def _rank(rank, world, tmp):
             "grad_norm": [float(m1["grad_norm"]), float(m2["grad_norm"])],
             "grads": grads,
             "params1": p1,
+            "state1": s1,
             "state2": [t.numpy() for t in tree_leaves(tree)],
         }
-        if accum == 2:
+        if accum == 2 and sp:
             import repro_torch.checkpoint.store as ST
 
             store = CheckpointStore(f"{tmp}/{arch}")
@@ -255,67 +268,87 @@ def repro_step(tmp_path_factory):
     return out
 
 
+def _one_device_step(arch, accum, params, opt, seed):
+    """One device's step from ``params`` and ``opt`` on the global batch of
+    ``seed``: (params, opt, loss, the step's gradient leaves)."""
+    cfg = get_smoke_config(arch)
+    opt_cfg = AdamWConfig(**STEP_OPT)
+    b = _batch(cfg, seed)
+    if cfg.moe is None:
+        step, _, _ = build_train_step(cfg, accum=accum, opt_cfg=opt_cfg, device="cpu")
+        rows = B // accum
+        gsum, loss = step.begin(params), 0.0
+        for i in range(accum):
+            mb = {k: torch.as_tensor(v[i * rows:(i + 1) * rows]) for k, v in b.items()}
+            loss = loss + step.microbatch(params, mb, gsum)
+        grads = [(g / accum).numpy() for g in gsum]
+        params, opt, m = step.finish(params, opt, gsum, loss)
+        return params, opt, float(m["loss"]), grads
+    model = LM(cfg, device="cpu")
+    b = {k: torch.as_tensor(v) for k, v in b.items()}
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    it = iter(leaves)
+    p = tree_map(lambda _: next(it), params)
+    total = 0.0
+    per = B // accum
+    for i in range(accum):
+        tot = cnt = 0.0
+        auxes = []
+        for dd in range(2):
+            r = slice(i * per + dd * per // 2, i * per + (dd + 1) * per // 2)
+            hid, aux, _ = model.hidden_states(p, b["tokens"][r], run={"remat": False})
+            t, c = _xent_sums(p["embed"], cfg, hid, b["targets"][r], b["mask"][r], chunk=512)
+            tot, cnt = tot + t, cnt + c
+            auxes.append(aux)
+        total = total + tot / cnt + 0.01 * sum(auxes) / 2
+    total = total / accum
+    grads = torch.autograd.grad(total, leaves)
+    it = iter(grads)
+    params, opt, _ = adamw_update(opt_cfg, params, tree_map(lambda _: next(it), params), opt)
+    return params, opt, float(total.detach()), [g.numpy() for g in grads]
+
+
 _ORACLE = {}
 
 
 def _oracle(arch, accum):
-    """(losses, step-1 gradient leaves, params after step 1, the state tree
-    after step 2), on one device."""
+    """(losses, step-1 gradient leaves, params and the state tree after
+    step 1, the state tree after step 2), on one device."""
     if (arch, accum) in _ORACLE:
         return _ORACLE[(arch, accum)]
-    cfg = get_smoke_config(arch)
-    opt_cfg = AdamWConfig(**STEP_OPT)
-    params = _params(cfg)
+    params = _params(get_smoke_config(arch))
     opt = adamw_init(params)
     out = {"loss": []}
-    if cfg.moe is None:
-        step, _, _ = build_train_step(cfg, accum=accum, opt_cfg=opt_cfg, device="cpu")
-        rows = B // accum
-        for seed in (1, 2):
-            b = _batch(cfg, seed)
-            gsum, loss = step.begin(params), 0.0
-            for i in range(accum):
-                mb = {k: torch.as_tensor(v[i * rows:(i + 1) * rows]) for k, v in b.items()}
-                loss = loss + step.microbatch(params, mb, gsum)
-            if seed == 1:
-                out["grads"] = [(g / accum).numpy() for g in gsum]
-            params, opt, m = step.finish(params, opt, gsum, loss)
-            out["loss"].append(float(m["loss"]))
-            if seed == 1:
-                out["params1"] = [t.numpy() for t in tree_leaves(params)]
-    else:
-        model = LM(cfg, device="cpu")
-        for seed in (1, 2):
-            b = {k: torch.as_tensor(v) for k, v in _batch(cfg, seed).items()}
-            leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
-            it = iter(leaves)
-            p = tree_map(lambda _: next(it), params)
-            total = 0.0
-            per = B // accum
-            for i in range(accum):
-                tot = cnt = 0.0
-                auxes = []
-                for dd in range(2):
-                    r = slice(i * per + dd * per // 2, i * per + (dd + 1) * per // 2)
-                    hid, aux, _ = model.hidden_states(p, b["tokens"][r], run={"remat": False})
-                    t, c = _xent_sums(p["embed"], cfg, hid, b["targets"][r], b["mask"][r],
-                                      chunk=512)
-                    tot, cnt = tot + t, cnt + c
-                    auxes.append(aux)
-                total = total + tot / cnt + 0.01 * sum(auxes) / 2
-            total = total / accum
-            grads = torch.autograd.grad(total, leaves)
-            if seed == 1:
-                out["grads"] = [g.numpy() for g in grads]
-            it = iter(grads)
-            params, opt, _ = adamw_update(opt_cfg, params, tree_map(lambda _: next(it), params),
-                                          opt)
-            out["loss"].append(float(total.detach()))
-            if seed == 1:
-                out["params1"] = [t.numpy() for t in tree_leaves(params)]
+    for seed in (1, 2):
+        params, opt, loss, grads = _one_device_step(arch, accum, params, opt, seed)
+        out["loss"].append(loss)
+        if seed == 1:
+            out["grads"] = grads
+            out["params1"] = [t.numpy() for t in tree_leaves(params)]
+            out["state1"] = [t.numpy() for t in tree_leaves({"params": params, "opt": opt})]
     out["state2"] = [t.numpy() for t in tree_leaves({"params": params, "opt": opt})]
     _ORACLE[(arch, accum)] = out
     return out
+
+
+def _step2_from_the_mesh(arch, accum, key, ranks):
+    """One device's step 2 from the mesh's state after step 1 (the ranks'
+    blocks put together): the state tree's leaves after it."""
+    cfg = get_smoke_config(arch)
+    whole = _assemble([ranks[r][key]["state1"] for r in range(4)], tree_leaves(_specs(cfg)))
+    shapes = LM(cfg, device="meta").shapes()
+    it = iter(whole)
+    tree = tree_map(lambda _: torch.from_numpy(np.array(next(it))),
+                    {"params": shapes, "opt": adamw_init(shapes)})
+    params, opt, _, _ = _one_device_step(arch, accum, tree["params"], tree["opt"], 2)
+    return [t.numpy() for t in tree_leaves({"params": params, "opt": opt})]
+
+
+def _paths(tree, prefix: str = "") -> list:
+    """The "/"-joined key paths of a tree, in its leaves' order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _paths(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
 
 
 def _rel_l2(got, want):
@@ -384,30 +417,56 @@ def _one_thread(one_thread):
     """The oracles on one torch thread (``_torch_parity.one_thread``)."""
 
 
-@pytest.mark.parametrize("case", CASES, ids=[f"{a}|{n}" for a, n in CASES])
+@pytest.mark.parametrize("case", STEP_CASES, ids=STEP_IDS)
 def test_loss_and_gradients_match_one_device(ranks, case):
     """The loss, and each rank's blocks of every gradient leaf (together the
     whole of it) against the oracle's."""
-    want = _oracle(*case)
+    want = _oracle(*case[:2])
     specs = tree_leaves(_specs(get_smoke_config(case[0]))["params"])
     for rank in range(4):
-        got = ranks[rank][f"{case[0]}|{case[1]}"]
+        got = ranks[rank][STEP_IDS[STEP_CASES.index(case)]]
         np.testing.assert_allclose(got["loss"], want["loss"], rtol=TOL)
         _close_leaves(got["grads"], _blocks(want["grads"], specs, rank), f"grads rank {rank}")
 
 
-@pytest.mark.parametrize("case", CASES, ids=[f"{a}|{n}" for a, n in CASES])
+@pytest.mark.parametrize("case", STEP_CASES, ids=STEP_IDS)
 def test_updates_match_one_device(ranks, case):
-    want = _oracle(*case)
-    specs = _specs(get_smoke_config(case[0]))
+    """Each update against one device's (the module docstring): every leaf
+    of the state after step 1 against the oracle's, a leaf that starts at
+    zero (and its master copy) element by element; the state after step 2
+    against one device's step 2 from the mesh's state after step 1."""
+    arch, accum, _ = case
+    key = STEP_IDS[STEP_CASES.index(case)]
+    cfg = get_smoke_config(arch)
+    want = _oracle(arch, accum)
+    specs = _specs(cfg)
+    opt = AdamWConfig(**STEP_OPT)
+    start = _params(cfg)
+    names = _paths(start)
+    zero = {n for n, t in zip(names, tree_leaves(start)) if not t.any()}
+    assert zero == ({"blocks/A_log", "blocks/conv_b", "blocks/dt_bias"} if cfg.moe is None
+                    else set())
+    state_names = _paths({"params": start, "opt": adamw_init(start)})
+    after = _step2_from_the_mesh(arch, accum, key, ranks)
+    norm_one = np.sqrt(sum(float(np.square(g.astype(np.float64)).sum()) for g in want["grads"]))
     for rank in range(4):
-        got = ranks[rank][f"{case[0]}|{case[1]}"]
-        _close_leaves(got["params1"], _blocks(want["params1"], tree_leaves(specs["params"]), rank),
-                      f"params after step 1, rank {rank}")
-        _close_leaves(got["state2"], _blocks(want["state2"], tree_leaves(specs), rank),
+        got = ranks[rank][key]
+        wanted = _blocks(want["grads"], tree_leaves(specs["params"]), rank)
+        for g, w, n in zip(got["state1"], _blocks(want["state1"], tree_leaves(specs), rank),
+                           state_names):
+            leaf = n.split("/", 1)[1] if n.startswith("params/") else n[len("opt/master/"):]
+            if leaf not in zero:
+                _close_leaves([g], [w], f"{n} after step 1, rank {rank}")
+                continue
+            j = names.index(leaf)
+            a = got["grads"][j].astype(np.float64) * min(1.0, opt.clip_norm / got["grad_norm"][0])
+            b = wanted[j].astype(np.float64) * min(1.0, opt.clip_norm / norm_one)
+            bound = opt.lr * np.abs(a - b) / (np.minimum(np.abs(a), np.abs(b)) + opt.eps)
+            err = np.abs(g.astype(np.float64) - w)
+            assert (err <= 2 * bound + 1e-6 * opt.lr).all(), (n, rank, float(err.max()))
+        _close_leaves(got["state2"], _blocks(after, tree_leaves(specs), rank),
                       f"state after step 2, rank {rank}")
-        np.testing.assert_allclose(got["grad_norm"], ranks[0][f"{case[0]}|{case[1]}"]["grad_norm"],
-                                   rtol=0, atol=0)
+        np.testing.assert_allclose(got["grad_norm"], ranks[0][key]["grad_norm"], rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("accum", ACCUMS)
